@@ -8,19 +8,33 @@ Run from the repository root on a machine with one CUDA device:
 Phases (any failure exits non-zero; no phase catches its own failure):
   1. the card: name and power limit from nvidia-smi;
   2. build the Hopper kernels from m3t_tpu_torch/csrc and hold each against its plain
-     PyTorch twin at the flagship shapes, on inputs the flagship path produces
-     (sample_lines ratio mode at kp 120/80/40/24, bins mode at LP=512 kp=24; bin_counts
-     at (512, 6144, 4096)); ints and ratio samples must be equal exactly;
-  3. the flagship cycle, bench.py's default workload: B=512 bodies, 640x512 frames,
-     200 lines, scales {6,4,2,1}, 5 correspondence x 2 update iterations, histogram
-     adaptation, the committed sphere model, run eagerly through initialize_histograms
-     and tracking_cycle; the kernels' launch counts are asserted, the poses must be
-     finite and within 5 mm of the rendered pose;
-  4. card against CPU at B=8: initialize_histograms, then 3 cycles, each started on both
-     devices from the same state; poses and histograms within atol 1e-4.
+     PyTorch twin at the flagship shapes, on inputs the flagship paths produce
+     (sample_lines ratio mode at kp 136/120/80/40/24, the scales of every path driven
+     below, bins mode at LP=512 kp=24; bin_counts
+     at (512, 6144, 4096); sample_windows at (LP, kp) = (2304, 16), (1024, 8), (640, 8)
+     for the correspondence windows and (1280, 8) for the measured-occlusion windows);
+     every result must equal its twin exactly;
+  3. the flagship region cycle, bench.py's default workload: B=512 bodies, 640x512
+     frames, 200 lines, scales {6,4,2,1}, 5 correspondence x 2 update iterations,
+     histogram adaptation, the committed sphere model, run eagerly through
+     initialize_histograms and tracking_cycle;
+  4. the flagship RGB-D (ICG) cycle, bench.py --rgbd: phase 3 plus 200 depth points per
+     body on a depth frame rendered at the initial pose (depth scale 1 mm, depth
+     intrinsics equal to the colour ones), through tracking_cycle_rgbd;
+  5. the YCB-Video parameters without texture terms (bench.py --ycb minus texture):
+     scales {7,4,2}, sigma {25,15,10}, 4x2 iterations, measured occlusions on both
+     modalities, B=512;
+     in phases 3-5 every kernel launch count is set to 0 just before the path runs and
+     asserted just after; poses must be finite and within 5 mm of the rendered pose;
+  6. card against CPU at B=8, for the region cycle and for the RGB-D cycle with
+     measured occlusions on: initialize_histograms, then 3 cycles, each started on both
+     devices from the same state; poses and histograms within atol 1e-4.  The RGB-D
+     check's depth frame has a wall 0.3 m from the camera over its left half, and the
+     card's measured-occlusion masks must drop region lines and depth points there.
 The last two lines are the kernels JSON and {"ok": true, "device": {...}}.  With
---profile, one window of flagship cycles is also traced with torch.profiler: the device
-busy share is logged and the table of device time by operation is written to TABLE_FILE.
+--profile, one window of region cycles and one of RGB-D cycles are also traced with
+torch.profiler: the device busy share is logged and the tables of device time by
+operation are written to TABLE_FILE and to TABLE_FILE with "_rgbd" before its suffix.
 """
 
 from __future__ import annotations
@@ -40,10 +54,16 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: device memory rate
 FP32_OPS_PER_S = 67e12     # H100 SXM data sheet: float32 outside the tensor cores
 # Scalar operations per element, read off the kernels' source: sample_lines does
 # 2 mul, 3 add/sub, 1 floor and 4 min/max per output sample; bin_counts a mask test,
-# two range compares and one add per input sample.
-SAMPLE_LINES_OPS, BIN_COUNTS_OPS = 10, 4
-WIDTH, HEIGHT, N_LINES, N_BODIES = 640, 512, 200, 512
-SOURCE = "m3t_tpu_torch/csrc/region_kernels.cu"
+# two range compares and one add per input sample; sample_windows 1 mul, 1 add and
+# 2 min/max per output sample.
+SAMPLE_LINES_OPS, BIN_COUNTS_OPS, SAMPLE_WINDOWS_OPS = 10, 4, 4
+# Rows of each kernel's (B, rows, LP) params that it reads: sample_lines R0, S0, STEP,
+# UDOM and DIR of 8; sample_windows U0, ROW and STRIDE of 4.
+SAMPLE_LINES_PARAM_ROWS, SAMPLE_WINDOWS_PARAM_ROWS = 5, 3
+WIDTH, HEIGHT, N_LINES, N_POINTS, N_BODIES = 640, 512, 200, 200, 512
+DEPTH_SCALE = 0.001
+REGION_SOURCE = "m3t_tpu_torch/csrc/region_kernels.cu"
+DEPTH_SOURCE = "m3t_tpu_torch/csrc/depth_kernels.cu"
 
 
 def log(msg: str) -> None:
@@ -76,9 +96,10 @@ def bound(n_bytes: int, n_ops: int) -> dict:
 
 
 def flagship_inputs(device, n_bodies: int):
-    """bench.py's flagship frame, model, config and jittered initial poses."""
+    """bench.py's flagship frames, models, configs and jittered initial poses."""
     from m3t_tpu_torch import pipeline
     from m3t_tpu_torch.common import Intrinsics
+    from m3t_tpu_torch.ops.depth_fn import DepthConfig
     from m3t_tpu_torch.ops.region_fn import RegionConfig
     from m3t_tpu_torch.utils import procedural
 
@@ -86,38 +107,86 @@ def flagship_inputs(device, n_bodies: int):
         cfg=RegionConfig(n_lines_max=N_LINES), scales=(6, 4, 2, 1),
         standard_deviations=(15.0, 5.0, 3.5, 1.5), n_corr_iterations=5,
         n_update_iterations=2)
+    rgbd_pcfg = pcfg._replace(use_depth=True, depth_cfg=DepthConfig(n_points_max=N_POINTS))
+    # evaluate_ycb_dataset.cpp:46-117 as bench.py --ycb sets it, without texture terms.
+    ycb_pcfg = rgbd_pcfg._replace(
+        scales=(7, 4, 2), standard_deviations=(25.0, 15.0, 10.0), n_corr_iterations=4,
+        region_measure_occlusions=True, depth_measure_occlusions=True)
     intr_t = Intrinsics(520.0, 520.0, WIDTH / 2 - 0.5, HEIGHT / 2 - 0.5, WIDTH, HEIGHT)
     intr = (intr_t.fu, intr_t.fv, intr_t.ppu, intr_t.ppv)
     rng = np.random.default_rng(0)
     pose0 = np.eye(4, dtype=np.float32)
     pose0[2, 3] = 0.6
-    frame = procedural.render_synthetic_color_frame(
-        procedural.sphere_triangles(0.06, 2), intr_t, pose0, noise_rng=rng)
+    triangles = procedural.sphere_triangles(0.06, 2)
+    frame = procedural.render_synthetic_color_frame(triangles, intr_t, pose0, noise_rng=rng)
+    depth_frame = procedural.render_synthetic_depth_frame(triangles, intr_t, pose0,
+                                                          DEPTH_SCALE)
     planar = np.ascontiguousarray(np.moveaxis(frame, -1, 0))
     poses = np.tile(pose0, (n_bodies, 1, 1))
     poses[:, 0, 3] += rng.uniform(-0.004, 0.004, n_bodies).astype(np.float32)
     poses[:, 1, 3] += rng.uniform(-0.004, 0.004, n_bodies).astype(np.float32)
-    npz = Path(pipeline.__file__).parent / "data" / "bench_sphere_region_model.npz"
-    model = pipeline.RegionModelArrays.from_npz(str(npz), N_LINES, device=device)
-    images = torch.as_tensor(planar, device=device)
-    return dict(pcfg=pcfg, intr=intr, pose0=pose0, poses=poses, model=model, images=images)
+    data = Path(pipeline.__file__).parent / "data"
+    model = pipeline.RegionModelArrays.from_npz(
+        str(data / "bench_sphere_region_model.npz"), N_LINES, device=device)
+    depth_model = pipeline.DepthModelArrays.from_npz(
+        str(data / "bench_sphere_depth_model.npz"), N_POINTS, device=device)
+    return dict(pcfg=pcfg, rgbd_pcfg=rgbd_pcfg, ycb_pcfg=ycb_pcfg, intr=intr, pose0=pose0,
+                poses=poses, model=model, depth_model=depth_model,
+                images=torch.as_tensor(planar, device=device),
+                depth_images=torch.as_tensor(depth_frame, device=device))
 
 
 def batch_of(inp, n_bodies: int, device):
-    images = inp["images"].to(device)
-    return (inp["model"].expand(n_bodies),
-            images.expand((n_bodies,) + images.shape),
-            torch.as_tensor(inp["poses"][:n_bodies], device=device))
+    """The models and frames of one body, broadcast (as views) to n_bodies, on device."""
+    def models(m):
+        return type(m)(*(a.to(device) for a in m)).expand(n_bodies)
+
+    def frames(x):
+        x = x.to(device)
+        return x.expand((n_bodies,) + x.shape)
+
+    return dict(model=models(inp["model"]), depth_model=models(inp["depth_model"]),
+                images=frames(inp["images"]), depth_images=frames(inp["depth_images"]),
+                poses=torch.as_tensor(inp["poses"][:n_bodies], device=device))
+
+
+def region_cycle(inp, bt, state):
+    from m3t_tpu_torch import pipeline
+
+    return pipeline.tracking_cycle(inp["pcfg"], inp["intr"], bt["images"], bt["model"],
+                                   state)
+
+
+def rgbd_cycle(pcfg_key):
+    def cycle(inp, bt, state):
+        from m3t_tpu_torch import pipeline
+
+        return pipeline.tracking_cycle_rgbd(
+            inp[pcfg_key], inp["intr"], inp["intr"], DEPTH_SCALE, bt["images"],
+            bt["depth_images"], bt["model"], bt["depth_model"], state)
+    return cycle
+
+
+def launch_counters():
+    from m3t_tpu_torch.ops import depth_fast as df
+    from m3t_tpu_torch.ops import region_fast as rf
+
+    return {"sample_lines": rf.sample_lines, "bin_counts": rf.bin_counts,
+            "sample_windows": df.sample_windows}
 
 
 def check_kernels(inp):
-    """Phase 2: every kernel against its plain twin at the flagship shapes."""
+    """Phase 2: every kernel against its plain twin at the flagship shapes.  Each row's
+    ``per_cycle`` is its number of calls in one flagship cycle of its path (region for
+    sample_lines and bin_counts, RGB-D for sample_windows; 0: YCB parameters only)."""
     from m3t_tpu_torch import pipeline
+    from m3t_tpu_torch.ops import depth_fast as df
     from m3t_tpu_torch.ops import region_fast as rf
 
     dev = torch.device("cuda")
     pcfg, intr, cfg = inp["pcfg"], inp["intr"], inp["pcfg"].cfg
-    model, images, poses = batch_of(inp, N_BODIES, dev)
+    bt = batch_of(inp, N_BODIES, dev)
+    model, images, poses = bt["model"], bt["images"], bt["poses"]
     state = pipeline.initialize_histograms(pcfg, intr, images, model, poses)
     bin_crop, cu, cv = pipeline._prepare_crops(pcfg, intr, images, poses)
     rtab = rf.ratio_table(state.histogram_f, state.histogram_b)
@@ -125,7 +194,7 @@ def check_kernels(inp):
     c = pcfg.crop_size
     b = N_BODIES
 
-    def k1_case(name, params, table, kp, output):
+    def k1_case(name, params, table, kp, output, per_cycle):
         got = rf.sample_lines(params, bin_crop, table, kp, output)
         want = rf.sample_lines_plain(params, bin_crop, table, kp, output)
         torch.cuda.synchronize()
@@ -133,9 +202,9 @@ def check_kernels(inp):
         if not torch.equal(got, want):
             raise AssertionError(f"sample_lines {name}: kernel != plain (max diff {err})")
         touched = torch.unique(rf.staircase_index(params, c, kp)).numel()
-        n_bytes = (params.numel() * 4 + touched * 4 + got.numel() * 4
-                   + (table.numel() * 4 if output == "ratio" else 0))
-        return dict(kernel="sample_lines", case=name, max_abs_err=err,
+        n_bytes = (b * SAMPLE_LINES_PARAM_ROWS * params.shape[-1] * 4 + touched * 4
+                   + got.numel() * 4 + (table.numel() * 4 if output == "ratio" else 0))
+        return dict(kernel="sample_lines", case=name, per_cycle=per_cycle, max_abs_err=err,
                     ms=time_ms(lambda: rf.sample_lines(params, bin_crop, table, kp, output),
                                20),
                     plain_ms=time_ms(
@@ -143,17 +212,21 @@ def check_kernels(inp):
                     library_ms=None, **bound(n_bytes, SAMPLE_LINES_OPS * got.numel()))
 
     shapes = []
-    # One cycle runs scales 6, 4, 2, 1, 1 in ratio mode, then one bins-mode walk.
-    for scale in pcfg.scales:
+    # One region cycle runs scales 6, 4, 2, 1, 1 in ratio mode, then one bins-mode walk;
+    # the YCB parameters add scale 7 (per_cycle 0: not on the region path).
+    configs = (pcfg, inp["rgbd_pcfg"], inp["ycb_pcfg"])
+    for scale in sorted(set().union(*(p.scales for p in configs)), reverse=True):
         geo = rf.line_geometry(cfg, scale, points, N_LINES, poses, *intr, WIDTH, HEIGHT,
                                cu, cv, c, pcfg.lp)
         kp = rf.round_up(cfg.line_length_in_segments * scale, 8)
-        shapes.append(k1_case(f"ratio kp={kp} LP={pcfg.lp}", geo.params, rtab, kp, "ratio"))
-    shapes.append(dict(shapes[-1], case=shapes[-1]["case"] + " (2nd call)"))
+        calls = sum(pcfg.iteration_scale(i)[0] == scale
+                    for i in range(pcfg.n_corr_iterations))
+        shapes.append(k1_case(f"ratio kp={kp} LP={pcfg.lp}", geo.params, rtab, kp,
+                              "ratio", calls))
     params, mask = rf.histogram_walk_geometry(cfg, points, N_LINES, poses, *intr, WIDTH,
                                               HEIGHT, cu, cv, c, 2 * pcfg.lp)
     kp2 = mask.shape[-1]
-    shapes.append(k1_case(f"bins kp={kp2} LP={2 * pcfg.lp}", params, None, kp2, "bins"))
+    shapes.append(k1_case(f"bins kp={kp2} LP={2 * pcfg.lp}", params, None, kp2, "bins", 1))
 
     bins = rf.sample_lines(params, bin_crop, None, kp2, "bins").transpose(1, 2)
     half = pcfg.lp
@@ -173,78 +246,120 @@ def check_kernels(inp):
         n_bytes = k2_bins.numel() * 4 + k2_mask.numel() + got.numel() * 4
         shapes.append(dict(
             kernel="bin_counts", case=f"{side} B={b} N={k2_bins.shape[1]} bins={n_total}",
-            max_abs_err=err,
+            per_cycle=1, max_abs_err=err,
             ms=time_ms(lambda: rf.bin_counts(k2_bins, k2_mask, n_total), 20),
             plain_ms=time_ms(lambda: rf.bin_counts_plain(k2_bins, k2_mask, n_total), 5),
             **bound(n_bytes, BIN_COUNTS_OPS * k2_bins.numel()),
             library_ms=time_ms(lambda: torch.bincount(offset, minlength=b * (n_total + 1)),
                                20)))
+
+    # sample_windows on the RGB-D path's depth crops and selected depth views.  The
+    # crop is gathered from the uint16 frames (through their int16 view) as the cycle
+    # gathers it.
+    rgbd, ycb = inp["rgbd_pcfg"], inp["ycb_pcfg"]
+    depth_crop, dcu, dcv = df.depth_crops(bt["depth_images"], poses, *intr, c)
+    centers = pipeline._select_depth_view(bt["depth_model"], poses).center_f_body
+
+    def k3_case(name, u_min, v_min, stride, k, per_cycle):
+        params, _ = df.window_params(u_min, v_min, stride, dcu, dcv, k)
+        kp = rf.round_up(k, 8)
+        got = df.sample_windows(params, depth_crop, kp)
+        want = df.sample_windows_plain(params, depth_crop, kp)
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs().max().item()
+        if not torch.equal(got, want):
+            raise AssertionError(f"sample_windows {name}: kernel != plain (max diff {err})")
+        index = df.window_index(params, c, kp)
+        n_bytes = (b * SAMPLE_WINDOWS_PARAM_ROWS * params.shape[-1] * 4
+                   + torch.unique(index).numel() * 4 + got.numel() * 4)
+        return dict(kernel="sample_windows", case=f"{name} K={k} kp={kp} LP={params.shape[-1]}",
+                    per_cycle=per_cycle, max_abs_err=err,
+                    ms=time_ms(lambda: df.sample_windows(params, depth_crop, kp), 20),
+                    plain_ms=time_ms(lambda: df.sample_windows_plain(params, depth_crop, kp),
+                                     5),
+                    library_ms=time_ms(lambda: torch.take(depth_crop, index), 20),
+                    **bound(n_bytes, SAMPLE_WINDOWS_OPS * got.numel()))
+
+    for cd in sorted(set(rgbd.considered_distances) | set(ycb.considered_distances),
+                     reverse=True):
+        u_min, v_min, stride, k = df.correspondence_windows(rgbd.depth_cfg, cd, centers,
+                                                           poses, *intr)
+        calls = sum(rgbd.iteration_depth(i)[0] == cd for i in range(rgbd.n_corr_iterations))
+        shapes.append(k3_case(f"correspondence cd={cd}", u_min, v_min, stride, k, calls))
+    u_min, v_min, _, _, stride = df.occlusion_windows(
+        rgbd.depth_cfg.measured_occlusion_radius, False, centers, poses, *intr, WIDTH,
+        HEIGHT)
+    shapes.append(k3_case("measured occlusion", u_min, v_min, stride,
+                          df.KMAX_N_OCCLUSION_STRIDES + 1, 0))
     for s in shapes:
-        log(f"{s['kernel']:<12} {s['case']:<38} ms {s['ms']:.4f}  plain {s['plain_ms']:.4f}"
-            f"  bound {s['bound_ms']:.4f}  max_abs_err {s['max_abs_err']}")
+        library = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f}"
+        log(f"{s['kernel']:<14} {s['case']:<44} x{s['per_cycle']} ms {s['ms']:.4f}"
+            f"  plain {s['plain_ms']:.4f}  bound {s['bound_ms']:.4f}  library {library}"
+            f"  max_abs_err {s['max_abs_err']}")
     return shapes
 
 
-def run_flagship(inp, n_windows: int = 3, cycles_per_window: int = 5):
-    """Phase 3: the flagship cycle, counted and timed."""
+def run_path(label, inp, cycle, want_per_cycle, want_at_init, n_windows=3,
+             cycles_per_window=5, n_warmup=2):
+    """Phases 3-5: initialize_histograms and the path's cycles at B=512, with every
+    kernel launch counted from 0, and the steady cycles timed."""
     from m3t_tpu_torch import pipeline
-    from m3t_tpu_torch.ops import region_fast as rf
 
     dev = torch.device("cuda")
-    pcfg, intr = inp["pcfg"], inp["intr"]
-    model, images, poses = batch_of(inp, N_BODIES, dev)
+    bt = batch_of(inp, N_BODIES, dev)
+    counters = launch_counters()
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rf.sample_lines.launches = 0
-    rf.bin_counts.launches = 0
-    state = pipeline.initialize_histograms(pcfg, intr, images, model, poses)
-    n_cycles = 0
-    for _ in range(2):  # warm-up
-        state = pipeline.tracking_cycle(pcfg, intr, images, model, state)
-        n_cycles += 1
+    for fn in counters.values():
+        fn.launches = 0
+    state = pipeline.initialize_histograms(inp["pcfg"], inp["intr"], bt["images"],
+                                           bt["model"], bt["poses"])
+    for _ in range(n_warmup):
+        state = cycle(inp, bt, state)
     torch.cuda.synchronize()
     window_s = []
     for _ in range(n_windows):
         begin = time.perf_counter()
         for _ in range(cycles_per_window):
-            state = pipeline.tracking_cycle(pcfg, intr, images, model, state)
-            n_cycles += 1
+            state = cycle(inp, bt, state)
         torch.cuda.synchronize()
         window_s.append(time.perf_counter() - begin)
-    launches = {"sample_lines": rf.sample_lines.launches, "bin_counts": rf.bin_counts.launches}
-    want = {"sample_lines": 1 + 6 * n_cycles, "bin_counts": 2 + 2 * n_cycles}
+    launches = {name: fn.launches for name, fn in counters.items()}
+    n_cycles = n_warmup + n_windows * cycles_per_window
+    want = {name: want_at_init.get(name, 0) + n * n_cycles
+            for name, n in want_per_cycle.items()}
     if launches != want:
-        raise AssertionError(f"kernel launches {launches}, expected {want}")
+        raise AssertionError(f"{label}: kernel launches {launches}, expected {want}")
 
     pose = state.body2camera_pose.cpu().numpy()
     if not np.all(np.isfinite(pose)) or not torch.isfinite(state.histogram_f).all():
-        raise AssertionError("non-finite tracking state")
+        raise AssertionError(f"{label}: non-finite tracking state")
     err = np.linalg.norm(pose[:, :3, 3] - inp["pose0"][:3, 3], axis=1)
     if not np.all(err < 0.005):
-        raise AssertionError(f"translation error up to {err.max()} m (limit 5 mm)")
+        raise AssertionError(f"{label}: translation error up to {err.max()} m (limit 5 mm)")
     ms_cycle = statistics.median(window_s) / cycles_per_window * 1e3
-    result = dict(bodies=N_BODIES, cycles=n_cycles, ms_per_cycle=ms_cycle,
+    result = dict(path=label, bodies=N_BODIES, cycles=n_cycles, ms_per_cycle=ms_cycle,
                   body_frames_per_s=N_BODIES / ms_cycle * 1e3,
                   window_ms_per_cycle=[w / cycles_per_window * 1e3 for w in window_s],
-                  max_translation_error_m=float(err.max()),
+                  max_translation_error_m=float(err.max()), launches=launches,
                   peak_memory_bytes=torch.cuda.max_memory_allocated())
-    log(f"flagship cycle: {json.dumps(result)}")
-    return result, launches, (model, images, state)
+    log(f"{label} cycle: {json.dumps(result)}")
+    return result, (bt, state)
 
 
-def profile_cycles(inp, tensors, table_file: Path, ms_per_cycle: float, n_cycles: int = 3):
+def profile_cycles(label, inp, cycle, tensors, table_file: Path, ms_per_cycle: float,
+                   n_cycles: int = 3):
     """--profile: device busy time and kernel time by name over a traced window.  The
     idle share is given against the traced wall time and against ms_per_cycle, the
     untraced time (tracing slows the host, which this cycle waits on)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from m3t_tpu_torch import pipeline
-
-    model, images, state = tensors
+    bt, state = tensors
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         begin = time.perf_counter()
         for _ in range(n_cycles):
-            state = pipeline.tracking_cycle(inp["pcfg"], inp["intr"], images, model, state)
+            state = cycle(inp, bt, state)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - begin
     events = prof.key_averages()
@@ -261,7 +376,7 @@ def profile_cycles(inp, tensors, table_file: Path, ms_per_cycle: float, n_cycles
                 else "self_cuda_time_total")
     table_file.parent.mkdir(parents=True, exist_ok=True)
     table_file.write_text(events.table(sort_by=sort_key, row_limit=40))
-    summary = dict(cycles=n_cycles, wall_ms_per_cycle=wall_s / n_cycles * 1e3,
+    summary = dict(path=label, cycles=n_cycles, wall_ms_per_cycle=wall_s / n_cycles * 1e3,
                    device_busy_ms_per_cycle=busy_us / n_cycles / 1e3,
                    device_idle_share=1.0 - busy_us / 1e6 / wall_s,
                    device_idle_share_untraced=1.0 - busy_us / 1e3 / n_cycles / ms_per_cycle,
@@ -270,8 +385,53 @@ def profile_cycles(inp, tensors, table_file: Path, ms_per_cycle: float, n_cycles
     log(f"profile: {json.dumps(summary)}")
 
 
-def check_card_against_cpu(inp, n_bodies: int = 8, n_cycles: int = 3):
-    """Phase 4: the same small batch on the card and on the CPU (plain twins).
+def walled(inp):
+    """inp with a wall 0.3 m from the camera over the left half of the depth frame: it
+    hides half of the sphere, so measured occlusions drop lines and points."""
+    depth = inp["depth_images"].clone()
+    depth[:, :WIDTH // 2] = round(0.3 / DEPTH_SCALE)
+    return dict(inp, depth_images=depth)
+
+
+def check_occlusions_drop(inp, device="cuda", n_bodies: int = 8):
+    """Phase 6: at the initial poses, the measured-occlusion masks of inp's RGB-D config
+    must drop some region lines (against no occlusion check) and some depth points
+    (against the same correspondences without it)."""
+    from m3t_tpu_torch import pipeline
+    from m3t_tpu_torch.ops import depth_fast as df
+    from m3t_tpu_torch.ops import region_fast as rf
+
+    pcfg, intr = inp["rgbd_pcfg"], inp["intr"]
+    bt = batch_of(inp, n_bodies, device)
+    poses = bt["poses"]
+    handle = torch.ones(n_bodies, dtype=torch.bool, device=device)
+    crop, dcu, dcv = df.depth_crops(bt["depth_images"], poses, *intr, pcfg.crop_size)
+    depth = pipeline._DepthInputs(bt["depth_images"], intr, DEPTH_SCALE, bt["depth_model"],
+                                  crop, dcu, dcv)
+    _, cu, cv = pipeline._prepare_crops(pcfg, intr, bt["images"], poses)
+    points = pipeline._select_view_cl(bt["model"], poses)
+
+    def n_lines(measured):
+        return int(rf.line_geometry(
+            pcfg.cfg, pcfg.scales[0], points, N_LINES, poses, *intr, WIDTH, HEIGHT, cu, cv,
+            pcfg.crop_size, pcfg.lp, measured_occlusion=measured,
+            handle_occlusions=handle).valid.sum())
+
+    def n_points(measure):
+        return int(pipeline._depth_terms(pcfg._replace(depth_measure_occlusions=measure),
+                                         depth, 0, poses, handle).valid.sum())
+
+    lines = (n_lines(None),
+             n_lines(pipeline._region_measured_occlusion(pcfg, depth, points, poses)))
+    kept = (n_points(False), n_points(True))
+    log(f"measured occlusions at B={n_bodies}: valid region lines {lines[0]} -> {lines[1]}, "
+        f"valid depth points {kept[0]} -> {kept[1]}")
+    if not (lines[1] < lines[0] and kept[1] < kept[0]):
+        raise AssertionError("measured occlusions dropped no region line or no depth point")
+
+
+def check_card_against_cpu(label, inp, cycle, n_bodies: int = 8, n_cycles: int = 3):
+    """Phase 6: the same small batch on the card and on the CPU (plain twins).
 
     Each cycle starts both devices from the same state (the CPU's), so the check holds
     the card to what the CPU computes for that cycle.  Left to run freely, the two
@@ -281,50 +441,72 @@ def check_card_against_cpu(inp, n_bodies: int = 8, n_cycles: int = 3):
     """
     from m3t_tpu_torch import pipeline
 
-    pcfg, intr = inp["pcfg"], inp["intr"]
-    setups = {}
-    for dev in ("cuda", "cpu"):
-        model_1 = pipeline.RegionModelArrays(*(a.to(dev) for a in inp["model"]))
-        setups[dev] = batch_of(dict(inp, model=model_1), n_bodies, dev)
+    setups = {dev: batch_of(inp, n_bodies, dev) for dev in ("cuda", "cpu")}
     names = ("pose", "histogram_f", "histogram_b")
 
     def max_diffs(a, b):
         return {n: float((x.cpu() - y.cpu()).abs().max()) for n, x, y in zip(names, a, b)}
 
     def init(dev):
-        model, images, poses = setups[dev]
-        return pipeline.initialize_histograms(pcfg, intr, images, model, poses)
+        bt = setups[dev]
+        return pipeline.initialize_histograms(inp["pcfg"], inp["intr"], bt["images"],
+                                              bt["model"], bt["poses"])
 
-    def cycle(dev, state):
-        model, images, _ = setups[dev]
-        return pipeline.tracking_cycle(
-            pcfg, intr, images, model, pipeline.TrackingState(*(a.to(dev) for a in state)))
+    def run(dev, state):
+        return cycle(inp, setups[dev], pipeline.TrackingState(*(a.to(dev) for a in state)))
 
     cpu = init("cpu")
     worst = max_diffs(init("cuda"), cpu)
     free = {"cuda": cpu, "cpu": cpu}
     for _ in range(n_cycles):
-        card = cycle("cuda", cpu)
-        cpu = cycle("cpu", cpu)
+        card = run("cuda", cpu)
+        cpu = run("cpu", cpu)
         worst = {n: max(worst[n], d) for n, d in max_diffs(card, cpu).items()}
-        free = {dev: cycle(dev, st) for dev, st in free.items()}
-    log(f"card vs CPU at B={n_bodies}, {n_cycles} cycles from equal states: "
+        free = {dev: run(dev, st) for dev, st in free.items()}
+    log(f"{label}: card vs CPU at B={n_bodies}, {n_cycles} cycles from equal states: "
         f"max abs diff {worst}")
     pose0_t = inp["pose0"][:3, 3]
-    log(f"free-running {n_cycles} cycles: max abs diff {max_diffs(free['cuda'], free['cpu'])}"
-        "; translation error mm "
+    log(f"{label}: free-running {n_cycles} cycles: max abs diff "
+        f"{max_diffs(free['cuda'], free['cpu'])}; translation error mm "
         + json.dumps({dev: [round(float(e) * 1e3, 3) for e in np.linalg.norm(
             st.body2camera_pose[:, :3, 3].cpu().numpy() - pose0_t, axis=1)]
             for dev, st in free.items()}))
     if not all(d <= 1e-4 for d in worst.values()):
-        raise AssertionError(f"card and CPU disagree beyond atol 1e-4: {worst}")
+        raise AssertionError(f"{label}: card and CPU disagree beyond atol 1e-4: {worst}")
+
+
+def kernel_line(shapes, paths):
+    """The kernels JSON entries: times and bounds per flagship cycle of the kernel's
+    path (the sum over the cycle's calls), launches from that path's counted run."""
+    kernels = []
+    for name, source, replaces, path in (
+            ("sample_lines", REGION_SOURCE, "m3t_tpu/ops/region_fast.py:232", "region"),
+            ("bin_counts", REGION_SOURCE, "m3t_tpu/ops/region_fast.py:723", "region"),
+            ("sample_windows", DEPTH_SOURCE, "m3t_tpu/ops/depth_fast.py:98", "rgbd")):
+        rows = [s for s in shapes if s["kernel"] == name]
+
+        def per_cycle(key, rows=rows):
+            return sum(s[key] * s["per_cycle"] for s in rows)
+
+        library = [s["library_ms"] for s in rows]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=paths[path]["launches"][name],
+            max_abs_err=max(s["max_abs_err"] for s in rows),
+            ms=per_cycle("ms"), plain_ms=per_cycle("plain_ms"),
+            bound_ms=per_cycle("bound_ms"),
+            bound_by=max(("bytes", "operations"), key=lambda by, rows=rows: sum(
+                s["bound_ms"] * s["per_cycle"] for s in rows if s["bound_by"] == by)),
+            library_ms=None if None in library else per_cycle("library_ms")))
+    return kernels
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", type=Path, metavar="TABLE_FILE",
-                        help="also trace a window of flagship cycles with torch.profiler "
-                             "and write its table to TABLE_FILE")
+                        help="also trace a window of region and of RGB-D cycles with "
+                             "torch.profiler and write their tables to TABLE_FILE and "
+                             "TABLE_FILE with '_rgbd' before its suffix")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -341,35 +523,44 @@ def main() -> int:
     so = _cuda.build()
     log(f"kernels built in {time.perf_counter() - begin:.1f} s: {so.name}")
     for line in so.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(key in line for key in ("==", "entry function", "registers", "spill",
+                                        "error")):
             log(f"ptxas: {line.strip()}")
 
     inp = flagship_inputs("cuda", N_BODIES)
     shapes = check_kernels(inp)
-    flagship, launches, tensors = run_flagship(inp)
+    region_launches = {"sample_lines": 6, "bin_counts": 2, "sample_windows": 0}
+    at_init = {"sample_lines": 1, "bin_counts": 2}
+    paths, tensors = {}, {}
+    paths["region"], tensors["region"] = run_path(
+        "region", inp, region_cycle, region_launches, at_init)
+    paths["rgbd"], tensors["rgbd"] = run_path(
+        "rgbd", inp, rgbd_cycle("rgbd_pcfg"), dict(region_launches, sample_windows=5),
+        at_init)
+    # YCB parameters: 4 correspondence iterations (scales 7, 4, 2, 2), each with one
+    # window fetch for the depth correspondences and one for the measured occlusions of
+    # either modality.
+    paths["ycb"], _ = run_path(
+        "ycb", inp, rgbd_cycle("ycb_pcfg"),
+        {"sample_lines": 5, "bin_counts": 2, "sample_windows": 12}, at_init, n_windows=1)
     if args.profile:
-        profile_cycles(inp, tensors, args.profile, flagship["ms_per_cycle"])
-    check_card_against_cpu(inp)
+        profile_cycles("region", inp, region_cycle, tensors["region"], args.profile,
+                       paths["region"]["ms_per_cycle"])
+        profile_cycles("rgbd", inp, rgbd_cycle("rgbd_pcfg"), tensors["rgbd"],
+                       args.profile.with_name(f"{args.profile.stem}_rgbd"
+                                              f"{args.profile.suffix}"),
+                       paths["rgbd"]["ms_per_cycle"])
+    check_card_against_cpu("region", inp, region_cycle)
+    occlusions = walled(dict(inp, rgbd_pcfg=inp["rgbd_pcfg"]._replace(
+        region_measure_occlusions=True, depth_measure_occlusions=True)))
+    check_occlusions_drop(occlusions)
+    check_card_against_cpu("rgbd with measured occlusions", occlusions,
+                           rgbd_cycle("rgbd_pcfg"))
 
-    kernels = []
-    for name, replaces in (("sample_lines", "m3t_tpu/ops/region_fast.py:232"),
-                           ("bin_counts", "m3t_tpu/ops/region_fast.py:723")):
-        rows = [s for s in shapes if s["kernel"] == name]
-        library = [s["library_ms"] for s in rows]
-        kernels.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=replaces,
-            launches=launches[name],
-            max_abs_err=max(s["max_abs_err"] for s in rows),
-            # Times and bounds are per flagship cycle: the sum over the cycle's calls.
-            ms=sum(s["ms"] for s in rows), plain_ms=sum(s["plain_ms"] for s in rows),
-            bound_ms=sum(s["bound_ms"] for s in rows),
-            bound_by=max(("bytes", "operations"), key=lambda by: sum(
-                s["bound_ms"] for s in rows if s["bound_by"] == by)),
-            library_ms=None if None in library else sum(library)))
     print(json.dumps({"kernel_shapes": shapes}))
-    print(json.dumps({"flagship": flagship, "card": card}))
+    print(json.dumps({"paths": paths, "card": card}))
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernel_line(shapes, paths)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 // Hopper kernels of the region tracking cycle, with a plain C interface (loaded through
-// ctypes by m3t_tpu_torch/ops/_cuda.py).  Build:
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC \
-//        -o libregion_kernels.so region_kernels.cu
+// ctypes by m3t_tpu_torch/ops/_cuda.py, which links every csrc/*.cu into one library).
+// Build:
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c -Xcompiler -fPIC \
+//        -o region_kernels.o region_kernels.cu
 // Every entry point launches on the caller's stream, never synchronizes, allocates
 // nothing, and returns cudaGetLastError() (0 on success).
 //

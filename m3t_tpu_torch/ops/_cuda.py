@@ -1,8 +1,9 @@
 """Build-at-first-use loader for the hand-written Hopper kernels in ``csrc/``.
 
-``nvcc`` compiles ``csrc/region_kernels.cu`` (plain C interface, no PyTorch headers, so
-the build takes seconds) into ``m3t_tpu_torch/_build/``, keyed by a hash of the source,
-and the library is loaded with ctypes.  Nothing here runs at import time: the CPU path
+``nvcc`` compiles every ``csrc/*.cu`` (plain C interfaces, no PyTorch headers, so each
+takes seconds), one process per source, all started together, and links the objects
+into one shared library in ``m3t_tpu_torch/_build/``, keyed by a hash of all sources.
+The library is loaded with ctypes.  Nothing here runs at import time: the CPU path
 never needs ``nvcc`` or a card.
 """
 
@@ -19,10 +20,11 @@ from pathlib import Path
 import torch
 
 _PACKAGE = Path(__file__).resolve().parent.parent
-SOURCE = _PACKAGE / "csrc" / "region_kernels.cu"
+SOURCES = tuple(sorted((_PACKAGE / "csrc").glob("*.cu")))
 BUILD_DIR = _PACKAGE / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -36,24 +38,42 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libregion_kernels_{tag}.so"
+    digest = hashlib.sha256()
+    for source in SOURCES:
+        digest.update(source.name.encode() + b"\0" + source.read_bytes())
+    return BUILD_DIR / f"libm3t_kernels_{digest.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the kernels unless a build of this exact source exists; returns the .so.
+    """Compile the kernels unless a build of these exact sources exists; returns the .so.
 
-    The compiler's resource report (``-Xptxas -v``) goes to ``<so>.log``."""
+    The compiler's resource reports (``-Xptxas -v``) go to ``<so>.log``."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True, check=False)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{source.stem}.o" for source in SOURCES]
+    procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(source)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for source, obj in zip(SOURCES, objects)]
+    logs = [f"== {source.name}\n{proc.communicate()[0]}"
+            for source, proc in zip(SOURCES, procs)]
+    failed = [source.name for source, proc in zip(SOURCES, procs) if proc.returncode != 0]
+    tmp = so.with_name(f"{tag}.so.tmp")
+    if not failed:
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objects)],
+                              capture_output=True, text=True, check=False)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("".join(logs))
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "".join(logs))
     os.replace(tmp, so)  # atomic: a concurrent process never loads a partial file
     return so
 
@@ -66,6 +86,8 @@ def library() -> ctypes.CDLL:
     lib.m3t_sample_lines.restype = i32
     lib.m3t_bin_counts.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.m3t_bin_counts.restype = i32
+    lib.m3t_sample_windows.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.m3t_sample_windows.restype = i32
     return lib
 
 

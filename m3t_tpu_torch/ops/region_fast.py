@@ -30,7 +30,8 @@ from typing import NamedTuple
 import torch
 
 from m3t_tpu_torch.ops import _cuda
-from m3t_tpu_torch.ops.region_fn import RegionConfig
+from m3t_tpu_torch.ops.region_fn import (MeasuredOcclusionInputs, RegionConfig,
+                                          _measured_occlusion_free)
 
 # Parameter-row indices of the staircase kernel input (region_fast.py:45-50).
 _ROW_R0 = 0     # dominant-axis start, crop coords (integer-valued f32)
@@ -111,6 +112,12 @@ def _check_sample_inputs(params, bin_crop, table, output):
     _require(len(devices) == 1, f"inputs on different devices: {devices}")
 
 
+def clamp_index(x, c: int):
+    """Crop index of float coordinates: clamp to [0, c-1] in float (NaN -> 0), then
+    truncate, as the kernels do."""
+    return torch.clamp(torch.nan_to_num(x, nan=0.0), 0, c - 1).to(torch.int64)
+
+
 def staircase_index(params, c: int, kp: int):
     """(B, kp, LP) int64 flat index into the (B, C, C) crops of every staircase sample:
     the address arithmetic of the sample_lines kernel, in the same order."""
@@ -121,11 +128,8 @@ def staircase_index(params, c: int, kp: int):
     udom = params[:, _ROW_UDOM, None, :] > 0.5
     k = torch.arange(kp, dtype=torch.float32, device=params.device)[None, :, None]
 
-    def to_index(x):  # clamp in float (NaN -> 0), then truncate: as the kernel does
-        return torch.clamp(torch.nan_to_num(x, nan=0.0), 0, c - 1).to(torch.int64)
-
-    i = to_index(r0 + params[:, _ROW_DIR, None, :] * k)           # (B, kp, LP)
-    col = to_index(torch.floor(s0 + (i.to(torch.float32) - r0) * stp))
+    i = clamp_index(r0 + params[:, _ROW_DIR, None, :] * k, c)     # (B, kp, LP)
+    col = clamp_index(torch.floor(s0 + (i.to(torch.float32) - r0) * stp), c)
     body = torch.arange(b, device=params.device)[:, None, None] * (c * c)
     return body + torch.where(udom, col * c + i, i * c + col)
 
@@ -307,10 +311,17 @@ def project_lines_cl(points: ViewPointsCL, pose, fu, fv, ppu, ppv):
 
 def line_geometry(cfg: RegionConfig, scale: int, points: ViewPointsCL, n_lines,
                   pose, fu, fv, ppu, ppv, width: int, height: int,
-                  corner_u, corner_v, crop_size: int, lp: int) -> LineGeometry:
+                  corner_u, corner_v, crop_size: int, lp: int,
+                  measured_occlusion: MeasuredOcclusionInputs | None = None,
+                  handle_occlusions=None) -> LineGeometry:
     """Project model points and derive staircase parameters + validity (region_fast.py
-    :309-442 without the occlusion and region-check branch): IsLineValid plus the
-    requirement that every sampled pixel lies inside the (C, C) crop."""
+    :309-442 without region checking and modeled occlusions): IsLineValid plus the
+    requirement that every sampled pixel lies inside the (C, C) crop.
+
+    With ``measured_occlusion``, lines occluded in the depth image are dropped through
+    the reference's two-pass fallback (cpp:435-463): occlusion handling is off for a
+    body whose ``handle_occlusions`` (B,) bool is False (None means True for all), or
+    when fewer than ``cfg.min_n_unoccluded_lines`` lines would survive."""
     s_seg = cfg.line_length_in_segments
     line_length = s_seg * scale
     fscale = float(scale)
@@ -362,6 +373,16 @@ def line_geometry(cfg: RegionConfig, scale: int, points: ViewPointsCL, n_lines,
     s_hi = torch.maximum(t0, t_end)
     valid = valid & ((p0 >= corner_p) & (p_end <= corner_p + crop_size - 1)
                      & (s_lo >= corner_s) & (s_hi <= corner_s + crop_size - 1))
+
+    if measured_occlusion is not None:
+        depth_image = measured_occlusion.depth_image
+        valid_with = valid & _measured_occlusion_free(
+            cfg, points.center_f_body.transpose(1, 2), points.measured_depth_offset,
+            measured_occlusion, depth_image.shape[2], depth_image.shape[1])
+        use_occlusions = valid_with.sum(dim=-1, keepdim=True) >= cfg.min_n_unoccluded_lines
+        if handle_occlusions is not None:
+            use_occlusions = use_occlusions & handle_occlusions[:, None]
+        valid = torch.where(use_occlusions, valid_with, valid)
 
     normal_component_to_scale = torch.abs(normal_p) / fscale
     delta_r = (torch.floor(center_p - ll_minus_1_half + 0.5) + ll_minus_1_half

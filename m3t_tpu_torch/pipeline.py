@@ -1,16 +1,20 @@
-"""Fused batched region tracking cycle on PyTorch/CUDA (port of m3t_tpu/pipeline.py,
-region-only path).
+"""Fused batched tracking cycles on PyTorch/CUDA (port of m3t_tpu/pipeline.py: the
+region cycle and the region+depth (ICG) cycle with measured occlusions).
 
-One :func:`tracking_cycle` call runs every correspondence x update iteration plus the
-histogram adaptation for a batch of independent bodies, eagerly (the JAX package jits
-the same function).  Hot-path structure:
+One :func:`tracking_cycle` (or :func:`tracking_cycle_rgbd`) call runs every
+correspondence x update iteration plus the histogram adaptation for a batch of
+independent bodies, eagerly (the JAX package jits the same function).  Hot-path
+structure:
 
   1. per body: crop the image once around the projected body origin and convert it to
      flat histogram-bin indices;
   2. per correspondence iteration: closest view, line geometry, then the
      ``sample_lines`` kernel fetches per-line probability samples, reduced to
-     distributions and moments;
-  3. per update iteration: gradient/Hessian and a batched Tikhonov 6x6 LDLT Newton step;
+     distributions and moments.  RGB-D: the depth image is cropped once per body, and
+     the ``sample_windows`` kernel fetches the strided correspondence-search windows
+     (and the measured-occlusion windows of either modality) from the crop;
+  3. per update iteration: gradient/Hessian (region + depth terms) and a batched
+     Tikhonov 6x6 LDLT Newton step;
   4. histogram adaptation: ``sample_lines`` in bins mode walks the fg/bg color lines and
      the ``bin_counts`` kernel counts the bins.
 
@@ -26,14 +30,39 @@ import numpy as np
 import torch
 
 from m3t_tpu_torch.common import pose_variation, resolve_device
+from m3t_tpu_torch.ops import depth_fast, depth_fn
 from m3t_tpu_torch.ops import histogram as hist_ops
 from m3t_tpu_torch.ops import region_fast
+from m3t_tpu_torch.ops.depth_fn import DepthConfig, DepthViewPoints
 from m3t_tpu_torch.ops.region_fast import ViewPointsCL
-from m3t_tpu_torch.ops.region_fn import RegionConfig
+from m3t_tpu_torch.ops.region_fn import MeasuredOcclusionInputs, RegionConfig
 
 
 def _as_tensor(a, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+
+def _load_npz_models(paths: str | Sequence[str]) -> list[dict]:
+    """The arrays of model cache files (the npz that m3t_tpu's models write)."""
+    if isinstance(paths, str):
+        paths = [paths]
+    models = []
+    for path in paths:
+        with np.load(path, allow_pickle=False) as data:
+            models.append({k: data[k] for k in data.files if k != "checksum"})
+    return models
+
+
+def _stack_views(models: list[dict], fn, device) -> torch.Tensor:
+    """Stack fn(model) over bodies as float32, views zero-padded to the largest V."""
+    v_max = max(m["orientations"].shape[0] for m in models)
+    rows = []
+    for m in models:
+        a = fn(m)
+        out = np.zeros((v_max,) + a.shape[1:], a.dtype)
+        out[:a.shape[0]] = a
+        rows.append(out)
+    return _as_tensor(np.stack(rows), device, torch.float32)
 
 
 class RegionModelArrays(NamedTuple):
@@ -68,22 +97,10 @@ class RegionModelArrays(NamedTuple):
         writes) into a batch, one body per file: the first n_lines points of every view,
         (V, L, 3) -> (V, 3, L), views zero-padded to the largest V."""
         dev = resolve_device(device)
-        if isinstance(paths, str):
-            paths = [paths]
-        models = []
-        for path in paths:
-            with np.load(path, allow_pickle=False) as data:
-                models.append({k: data[k] for k in data.files if k != "checksum"})
-        v_max = max(m["orientations"].shape[0] for m in models)
+        models = _load_npz_models(paths)
 
         def stack(fn):
-            rows = []
-            for m in models:
-                a = fn(m)
-                out = np.zeros((v_max,) + a.shape[1:], a.dtype)
-                out[:a.shape[0]] = a
-                rows.append(out)
-            return _as_tensor(np.stack(rows), dev, torch.float32)
+            return _stack_views(models, fn, dev)
 
         def cl(a):  # (V, L, 3) -> (V, 3, L)
             return np.swapaxes(a[:, :n_lines], -1, -2)
@@ -109,6 +126,51 @@ class RegionModelArrays(NamedTuple):
         return RegionModelArrays(*(a.expand((n_bodies,) + a.shape[1:]) for a in self))
 
 
+class DepthModelArrays(NamedTuple):
+    """Stacked depth sparse-viewpoint model for a batch of bodies (device-resident)."""
+
+    orientations: torch.Tensor  # (B, V, 3)
+    centers: torch.Tensor  # (B, V, P, 3)
+    normals: torch.Tensor  # (B, V, P, 3)
+    measured_depth_offsets: torch.Tensor  # (B, V, P)
+    modeled_depth_offsets: torch.Tensor  # (B, V, P)
+
+    @staticmethod
+    def from_numpy(arrays, device="cuda") -> "DepthModelArrays":
+        """From a mapping of field name -> numpy array (the JAX package's
+        DepthModelArrays as numpy)."""
+        dev = resolve_device(device)
+        return DepthModelArrays(*(_as_tensor(arrays[name], dev, torch.float32)
+                                  for name in DepthModelArrays._fields))
+
+    @staticmethod
+    def from_npz(paths: str | Sequence[str], n_points: int,
+                 device="cuda") -> "DepthModelArrays":
+        """Stack depth-model cache files (the npz that m3t_tpu.depth_model.DepthModel
+        writes) into a batch, one body per file: the first n_points points of every
+        view, views zero-padded to the largest V."""
+        dev = resolve_device(device)
+        models = _load_npz_models(paths)
+
+        def stack(fn):
+            return _stack_views(models, fn, dev)
+
+        # Offset 5 for both, the depth modality's default offset ids
+        # (m3t_tpu/depth_modality.py:163-169).
+        offsets = stack(lambda m: m["depth_offsets"][:, :n_points, 5])
+        return DepthModelArrays(
+            orientations=stack(lambda m: m["orientations"]),
+            centers=stack(lambda m: m["centers"][:, :n_points]),
+            normals=stack(lambda m: m["normals"][:, :n_points]),
+            measured_depth_offsets=offsets,
+            modeled_depth_offsets=offsets,
+        )
+
+    def expand(self, n_bodies: int) -> "DepthModelArrays":
+        """The single model of a batch of one, broadcast (as a view) to n_bodies."""
+        return DepthModelArrays(*(a.expand((n_bodies,) + a.shape[1:]) for a in self))
+
+
 class TrackingState(NamedTuple):
     """Per-body tracking state carried frame to frame."""
 
@@ -125,7 +187,8 @@ class TrackingState(NamedTuple):
 
 
 class PipelineConfig(NamedTuple):
-    """Region-only fields of m3t_tpu.pipeline.PipelineConfig."""
+    """The fields of m3t_tpu.pipeline.PipelineConfig that the port implements: the
+    region cycle, depth fusion and measured occlusions."""
 
     cfg: RegionConfig = RegionConfig()
     scales: tuple = (6, 4, 2, 1)
@@ -137,6 +200,14 @@ class PipelineConfig(NamedTuple):
     learning_rate_f: float = 0.2
     learning_rate_b: float = 0.2
     crop_size: int = 256  # focused-crop side
+    # ICG-style depth fusion (used by tracking_cycle_rgbd).
+    use_depth: bool = False
+    depth_cfg: DepthConfig = DepthConfig()
+    considered_distances: tuple = (0.05, 0.02, 0.01)
+    depth_standard_deviations: tuple = (0.05, 0.03, 0.02)
+    # Measured occlusions from the depth images (tracking_cycle_rgbd only).
+    region_measure_occlusions: bool = False
+    depth_measure_occlusions: bool = False
     # Adaptive coverage (region_modality.cpp:417-429): scale the traced line
     # count per body by the closest view's contour length, relative to
     # reference_contour_length (if > 0) or the model's max contour length.
@@ -148,6 +219,13 @@ class PipelineConfig(NamedTuple):
         std = self.standard_deviations[
             min(corr_iteration, len(self.standard_deviations) - 1)]
         return int(scale), float(std)
+
+    def iteration_depth(self, corr_iteration: int):
+        cd = self.considered_distances[
+            min(corr_iteration, len(self.considered_distances) - 1)]
+        std = self.depth_standard_deviations[
+            min(corr_iteration, len(self.depth_standard_deviations) - 1)]
+        return float(cd), float(std)
 
     @property
     def lp(self) -> int:
@@ -195,6 +273,18 @@ def _select_view_cl(model: RegionModelArrays, pose) -> ViewPointsCL:
         normal_f_body=model.normals[body, idx],
         foreground_distance=model.foreground_distances[body, idx],
         background_distance=model.background_distances[body, idx],
+        measured_depth_offset=model.measured_depth_offsets[body, idx],
+        modeled_depth_offset=model.modeled_depth_offsets[body, idx],
+    )
+
+
+def _select_depth_view(model: DepthModelArrays, pose) -> DepthViewPoints:
+    """GetClosestView of the depth model per body: index + gather."""
+    idx = _view_index(model.orientations, pose)
+    body = torch.arange(pose.shape[0], device=pose.device)
+    return DepthViewPoints(
+        center_f_body=model.centers[body, idx],
+        normal_f_body=model.normals[body, idx],
         measured_depth_offset=model.measured_depth_offsets[body, idx],
         modeled_depth_offset=model.modeled_depth_offsets[body, idx],
     )
@@ -296,14 +386,19 @@ def _solve_and_update(pcfg: PipelineConfig, gradient, hessian, pose, group=None)
 
 
 def _region_terms(pcfg: PipelineConfig, intr, scale, points, poses, n_lines,
-                  bin_crop, rtab, corner_u, corner_v, width, height):
-    """One correspondence pass for the whole batch -> lane-major DataLines."""
+                  bin_crop, rtab, corner_u, corner_v, width, height,
+                  measured_occlusion=None, handle_occlusions=None):
+    """One correspondence pass for the whole batch -> lane-major DataLines.
+
+    ``handle_occlusions`` is a (B,) bool (per body, so the reference's per-modality
+    n_unoccluded_iterations counter maps onto batch entries)."""
     fu, fv, ppu, ppv = _intrinsics(intr)
     cfg = pcfg.cfg
     kp = region_fast.round_up(cfg.line_length_in_segments * scale, 8)
     geo = region_fast.line_geometry(
         cfg, scale, points, n_lines, poses, fu, fv, ppu, ppv, width, height,
-        corner_u, corner_v, pcfg.crop_size, pcfg.lp)
+        corner_u, corner_v, pcfg.crop_size, pcfg.lp,
+        measured_occlusion=measured_occlusion, handle_occlusions=handle_occlusions)
     samples = region_fast.sample_lines(geo.params, bin_crop, rtab, kp)
     return region_fast.lines_from_samples(cfg, scale, geo, samples)
 
@@ -335,17 +430,70 @@ def _image_size(images):
     return planar_shape[3], planar_shape[2]
 
 
-def tracking_cycle(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
-                   state: TrackingState, pose_group=None) -> TrackingState:
-    """One full region tracking cycle for a batch of bodies.
+class _DepthInputs(NamedTuple):
+    """The depth side of the RGB-D cycle: images, camera and per-body crops."""
 
-    intr: (fu, fv, ppu, ppv); images: (B, H, W, 3) or planar (B, 3, H, W) uint8 on the
-    device of the state.  pose_group (B,) ties batch slots to one shared pose (see
-    _solve_and_update).
-    """
+    images: torch.Tensor  # (B, Hd, Wd) uint16
+    intr: tuple  # (fu, fv, ppu, ppv)
+    scale: float
+    model: DepthModelArrays
+    crop: torch.Tensor | None  # (B, C, C) int32, with use_depth
+    corner_u: torch.Tensor | None
+    corner_v: torch.Tensor | None
+
+
+def _region_measured_occlusion(pcfg: PipelineConfig, depth: _DepthInputs | None,
+                               points: ViewPointsCL, pose):
+    """The region lines' measured-occlusion inputs (region_modality.cpp:1343-1389):
+    windows presampled from the depth crops when depth fusion is on, else gathered
+    from the full depth images."""
+    if depth is None or not pcfg.region_measure_occlusions:
+        return None
+    dfu, dfv, dppu, dppv = depth.intr
+    height, width = depth.images.shape[1], depth.images.shape[2]
+    presampled = None
+    if depth.crop is not None:
+        presampled = depth_fast.presample_occlusion_windows(
+            pcfg.cfg.measured_occlusion_radius, False, points.center_f_body.transpose(1, 2),
+            pose, depth.crop, depth.corner_u, depth.corner_v, pcfg.crop_size,
+            dfu, dfv, dppu, dppv, width, height)
+    return MeasuredOcclusionInputs(depth.images, pose, dfu, dfv, dppu, dppv, depth.scale,
+                                   presampled)
+
+
+def _depth_terms(pcfg: PipelineConfig, depth: _DepthInputs, corr_iteration: int, pose,
+                 handle_occlusions):
+    """One depth correspondence pass for the batch (depth_modality.cpp:252-315), the
+    windows fetched from the depth crops by the sample_windows kernel."""
+    cd, _ = pcfg.iteration_depth(corr_iteration)
+    dfu, dfv, dppu, dppv = depth.intr
+    height, width = depth.images.shape[1], depth.images.shape[2]
+    view = _select_depth_view(depth.model, pose)
+    presampled = depth_fast.presample_windows(
+        pcfg.depth_cfg, cd, view.center_f_body, pose, depth.crop, depth.corner_u,
+        depth.corner_v, pcfg.crop_size, dfu, dfv, dppu, dppv)
+    measured = None
+    if pcfg.depth_measure_occlusions:
+        measured = depth_fast.presample_occlusion_windows(
+            pcfg.depth_cfg.measured_occlusion_radius, pcfg.depth_cfg.use_depth_scaling,
+            view.center_f_body, pose, depth.crop, depth.corner_u, depth.corner_v,
+            pcfg.crop_size, dfu, dfv, dppu, dppv, width, height)
+    return depth_fn.calculate_correspondences(
+        pcfg.depth_cfg, cd, view, pcfg.depth_cfg.n_points_max, pose, depth.images,
+        dfu, dfv, dppu, dppv, width, height, depth.scale, handle_occlusions,
+        measure_occlusions=pcfg.depth_measure_occlusions, presampled=presampled,
+        measured_presampled=measured)
+
+
+def _cycle_core(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
+                state: TrackingState, depth: _DepthInputs | None = None,
+                handle_occlusions=None, pose_group=None) -> TrackingState:
+    """Full tracking cycle for a batch (the JAX package's _cycle_core, :519-662, without
+    scene occlusion and texture).  handle_occlusions: (B,) bool, or None without depth."""
     cfg = pcfg.cfg
     fu, fv, ppu, ppv = _intrinsics(intr)
     width, height = _image_size(images)
+    use_depth = depth is not None and depth.crop is not None
 
     pose = state.body2camera_pose
     hist_f, hist_b = state.histogram_f, state.histogram_b
@@ -356,12 +504,24 @@ def tracking_cycle(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
         scale, std = pcfg.iteration_scale(corr_iteration)
         points = _select_view_cl(model, pose)
         n_lines = _adaptive_n_lines(pcfg, model, pose)
+        measured = _region_measured_occlusion(pcfg, depth, points, pose)
         lines = _region_terms(pcfg, intr, scale, points, pose, n_lines,
-                              bin_crop, rtab, corner_u, corner_v, width, height)
+                              bin_crop, rtab, corner_u, corner_v, width, height,
+                              measured_occlusion=measured,
+                              handle_occlusions=handle_occlusions)
+        if use_depth:
+            depth_points = _depth_terms(pcfg, depth, corr_iteration, pose,
+                                        handle_occlusions)
+            depth_std = pcfg.iteration_depth(corr_iteration)[1]
         for update_iteration in range(pcfg.n_update_iterations):
             gradient, hessian = region_fast.gradient_hessian_cl(
                 cfg, lines, pose, fu, fv, ppu, ppv, std,
                 update_iteration < cfg.n_global_iterations)
+            if use_depth:
+                dg, dh = depth_fn.calculate_gradient_and_hessian(depth_points, pose,
+                                                                 depth_std)
+                gradient = gradient + dg
+                hessian = hessian + dh
             pose = _solve_and_update(pcfg, gradient, hessian, pose, group=pose_group)
 
     # CalculateResults: online histogram adaptation (tracker.cpp:503-517).
@@ -372,6 +532,48 @@ def tracking_cycle(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
     hist_f = hist_ops.calculate_histogram(hist_f, mem_f, pcfg.learning_rate_f)
     hist_b = hist_ops.calculate_histogram(hist_b, mem_b, pcfg.learning_rate_b)
     return TrackingState(pose, hist_f, hist_b)
+
+
+def tracking_cycle(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
+                   state: TrackingState, pose_group=None) -> TrackingState:
+    """One full region tracking cycle for a batch of bodies.
+
+    intr: (fu, fv, ppu, ppv); images: (B, H, W, 3) or planar (B, 3, H, W) uint8 on the
+    device of the state.  pose_group (B,) ties batch slots to one shared pose (see
+    _solve_and_update).
+    """
+    return _cycle_core(pcfg, intr, images, model, state, pose_group=pose_group)
+
+
+def tracking_cycle_rgbd(pcfg: PipelineConfig, intr, depth_intr, depth_scale, images,
+                        depth_images, model: RegionModelArrays,
+                        depth_model: DepthModelArrays, state: TrackingState,
+                        handle_occlusions=None, pose_group=None) -> TrackingState:
+    """ICG-style region+depth fused cycle for a batch of bodies.
+
+    depth_images: (B, Hd, Wd) uint16 with shared depth intrinsics ``depth_intr``
+    (fu, fv, ppu, ppv) and ``depth_scale`` (meters per unit), registered to the colour
+    camera (the reference's ICG configuration, ICG/readme.md:51-73).  Depth terms are
+    fused when ``pcfg.use_depth``; measured occlusions on either modality follow
+    ``pcfg.region_measure_occlusions`` and ``pcfg.depth_measure_occlusions``.
+    handle_occlusions: a bool or (B,) bool, False for the first iterations after
+    StartModality (region_modality.h:442); None means True.  pose_group as in
+    :func:`tracking_cycle`.
+    """
+    pose = state.body2camera_pose
+    if handle_occlusions is None:
+        handle_occlusions = torch.ones(pose.shape[0], dtype=torch.bool, device=pose.device)
+    else:
+        handle_occlusions = torch.as_tensor(handle_occlusions, device=pose.device).expand(
+            pose.shape[0])
+    crop = corner_u = corner_v = None
+    if pcfg.use_depth:
+        crop, corner_u, corner_v = depth_fast.depth_crops(
+            depth_images, pose, *_intrinsics(depth_intr), pcfg.crop_size)
+    depth = _DepthInputs(depth_images, _intrinsics(depth_intr), float(depth_scale),
+                         depth_model, crop, corner_u, corner_v)
+    return _cycle_core(pcfg, intr, images, model, state, depth=depth,
+                       handle_occlusions=handle_occlusions, pose_group=pose_group)
 
 
 def initialize_histograms(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,

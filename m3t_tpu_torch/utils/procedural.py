@@ -1,5 +1,5 @@
 """Procedural meshes + synthetic frame rendering on the host (port of
-m3t_tpu/utils/procedural.py:15-60, 96-129), working on triangle-vertex arrays instead of
+m3t_tpu/utils/procedural.py:15-60, 96-146), working on triangle-vertex arrays instead of
 Body objects so that no JAX or OpenCV is needed."""
 
 from __future__ import annotations
@@ -93,3 +93,19 @@ def render_synthetic_color_frame(
         noise = noise_rng.integers(-8, 9, size=image.shape)
         image = np.clip(image.astype(np.int16) + noise, 0, 255).astype(np.uint8)
     return image
+
+
+def render_synthetic_depth_frame(
+    triangles_f_body: np.ndarray, intrinsics: Intrinsics, body2camera_pose: np.ndarray,
+    depth_scale: float = 0.001, background_depth: float = 2.0,
+) -> np.ndarray:
+    """Rasterize (T, 3, 3) body-frame triangles into a (H, W) uint16 depth image in
+    units of ``depth_scale`` meters, ``background_depth`` where nothing is hit."""
+    tri_cam = triangles_f_body @ body2camera_pose[:3, :3].T + body2camera_pose[:3, 3]
+    depth, _ = rasterize_np(
+        tri_cam, np.full(len(triangles_f_body), 1), intrinsics.fu, intrinsics.fv,
+        intrinsics.ppu, intrinsics.ppv, intrinsics.width, intrinsics.height,
+        cull_backfaces=True,
+    )
+    metric = np.where(np.isfinite(depth), depth, background_depth)
+    return np.round(metric / depth_scale).astype(np.uint16)

@@ -16,11 +16,13 @@ import torch
 
 from m3t_tpu_torch import pipeline
 from m3t_tpu_torch.common import Intrinsics
+from m3t_tpu_torch.ops import depth_fast as df
 from m3t_tpu_torch.ops import region_fast as rf
 from m3t_tpu_torch.ops.region_fn import RegionConfig
 from m3t_tpu_torch.utils import procedural
 
 NPZ = Path(pipeline.__file__).parent / "data" / "bench_sphere_region_model.npz"
+DEPTH_NPZ = Path(pipeline.__file__).parent / "data" / "bench_sphere_depth_model.npz"
 
 
 def _scene(device, n_bodies=4, n_bins=16):
@@ -38,6 +40,41 @@ def _scene(device, n_bodies=4, n_bins=16):
     model = pipeline.RegionModelArrays.from_npz(str(NPZ), 200, device=device)
     images = torch.as_tensor(frame, device=device).expand((n_bodies,) + frame.shape)
     return pcfg, intr, model.expand(n_bodies), images, torch.as_tensor(poses, device=device)
+
+
+def _depth_scene(device, n_bodies=4):
+    """The region scene plus its depth frame (0.3 m wall over the left third) and the
+    committed depth model: (pcfg, intr, model, images, poses, depth_model, depth)."""
+    pcfg, intr, model, images, poses = _scene(device, n_bodies)
+    pose0 = np.eye(4, dtype=np.float32)
+    pose0[2, 3] = 0.5
+    depth = procedural.render_synthetic_depth_frame(
+        procedural.sphere_triangles(0.06, 2),
+        Intrinsics(*intr, images.shape[2], images.shape[1]), pose0)
+    depth[:, :140] = 300
+    depth_model = pipeline.DepthModelArrays.from_npz(str(DEPTH_NPZ), 200, device=device)
+    depth_images = torch.as_tensor(depth, device=device).expand((n_bodies,) + depth.shape)
+    pcfg = pcfg._replace(use_depth=True, region_measure_occlusions=True,
+                         depth_measure_occlusions=True)
+    return pcfg, intr, model, images, poses, depth_model.expand(n_bodies), depth_images
+
+
+def _window_inputs(device, considered_distance):
+    """(params, crop, kp) of the correspondence windows (considered_distance > 0) or of
+    the depth measured-occlusion windows (considered_distance None)."""
+    pcfg, intr, _, _, poses, depth_model, depth = _depth_scene(device)
+    crop, cu, cv = df.depth_crops(depth, poses, *intr, pcfg.crop_size)
+    centers = pipeline._select_depth_view(depth_model, poses).center_f_body
+    if considered_distance is None:
+        u_min, v_min, _, _, stride = df.occlusion_windows(
+            pcfg.depth_cfg.measured_occlusion_radius, False, centers, poses, *intr,
+            depth.shape[2], depth.shape[1])
+        k = df.KMAX_N_OCCLUSION_STRIDES + 1
+    else:
+        u_min, v_min, stride, k = df.correspondence_windows(
+            pcfg.depth_cfg, considered_distance, centers, poses, *intr)
+    params, _ = df.window_params(u_min, v_min, stride, cu, cv, k)
+    return params, crop, rf.round_up(k, 8)
 
 
 def _kernel_inputs(device, scale, n_bins=16):
@@ -74,6 +111,22 @@ def test_plain_sample_lines_matches_scalar_staircase(scale):
             assert got[0, k, lane] == table[0, b], (lane, k)
 
 
+@pytest.mark.parametrize("considered_distance", [0.05, None])
+def test_plain_sample_windows_matches_scalar_formula(considered_distance):
+    """The plain twin against a scalar numpy evaluation of the window formula."""
+    params, crop, kp = _window_inputs("cpu", considered_distance)
+    got = df.sample_windows(params, crop, kp).numpy()
+    p, cr = params.numpy(), crop.numpy()
+    c = cr.shape[-1]
+    f32 = np.float32
+    for lane in range(0, p.shape[-1], 37):
+        u0, row, stride = p[1, :3, lane]
+        r = int(np.clip(row, 0, c - 1))
+        for k in range(kp):
+            col = int(np.clip(np.trunc(f32(u0 + f32(stride * f32(k)))), 0, c - 1))
+            assert got[1, k, lane] == cr[1, r, col], (lane, k)
+
+
 def test_wrappers_reject_bad_inputs():
     params = torch.zeros((2, 8, 128))
     crop = torch.zeros((2, 16, 16), dtype=torch.int32)
@@ -88,11 +141,20 @@ def test_wrappers_reject_bad_inputs():
         rf.sample_lines(params, crop, table, 8, output="probabilities")
     with pytest.raises(ValueError):
         rf.bin_counts(torch.zeros((2, 10), dtype=torch.int32), torch.ones((2, 10)))
-    before = (rf.sample_lines.launches, rf.bin_counts.launches)
+    window_params = torch.zeros((2, 4, 128))
+    with pytest.raises(ValueError):
+        df.sample_windows(params, crop, 8)
+    with pytest.raises(ValueError):
+        df.sample_windows(window_params, crop.long(), 8)
+    with pytest.raises(ValueError):
+        df.sample_windows(window_params, crop[:1], 8)
+    before = (rf.sample_lines.launches, rf.bin_counts.launches, df.sample_windows.launches)
     rf.sample_lines(params, crop, table, 8)
     rf.bin_counts(torch.zeros((2, 10), dtype=torch.int32),
                   torch.ones((2, 10), dtype=torch.bool))
-    assert (rf.sample_lines.launches, rf.bin_counts.launches) == before, \
+    df.sample_windows(window_params, crop, 8)
+    assert (rf.sample_lines.launches, rf.bin_counts.launches,
+            df.sample_windows.launches) == before, \
         "the CPU twins must not count as kernel launches"
 
 
@@ -161,3 +223,34 @@ def test_cycle_on_card_matches_cpu(cuda_device):
         states[str(dev)] = [a.cpu().numpy() for a in state]
     for got, want in zip(states["cuda"], states["cpu"]):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("considered_distance", [0.05, 0.02, 0.01, None])
+def test_sample_windows_kernel_matches_plain(cuda_device, considered_distance):
+    """Correspondence windows (K = 11, 5, 3) and measured-occlusion windows (K = 6)."""
+    params, crop, kp = _window_inputs(cuda_device, considered_distance)
+    launches = df.sample_windows.launches
+    got = df.sample_windows(params, crop, kp)
+    torch.cuda.synchronize()
+    assert df.sample_windows.launches == launches + 1
+    assert torch.equal(got, df.sample_windows_plain(params, crop, kp))
+
+
+@pytest.mark.cuda
+def test_rgbd_cycle_on_card_matches_cpu(cuda_device):
+    """Measured occlusions on both modalities; each cycle starts both devices from the
+    CPU's state (see chip_smoke.py's card-versus-CPU phase)."""
+    setups = {str(dev): _depth_scene(dev) for dev in ("cpu", cuda_device)}
+    pcfg, intr, model, images, poses, _, _ = setups["cpu"]
+    pcfg = pcfg._replace(scales=(2, 1), standard_deviations=(5.0, 1.5), n_corr_iterations=3)
+    state = pipeline.initialize_histograms(pcfg, intr, images, model, poses)
+    for _ in range(3):
+        results = {}
+        for dev, (_, _, model, images, _, depth_model, depth) in setups.items():
+            start = pipeline.TrackingState(*(a.to(dev) for a in state))
+            results[dev] = pipeline.tracking_cycle_rgbd(
+                pcfg, intr, intr, 0.001, images, depth, model, depth_model, start)
+        for got, want in zip(results["cuda"], results["cpu"]):
+            np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-4)
+        state = results["cpu"]

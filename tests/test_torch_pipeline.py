@@ -1,11 +1,13 @@
 """Parity tests: m3t_tpu_torch's pose math, histogram blend, LDLT solve and the fused
-region tracking cycle (initialize_histograms + tracking_cycle on the CPU) against the
-JAX package, plus the model carried across as data and the package's import boundary.
+tracking cycles (initialize_histograms + tracking_cycle, and tracking_cycle_rgbd, on the
+CPU) against the JAX package, plus the models carried across as data and the package's
+import boundary.
 
 Cycle inputs are tests/test_pipeline.py::_build_batch (160x120 frames, 64 lines,
-scales (2, 1), 3x2 iterations).  Tolerances: poses atol 1e-4 (float32 reductions summed
-in another order); histograms atol 1e-4, because one walk pixel that lands on the other
-side of an integer boundary moves a bin by about lr/total.
+scales (2, 1), 3x2 iterations); the RGB-D cycle adds depth models and depth frames as
+tests/test_parallel.py::test_rgbd_fused_cycle builds them.  Tolerances: poses atol 1e-4
+(float32 reductions summed in another order); histograms atol 1e-4, because one walk
+pixel that lands on the other side of an integer boundary moves a bin by about lr/total.
 """
 
 import shutil
@@ -21,15 +23,19 @@ import torch
 from m3t_tpu import common as jcommon
 from m3t_tpu import pipeline as jpipe
 from m3t_tpu.ops import histogram as jhist
+from m3t_tpu.ops.depth_fn import DepthConfig as JDepthConfig
 from m3t_tpu.ops.region_fn import RegionConfig as JRegionConfig
 from m3t_tpu_torch import common as tcommon
 from m3t_tpu_torch import pipeline as tpipe
 from m3t_tpu_torch.ops import histogram as thist
+from m3t_tpu_torch.ops.depth_fn import DepthConfig as TDepthConfig
 from m3t_tpu_torch.ops.region_fn import RegionConfig as TRegionConfig
+from tests import fixtures
 from tests.test_pipeline import _build_batch
 
 REPO = Path(__file__).resolve().parent.parent
 BENCH_NPZ = REPO / "m3t_tpu_torch" / "data" / "bench_sphere_region_model.npz"
+BENCH_DEPTH_NPZ = REPO / "m3t_tpu_torch" / "data" / "bench_sphere_depth_model.npz"
 
 
 def _t(a):
@@ -44,8 +50,13 @@ def _pcfgs(**kw):
 
 
 @pytest.fixture(scope="module")
-def batch(tmp_path_factory):
-    intr_t, bodies, models, gt_poses, frames = _build_batch(tmp_path_factory.mktemp("tp"))
+def built(tmp_path_factory):
+    return _build_batch(tmp_path_factory.mktemp("tp"))
+
+
+@pytest.fixture(scope="module")
+def batch(built):
+    intr_t, _, models, gt_poses, frames = built
     intr = (np.float32(intr_t.fu), np.float32(intr_t.fv),
             np.float32(intr_t.ppu), np.float32(intr_t.ppv))
     jmodel = jpipe.RegionModelArrays.from_models(models, 64)
@@ -177,6 +188,141 @@ def test_bench_model_npz_round_trips(tmp_path):
                                       np.asarray(getattr(want, name)), err_msg=name)
 
 
+@pytest.fixture(scope="module")
+def rgbd_batch(built, batch, tmp_path_factory):
+    """Depth models of the batch's bodies (built by the JAX DepthModel, carried across
+    with from_numpy) and the depth frames at the rendered poses."""
+    from m3t_tpu.depth_model import DepthModel
+
+    tmp = tmp_path_factory.mktemp("tpd")
+    intr_t, bodies, _, gt_poses, _ = built
+    depth_models = []
+    for i, body in enumerate(bodies):
+        m = DepthModel(f"dm{i}", body, str(tmp / f"dm{i}.npz"), n_divides=1, n_points=64,
+                       image_size=200)
+        assert m.SetUp()
+        depth_models.append(m)
+    jdmodel = jpipe.DepthModelArrays.from_models(depth_models, 64)
+    tdmodel = tpipe.DepthModelArrays.from_numpy(
+        {k: np.asarray(v) for k, v in jdmodel._asdict().items()}, device="cpu")
+    depth_frames = np.stack([
+        np.stack([fixtures.render_synthetic_depth_frame(body, intr_t, gt_poses[t][i])
+                  for i, body in enumerate(bodies)])
+        for t in range(len(gt_poses))])
+    return jdmodel, tdmodel, depth_frames
+
+
+def _rgbd_pcfgs(measure_occlusions):
+    kw = dict(use_depth=True, considered_distances=(0.03, 0.02),
+              depth_standard_deviations=(0.05, 0.03),
+              region_measure_occlusions=measure_occlusions,
+              depth_measure_occlusions=measure_occlusions)
+    jpcfg, tpcfg = _pcfgs(**kw)
+    return (jpcfg._replace(depth_cfg=JDepthConfig(n_points_max=64)),
+            tpcfg._replace(depth_cfg=TDepthConfig(n_points_max=64)))
+
+
+@pytest.mark.parametrize("measure_occlusions,handle_occlusions",
+                         [(False, None), (True, None), (True, [True, False])])
+def test_rgbd_cycle_matches_jax_and_tracks(batch, rgbd_batch, measure_occlusions,
+                                           handle_occlusions):
+    """tracking_cycle_rgbd against the JAX tracking_cycle_rgbd over the batch's frames.
+    With measured occlusions on, a near wall (0.3 m) covers the depth frames left of
+    column 70, over the left edge of both silhouettes, so that both modalities drop
+    occluded lines and points; handle_occlusions switches that off for one body."""
+    intr, _, jmodel, tmodel, gt_poses, frames = batch
+    jdmodel, tdmodel, depth_frames = rgbd_batch
+    if measure_occlusions:
+        depth_frames = depth_frames.copy()
+        depth_frames[..., :70] = 300
+    jpcfg, tpcfg = _rgbd_pcfgs(measure_occlusions)
+    j_state = jpipe.initialize_histograms(jpcfg, intr, jnp.asarray(frames[0]), jmodel,
+                                          jnp.asarray(gt_poses[0]))
+    t_state = tpipe.initialize_histograms(tpcfg, intr, _t(frames[0]), tmodel,
+                                          _t(gt_poses[0]))
+    handle = None if handle_occlusions is None else np.array(handle_occlusions)
+    for t in range(1, len(frames)):
+        j_state = jpipe.tracking_cycle_rgbd(
+            jpcfg, intr, intr, jnp.float32(0.001), jnp.asarray(frames[t]),
+            jnp.asarray(depth_frames[t]), jmodel, jdmodel, j_state,
+            handle_occlusions=None if handle is None else jnp.asarray(handle))
+        t_state = tpipe.tracking_cycle_rgbd(
+            tpcfg, intr, intr, 0.001, _t(frames[t]), _t(depth_frames[t]), tmodel, tdmodel,
+            t_state, handle_occlusions=None if handle is None else _t(handle))
+        _assert_states_close(t_state, j_state)
+    est = t_state.body2camera_pose.numpy()
+    err = np.linalg.norm(est[:, :3, 3] - gt_poses[-1][:, :3, 3], axis=1)
+    assert np.all(np.isfinite(est)) and np.all(err < 0.004), f"rgbd errors {err}"
+
+
+def test_rgbd_pose_group_cycle_matches_jax(batch, rgbd_batch):
+    """Two slots of one body tied to one pose in the RGB-D cycle, as in JAX."""
+    intr, models, _, _, gt_poses, frames = batch
+    jpcfg, tpcfg = _rgbd_pcfgs(False)
+    jmodel = jpipe.RegionModelArrays.from_models([models[0]] * 2, 64)
+    tmodel = tpipe.RegionModelArrays.from_numpy(
+        {k: np.asarray(v) for k, v in jmodel._asdict().items()}, device="cpu")
+    jdmodel_all, _, depth_frames = rgbd_batch
+    jdmodel = type(jdmodel_all)(*(jnp.stack([a[0]] * 2) for a in jdmodel_all))
+    tdmodel = tpipe.DepthModelArrays.from_numpy(
+        {k: np.asarray(v) for k, v in jdmodel._asdict().items()}, device="cpu")
+    poses0, images0, images1, depth1 = (np.stack([a[0]] * 2) for a in (
+        gt_poses[0], frames[0], frames[1], depth_frames[1]))
+    group = np.zeros(2, np.int32)
+    j_state = jpipe.initialize_histograms(jpcfg, intr, jnp.asarray(images0), jmodel,
+                                          jnp.asarray(poses0))
+    j_state = jpipe.tracking_cycle_rgbd(
+        jpcfg, intr, intr, jnp.float32(0.001), jnp.asarray(images1), jnp.asarray(depth1),
+        jmodel, jdmodel, j_state, pose_group=jnp.asarray(group))
+    t_state = tpipe.initialize_histograms(tpcfg, intr, _t(images0), tmodel, _t(poses0))
+    t_state = tpipe.tracking_cycle_rgbd(tpcfg, intr, intr, 0.001, _t(images1), _t(depth1),
+                                        tmodel, tdmodel, t_state, pose_group=_t(group))
+    _assert_states_close(t_state, j_state)
+    assert torch.equal(t_state.body2camera_pose[0], t_state.body2camera_pose[1])
+
+
+def test_bench_depth_model_npz_round_trips(tmp_path):
+    """The committed depth model is exactly the cache file m3t_tpu's DepthModel writes
+    for bench.py's depth model: it loads without regenerating, and from_npz equals
+    from_models."""
+    from m3t_tpu.depth_model import DepthModel
+    from m3t_tpu.utils import procedural
+
+    path = tmp_path / "bench_sphere_depth_model.npz"
+    shutil.copyfile(BENCH_DEPTH_NPZ, path)
+    before = path.read_bytes()
+    body = procedural.sphere_body("bench_sphere", radius=0.06, n_subdiv=2)
+    model = DepthModel("bench_depth_model", body, str(path), n_divides=2, n_points=200,
+                       image_size=800)
+    checksum = model._checksum(extra="|mt19937")
+    with np.load(path) as data:
+        assert str(data["checksum"]) == checksum, "committed depth model is stale"
+    assert model.SetUp()
+    assert path.read_bytes() == before, "DepthModel regenerated the committed model"
+    want = jpipe.DepthModelArrays.from_models([model], 200)
+    got = tpipe.DepthModelArrays.from_npz(str(path), 200, device="cpu")
+    for name in jpipe.DepthModelArrays._fields:
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)), err_msg=name)
+    assert got.expand(3).centers.shape == (3,) + got.centers.shape[1:]
+
+
+def test_procedural_depth_frame_matches_jax_package():
+    from m3t_tpu.common import Intrinsics as JIntrinsics
+    from m3t_tpu.utils import procedural as jproc
+    from m3t_tpu_torch.utils import procedural as tproc
+
+    intr = JIntrinsics(150.0, 150.0, 79.5, 59.5, 160, 120)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = [0.004, -0.003, 0.5]
+    body = jproc.sphere_body("depth_frame_sphere", radius=0.06, n_subdiv=2)
+    want = jproc.render_synthetic_depth_frame(body, intr, pose)
+    got = tproc.render_synthetic_depth_frame(tproc.sphere_triangles(0.06, 2),
+                                             tcommon.Intrinsics(*intr), pose)
+    assert got.dtype == np.uint16 and (got < 2000).sum() > 100
+    np.testing.assert_array_equal(got, want)
+
+
 def test_procedural_frame_matches_jax_package():
     from m3t_tpu.common import Intrinsics as JIntrinsics
     from m3t_tpu.utils import procedural as jproc
@@ -200,6 +346,7 @@ def test_port_imports_neither_jax_nor_reference():
         "import m3t_tpu_torch, m3t_tpu_torch.common, m3t_tpu_torch.pipeline\n"
         "import m3t_tpu_torch.ops.region_fast, m3t_tpu_torch.ops.region_fn\n"
         "import m3t_tpu_torch.ops.histogram, m3t_tpu_torch.ops.raster\n"
+        "import m3t_tpu_torch.ops.depth_fn, m3t_tpu_torch.ops.depth_fast\n"
         "import m3t_tpu_torch.ops._cuda, m3t_tpu_torch.utils.procedural\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'm3t_tpu'))\n"
         "assert not bad, bad\n"
@@ -223,3 +370,9 @@ def test_entry_points_default_to_the_card(batch):
         tpipe.RegionModelArrays.from_npz(str(BENCH_NPZ), 200)
     with pytest.raises(RuntimeError, match="cuda"):
         tpipe.TrackingState.from_numpy(gt_poses[0], np.ones((2, 8)), np.ones((2, 8)))
+    depth_arrays = {name: np.zeros((1, 2, 3), np.float32)
+                    for name in tpipe.DepthModelArrays._fields}
+    with pytest.raises(RuntimeError, match="cuda"):
+        tpipe.DepthModelArrays.from_numpy(depth_arrays)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tpipe.DepthModelArrays.from_npz(str(BENCH_DEPTH_NPZ), 200)

@@ -15,11 +15,15 @@ import pytest
 import torch
 
 from m3t_tpu import pipeline as jpipe
+from m3t_tpu.ops import depth_fast as jdf
 from m3t_tpu.ops import region_fast as jrf
+from m3t_tpu.ops import region_fn as jrfn
 from m3t_tpu.ops.region_fn import RegionConfig as JRegionConfig
 from m3t_tpu.region_model import RegionModel
 from m3t_tpu_torch import pipeline as tpipe
+from m3t_tpu_torch.ops import depth_fast as tdf
 from m3t_tpu_torch.ops import region_fast as trf
+from m3t_tpu_torch.ops import region_fn as trfn
 from m3t_tpu_torch.ops.region_fn import RegionConfig as TRegionConfig
 from tests import fixtures
 
@@ -59,7 +63,7 @@ def scene(tmp_path_factory):
     tmodel = tpipe.RegionModelArrays.from_numpy(
         {k: np.asarray(v) for k, v in arrays._asdict().items()}, device="cpu")
     tpoints = tpipe._select_view_cl(tmodel, _t(pose[None]))
-    return dict(intr=intr, intr4=intr4, frame=frame, pose=pose, jpcfg=jpcfg,
+    return dict(intr=intr, intr4=intr4, body=body, frame=frame, pose=pose, jpcfg=jpcfg,
                 tpcfg=tpcfg, state=state, arrays=arrays, tmodel=tmodel,
                 jcrop=(bin_crop, bin_cropT, cu, cv), jpoints=jpoints, tpoints=tpoints)
 
@@ -77,6 +81,70 @@ def _geometries(scene, scale):
         float(ppu), float(ppv), intr.width, intr.height, _t(cu), _t(cv),
         tcfg.crop_size, tcfg.lp)
     return jgeo, tgeo
+
+
+def _occluded_depth_frame(scene):
+    """The body's depth frame with a near wall (0.3 m) over the left half of the
+    silhouette, so that part of the contour is occluded."""
+    s = scene
+    intr = s["intr"]
+    depth = fixtures.render_synthetic_depth_frame(s["body"], intr, s["pose"])
+    center_u = int(s["pose"][0, 3] * intr.fu / s["pose"][2, 3] + intr.ppu)
+    depth[:, :center_u] = 300
+    return depth
+
+
+@pytest.mark.parametrize("presampled,handle,min_lines", [
+    (True, True, 0), (False, True, 0), (True, False, 0), (False, True, 10000)])
+def test_line_geometry_measured_occlusion_matches(scene, presampled, handle, min_lines):
+    """Measured occlusions drop the lines behind the wall, unless occlusion handling is
+    off or fewer than min_n_unoccluded_lines survive (two-pass fallback)."""
+    s = scene
+    intr, (fu, fv, ppu, ppv) = s["intr"], s["intr4"]
+    _, _, cu, cv = s["jcrop"]
+    scale, crop = 2, s["jpcfg"].crop_size
+    jcfg = s["jpcfg"].cfg._replace(min_n_unoccluded_lines=min_lines)
+    tcfg = s["tpcfg"].cfg._replace(min_n_unoccluded_lines=min_lines)
+    depth = _occluded_depth_frame(s)
+    pose_j = jnp.asarray(s["pose"])[None]
+    pose_t = _t(s["pose"][None])
+    jpre = tpre = None
+    if presampled:
+        cropT, dcu, dcv = jdf.depth_crops(jnp.asarray(depth)[None], pose_j, fu, fv, ppu,
+                                          ppv, crop)
+        jpre = jdf.presample_occlusion_windows(
+            jcfg.measured_occlusion_radius, False,
+            jnp.swapaxes(s["jpoints"].center_f_body, 1, 2), pose_j, cropT, dcu, dcv, crop,
+            fu, fv, ppu, ppv, intr.width, intr.height)
+        dcrop, tdcu, tdcv = tdf.depth_crops(_t(depth[None]), pose_t, float(fu),
+                                            float(fv), float(ppu), float(ppv), crop)
+        tpre = tdf.presample_occlusion_windows(
+            tcfg.measured_occlusion_radius, False,
+            s["tpoints"].center_f_body.transpose(1, 2), pose_t, dcrop, tdcu, tdcv, crop,
+            float(fu), float(fv), float(ppu), float(ppv), intr.width, intr.height)
+
+    def bc(x):
+        return jnp.full((1,), x, jnp.float32)
+
+    jmo = jrfn.MeasuredOcclusionInputs(jnp.asarray(depth)[None], pose_j, bc(fu), bc(fv),
+                                       bc(ppu), bc(ppv), bc(0.001), jpre)
+    jgeo = jax.vmap(lambda p, po, u, v, mo, ho: jrf.line_geometry(
+        jcfg, scale, p, jnp.int32(L), po, fu, fv, ppu, ppv, intr.width, intr.height,
+        u, v, crop, s["jpcfg"].lp, measured_occlusion=mo, handle_occlusions=ho))(
+            s["jpoints"], pose_j, cu, cv, jmo, jnp.asarray([handle]))
+    tmo = trfn.MeasuredOcclusionInputs(_t(depth[None]), pose_t, float(fu), float(fv),
+                                       float(ppu), float(ppv), 0.001, tpre)
+    tgeo = trf.line_geometry(
+        tcfg, scale, s["tpoints"], L, pose_t, float(fu), float(fv), float(ppu),
+        float(ppv), intr.width, intr.height, _t(cu), _t(cv), crop, s["tpcfg"].lp,
+        measured_occlusion=tmo, handle_occlusions=torch.tensor([handle]))
+    valid = np.asarray(jgeo.valid)
+    np.testing.assert_array_equal(_n(tgeo.valid), valid)
+    unoccluded = np.asarray(_geometries(s, scale)[0].valid)
+    if handle and min_lines == 0:
+        assert 10 < valid.sum() < unoccluded.sum() - 10
+    else:
+        np.testing.assert_array_equal(valid, unoccluded)
 
 
 def _tables(scene):
