@@ -12,8 +12,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      (sample_lines ratio mode at kp 136/120/80/40/24, the scales of every path driven
      below, bins mode at LP=512 kp=24; bin_counts
      at (512, 6144, 4096); sample_windows at (LP, kp) = (2304, 16), (1024, 8), (640, 8)
-     for the correspondence windows and (1280, 8) for the measured-occlusion windows);
-     every result must equal its twin exactly;
+     for the correspondence windows and (1280, 8) for the measured-occlusion windows;
+     query_eval on the calls that one occlusion-path cycle makes (B=512, Q=9600), on
+     the silhouette (Q=200) and depth modeled-occlusion (Q=7200) calls of one RGB-D
+     cycle with a cube occluder and all four scene checks, and on 1600 random
+     triangles, which take four shared-memory tiles); every result must equal its twin
+     exactly (query_eval's inverse depths bit for bit);
   3. the flagship region cycle, bench.py's default workload: B=512 bodies, 640x512
      frames, 200 lines, scales {6,4,2,1}, 5 correspondence x 2 update iterations,
      histogram adaptation, the committed sphere model, run eagerly through
@@ -24,22 +28,32 @@ Phases (any failure exits non-zero; no phase catches its own failure):
   5. the YCB-Video parameters without texture terms (bench.py --ycb minus texture):
      scales {7,4,2}, sigma {25,15,10}, 4x2 iterations, measured occlusions on both
      modalities, B=512;
-     in phases 3-5 every kernel launch count is set to 0 just before the path runs and
+  6. the flagship occlusion path, bench.py --occlusion: phase 3 with modeled occlusions
+     and region checking against the focused scene (the tracked sphere decimated to 98
+     triangles, 128x128 focused crop), evaluated at the current pose every
+     correspondence iteration through query_eval (5 launches per cycle);
+     in phases 3-6 every kernel launch count is set to 0 just before the path runs and
      asserted just after; poses must be finite and within 5 mm of the rendered pose;
-  6. card against CPU at B=8, for the region cycle and for the RGB-D cycle with
-     measured occlusions on: initialize_histograms, then 3 cycles, each started on both
-     devices from the same state; poses and histograms within atol 1e-4.  The RGB-D
-     check's depth frame has a wall 0.3 m from the camera over its left half, and the
-     card's measured-occlusion masks must drop region lines and depth points there.
+  7. card against CPU at B=8: initialize_histograms, then 3 cycles, each started on both
+     devices from the same state; poses and histograms within atol 1e-4.  Four cases:
+     the region cycle; the RGB-D cycle with measured occlusions, on a depth frame with a
+     wall 0.3 m from the camera over its left half; and, with a 3 cm cube 0.45 m from
+     the camera in front of the sphere's left side (in the colour and depth frames and
+     in the scene), the region cycle with both region scene checks and the RGB-D cycle
+     with all four.  The card's masks must drop region lines and depth points against
+     the same correspondences without the wall's measured occlusions, and without the
+     cube's scene checks.
 The last two lines are the kernels JSON and {"ok": true, "device": {...}}.  With
---profile, one window of region cycles and one of RGB-D cycles are also traced with
-torch.profiler: the device busy share is logged and the tables of device time by
-operation are written to TABLE_FILE and to TABLE_FILE with "_rgbd" before its suffix.
+--profile, one window each of region, RGB-D and occlusion-path cycles is also traced
+with torch.profiler: the device busy share is logged and the tables of device time by
+operation are written to TABLE_FILE and to TABLE_FILE with "_rgbd" and "_occlusion"
+before its suffix.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -55,8 +69,10 @@ FP32_OPS_PER_S = 67e12     # H100 SXM data sheet: float32 outside the tensor cor
 # Scalar operations per element, read off the kernels' source: sample_lines does
 # 2 mul, 3 add/sub, 1 floor and 4 min/max per output sample; bin_counts a mask test,
 # two range compares and one add per input sample; sample_windows 1 mul, 1 add and
-# 2 min/max per output sample.
-SAMPLE_LINES_OPS, BIN_COUNTS_OPS, SAMPLE_WINDOWS_OPS = 10, 4, 4
+# 2 min/max per output sample; query_eval 8 mul and 8 add for the four planes, 4
+# compares and 3 ands for the coverage test and 1 select for its value, 1 compare and
+# 2 selects for the chain update, per (query, triangle under the scene's loop bound).
+SAMPLE_LINES_OPS, BIN_COUNTS_OPS, SAMPLE_WINDOWS_OPS, QUERY_EVAL_OPS = 10, 4, 4, 27
 # Rows of each kernel's (B, rows, LP) params that it reads: sample_lines R0, S0, STEP,
 # UDOM and DIR of 8; sample_windows U0, ROW and STRIDE of 4.
 SAMPLE_LINES_PARAM_ROWS, SAMPLE_WINDOWS_PARAM_ROWS = 5, 3
@@ -64,6 +80,8 @@ WIDTH, HEIGHT, N_LINES, N_POINTS, N_BODIES = 640, 512, 200, 200, 512
 DEPTH_SCALE = 0.001
 REGION_SOURCE = "m3t_tpu_torch/csrc/region_kernels.cu"
 DEPTH_SOURCE = "m3t_tpu_torch/csrc/depth_kernels.cu"
+OCCLUSION_SOURCE = "m3t_tpu_torch/csrc/occlusion_kernels.cu"
+CUBE_HALF, CUBE_POSITION = 0.03, (-0.04, 0.0, 0.45)  # the occluder of phase 7, camera frame
 
 
 def log(msg: str) -> None:
@@ -99,6 +117,7 @@ def flagship_inputs(device, n_bodies: int):
     """bench.py's flagship frames, models, configs and jittered initial poses."""
     from m3t_tpu_torch import pipeline
     from m3t_tpu_torch.common import Intrinsics
+    from m3t_tpu_torch.ops import occlusion
     from m3t_tpu_torch.ops.depth_fn import DepthConfig
     from m3t_tpu_torch.ops.region_fn import RegionConfig
     from m3t_tpu_torch.utils import procedural
@@ -112,6 +131,11 @@ def flagship_inputs(device, n_bodies: int):
     ycb_pcfg = rgbd_pcfg._replace(
         scales=(7, 4, 2), standard_deviations=(25.0, 15.0, 10.0), n_corr_iterations=4,
         region_measure_occlusions=True, depth_measure_occlusions=True)
+    # bench.py --occlusion (bench.py:242-272): the tracked sphere is its own scene,
+    # decimated to at most 256 triangles, culled, combined id 1 << 8 | 1.
+    occ_pcfg = pcfg._replace(region_model_occlusions=True, region_checking=True,
+                             focused_image_size=128)
+    sphere = occlusion.SceneBody(*procedural.icosphere(2, 0.06), body_id=1, region_id=1)
     intr_t = Intrinsics(520.0, 520.0, WIDTH / 2 - 0.5, HEIGHT / 2 - 0.5, WIDTH, HEIGHT)
     intr = (intr_t.fu, intr_t.fv, intr_t.ppu, intr_t.ppv)
     rng = np.random.default_rng(0)
@@ -130,10 +154,53 @@ def flagship_inputs(device, n_bodies: int):
         str(data / "bench_sphere_region_model.npz"), N_LINES, device=device)
     depth_model = pipeline.DepthModelArrays.from_npz(
         str(data / "bench_sphere_depth_model.npz"), N_POINTS, device=device)
-    return dict(pcfg=pcfg, rgbd_pcfg=rgbd_pcfg, ycb_pcfg=ycb_pcfg, intr=intr, pose0=pose0,
-                poses=poses, model=model, depth_model=depth_model,
+    return dict(pcfg=pcfg, rgbd_pcfg=rgbd_pcfg, ycb_pcfg=ycb_pcfg, occ_pcfg=occ_pcfg,
+                intr=intr, intr_t=intr_t, pose0=pose0, poses=poses, model=model,
+                depth_model=depth_model, sphere=sphere,
+                occ_scene=occlusion.build_scene_geometry([[sphere]], decimate_to=256,
+                                                         device=device),
                 images=torch.as_tensor(planar, device=device),
                 depth_images=torch.as_tensor(depth_frame, device=device))
+
+
+def occlusion_path(inp):
+    """inp for phase 6: bench.py --occlusion's config and scene."""
+    return dict(inp, pcfg=inp["occ_pcfg"], scene_geom=inp["occ_scene"])
+
+
+def occluded(inp):
+    """inp with a cube between the camera and the sphere's left side, in the colour
+    frame (green, with noise), in the depth frame and in the scene (body 2, region 2),
+    and every scene check on: pcfg with both region checks, rgbd_pcfg with all four."""
+    from m3t_tpu_torch.ops import occlusion
+    from m3t_tpu_torch.ops.raster import rasterize_np
+    from m3t_tpu_torch.utils import procedural
+
+    intr_t, pose0, device = inp["intr_t"], inp["pose0"], inp["images"].device
+    cube_v, cube_t = procedural.cube(CUBE_HALF)
+    cube_pose = np.eye(4, dtype=np.float32)
+    cube_pose[:3, 3] = CUBE_POSITION
+    sphere_cam = procedural.sphere_triangles(0.06, 2) @ pose0[:3, :3].T + pose0[:3, 3]
+    tris = np.concatenate([sphere_cam, cube_v[cube_t] + cube_pose[:3, 3]])
+    ids = np.repeat([1, 2], [len(sphere_cam), len(cube_t)])
+    depth, id_img = rasterize_np(tris, ids, intr_t.fu, intr_t.fv, intr_t.ppu, intr_t.ppv,
+                                 WIDTH, HEIGHT, cull_backfaces=True)
+    cube_px = id_img == 2
+    planar = inp["images"].cpu().numpy().copy()
+    noise = np.random.default_rng(1).integers(-8, 9, size=(3, int(cube_px.sum())))
+    planar[:, cube_px] = np.clip(np.array([60, 170, 60])[:, None] + noise, 0, 255)
+    depth_u16 = np.round(np.where(np.isfinite(depth), depth, 2.0) / DEPTH_SCALE)
+    cube = occlusion.SceneBody(cube_v, cube_t, body_id=2, region_id=2)
+    scene_flags = dict(region_model_occlusions=True, region_checking=True)
+    return dict(inp, pcfg=inp["pcfg"]._replace(**scene_flags),
+                rgbd_pcfg=inp["rgbd_pcfg"]._replace(depth_model_occlusions=True,
+                                                    depth_silhouette_check=True,
+                                                    **scene_flags),
+                images=torch.as_tensor(planar, device=device),
+                depth_images=torch.as_tensor(depth_u16.astype(np.uint16), device=device),
+                scene_geom=occlusion.build_scene_geometry([[inp["sphere"], cube]],
+                                                          device=device),
+                occluder_poses=torch.as_tensor(cube_pose[None, None], device=device))
 
 
 def batch_of(inp, n_bodies: int, device):
@@ -145,16 +212,23 @@ def batch_of(inp, n_bodies: int, device):
         x = x.to(device)
         return x.expand((n_bodies,) + x.shape)
 
+    scene = {}
+    if "scene_geom" in inp:
+        scene["scene_geom"] = models(inp["scene_geom"])
+    if "occluder_poses" in inp:
+        poses = inp["occluder_poses"].to(device)
+        scene["occluder_poses"] = poses.expand((n_bodies,) + poses.shape[1:])
     return dict(model=models(inp["model"]), depth_model=models(inp["depth_model"]),
                 images=frames(inp["images"]), depth_images=frames(inp["depth_images"]),
-                poses=torch.as_tensor(inp["poses"][:n_bodies], device=device))
+                poses=torch.as_tensor(inp["poses"][:n_bodies], device=device),
+                scene=scene)
 
 
 def region_cycle(inp, bt, state):
     from m3t_tpu_torch import pipeline
 
     return pipeline.tracking_cycle(inp["pcfg"], inp["intr"], bt["images"], bt["model"],
-                                   state)
+                                   state, **bt["scene"])
 
 
 def rgbd_cycle(pcfg_key):
@@ -163,24 +237,50 @@ def rgbd_cycle(pcfg_key):
 
         return pipeline.tracking_cycle_rgbd(
             inp[pcfg_key], inp["intr"], inp["intr"], DEPTH_SCALE, bt["images"],
-            bt["depth_images"], bt["model"], bt["depth_model"], state)
+            bt["depth_images"], bt["model"], bt["depth_model"], state, **bt["scene"])
     return cycle
 
 
 def launch_counters():
     from m3t_tpu_torch.ops import depth_fast as df
+    from m3t_tpu_torch.ops import occlusion
     from m3t_tpu_torch.ops import region_fast as rf
 
     return {"sample_lines": rf.sample_lines, "bin_counts": rf.bin_counts,
-            "sample_windows": df.sample_windows}
+            "sample_windows": df.sample_windows, "query_eval": occlusion.query_eval}
+
+
+@contextlib.contextmanager
+def recorded_queries():
+    """The arguments of every query_eval call made inside the block, in order (the
+    callers look the kernel's wrapper up in its module at each call)."""
+    from m3t_tpu_torch.ops import occlusion
+
+    kernel, calls = occlusion.query_eval, []
+
+    def record(*args):
+        calls.append(args)
+        return kernel(*args)
+
+    # The wrapper counts its launches on the function its module's name refers to.
+    record.launches = kernel.launches
+    occlusion.query_eval = record
+    try:
+        yield calls
+    finally:
+        occlusion.query_eval = kernel
+        kernel.launches = record.launches
 
 
 def check_kernels(inp):
     """Phase 2: every kernel against its plain twin at the flagship shapes.  Each row's
     ``per_cycle`` is its number of calls in one flagship cycle of its path (region for
-    sample_lines and bin_counts, RGB-D for sample_windows; 0: YCB parameters only)."""
+    sample_lines and bin_counts, RGB-D for sample_windows, occlusion for query_eval; 0:
+    on no path that phases 3-6 drive at B=512)."""
     from m3t_tpu_torch import pipeline
     from m3t_tpu_torch.ops import depth_fast as df
+    from m3t_tpu_torch.ops import occlusion
+    from m3t_tpu_torch.ops import raster
     from m3t_tpu_torch.ops import region_fast as rf
 
     dev = torch.device("cuda")
@@ -291,6 +391,61 @@ def check_kernels(inp):
         HEIGHT)
     shapes.append(k3_case("measured occlusion", u_min, v_min, stride,
                           df.KMAX_N_OCCLUSION_STRIDES + 1, 0))
+
+    def k4_case(name, args, per_cycle, plain_iters=3):
+        coeffs, valid, _, u, _ = args
+        inv, ids = occlusion.query_eval(*args)
+        want_inv, want_ids = occlusion.query_eval_plain(*args)
+        torch.cuda.synchronize()
+        err = (inv.double() - want_inv.double()).abs().max().item()
+        if not (torch.equal(inv.view(torch.int32), want_inv.view(torch.int32))
+                and torch.equal(ids, want_ids)):
+            raise AssertionError(f"query_eval {name}: kernel != plain (max diff {err}, "
+                                 f"{int((ids != want_ids).sum())} ids differ)")
+        nvalid = occlusion.leading_valid_count(valid)
+        q = u[0].numel()
+        # Each query's (u, v) read and (inv, id) written; each scene's coefficient rows,
+        # validity flags and ids up to its loop bound, and the bound itself.
+        n_bytes = 16 * u.numel() + 53 * int(nvalid.sum()) + 4 * len(nvalid)
+        return dict(kernel="query_eval",
+                    case=f"{name} B={u.shape[0]} Q={q} T={coeffs.shape[1]} "
+                         f"nvalid={int(nvalid.min())}-{int(nvalid.max())}",
+                    per_cycle=per_cycle, max_abs_err=err,
+                    ms=time_ms(lambda: occlusion.query_eval(*args), 20),
+                    plain_ms=time_ms(lambda: occlusion.query_eval_plain(*args), plain_iters),
+                    library_ms=None,
+                    **bound(n_bytes, QUERY_EVAL_OPS * q * int(nvalid.sum())))
+
+    # query_eval on the calls of one flagship occlusion-path cycle (the first of its five
+    # correspondence iterations) and of one RGB-D cycle with the cube and all four scene
+    # checks (its first iteration's silhouette and depth modeled-occlusion calls).
+    occ = occlusion_path(inp)
+    with recorded_queries() as calls:
+        region_cycle(occ, batch_of(occ, b, dev), state)
+    shapes.append(k4_case("occlusion path", calls[0], len(calls)))
+    scene = occluded(inp)
+    bt_scene = batch_of(scene, b, dev)
+    scene_state = pipeline.initialize_histograms(scene["pcfg"], intr, bt_scene["images"],
+                                                 bt_scene["model"], poses)
+    with recorded_queries() as calls:
+        rgbd_cycle("rgbd_pcfg")(scene, bt_scene, scene_state)
+    shapes.append(k4_case("rgbd silhouette", calls[1], 0))
+    shapes.append(k4_case("rgbd modeled occlusion", calls[2], 0))
+    # Random triangles (about 20 % invalid, not compacted) in four shared-memory tiles.
+    rng = np.random.default_rng(4)
+    n_scenes, n_tri = 64, 1600
+    tri = np.empty((n_scenes, n_tri, 3, 3), np.float32)
+    tri[..., :2] = rng.uniform(-0.1, 0.1, (n_scenes, n_tri, 3, 2))
+    tri[..., 2] = rng.uniform(0.4, 0.8, (n_scenes, n_tri, 3))
+    soup = raster.triangle_coefficients(
+        torch.as_tensor(tri, device=dev),
+        torch.as_tensor(rng.integers(1, 1 << 16, (n_scenes, n_tri)), device=dev),
+        300.0, 300.0, 63.5, 63.5)
+    keep = torch.as_tensor(rng.random((n_scenes, n_tri)) > 0.2, device=dev)
+    pixels = torch.as_tensor(rng.integers(-8, 136, (2, n_scenes, 4096)), dtype=torch.int32,
+                             device=dev)
+    shapes.append(k4_case("random triangles", (soup.coeffs, soup.valid & keep, soup.ids,
+                                               pixels[0], pixels[1]), 0, plain_iters=1))
     for s in shapes:
         library = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f}"
         log(f"{s['kernel']:<14} {s['case']:<44} x{s['per_cycle']} ms {s['ms']:.4f}"
@@ -385,18 +540,11 @@ def profile_cycles(label, inp, cycle, tensors, table_file: Path, ms_per_cycle: f
     log(f"profile: {json.dumps(summary)}")
 
 
-def walled(inp):
-    """inp with a wall 0.3 m from the camera over the left half of the depth frame: it
-    hides half of the sphere, so measured occlusions drop lines and points."""
-    depth = inp["depth_images"].clone()
-    depth[:, :WIDTH // 2] = round(0.3 / DEPTH_SCALE)
-    return dict(inp, depth_images=depth)
-
-
-def check_occlusions_drop(inp, device="cuda", n_bodies: int = 8):
-    """Phase 6: at the initial poses, the measured-occlusion masks of inp's RGB-D config
-    must drop some region lines (against no occlusion check) and some depth points
-    (against the same correspondences without it)."""
+def check_masks_drop(label, inp, device="cuda", n_bodies: int = 8):
+    """Phase 7: at the initial poses, the occlusion masks of inp's RGB-D config (measured
+    occlusions from the depth frame, and the scene checks when inp has a scene) must drop
+    some region lines and some depth points against the same correspondences without
+    them."""
     from m3t_tpu_torch import pipeline
     from m3t_tpu_torch.ops import depth_fast as df
     from m3t_tpu_torch.ops import region_fast as rf
@@ -410,24 +558,43 @@ def check_occlusions_drop(inp, device="cuda", n_bodies: int = 8):
                                   crop, dcu, dcv)
     _, cu, cv = pipeline._prepare_crops(pcfg, intr, bt["images"], poses)
     points = pipeline._select_view_cl(bt["model"], poses)
+    region = dict(measured_occlusion=pipeline._region_measured_occlusion(pcfg, depth, points,
+                                                                         poses))
+    depth_scene = {}
+    if bt["scene"]:
+        scene_geom = bt["scene"]["scene_geom"]
+        scene_poses = torch.cat([poses[:, None], bt["scene"]["occluder_poses"]], dim=1)
+        rend = pipeline._render_scene_for(pcfg, scene_geom, scene_poses, intr, WIDTH,
+                                          HEIGHT)
+        region["region_check"], region["modeled_occlusion"] = \
+            pipeline._scene_region_inputs(pcfg, rend, scene_geom)
+        depth_scene = dict(zip(("modeled_occlusion", "silhouette_check"),
+                               pipeline._scene_depth_inputs(pcfg, rend, scene_geom)))
 
-    def n_lines(measured):
+    def n_lines(**checks):
         return int(rf.line_geometry(
             pcfg.cfg, pcfg.scales[0], points, N_LINES, poses, *intr, WIDTH, HEIGHT, cu, cv,
-            pcfg.crop_size, pcfg.lp, measured_occlusion=measured,
-            handle_occlusions=handle).valid.sum())
+            pcfg.crop_size, pcfg.lp, handle_occlusions=handle, **checks).valid.sum())
 
-    def n_points(measure):
-        return int(pipeline._depth_terms(pcfg._replace(depth_measure_occlusions=measure),
-                                         depth, 0, poses, handle).valid.sum())
+    def n_points(config, **checks):
+        return int(pipeline._depth_terms(config, depth, 0, poses, handle,
+                                         **checks).valid.sum())
 
-    lines = (n_lines(None),
-             n_lines(pipeline._region_measured_occlusion(pcfg, depth, points, poses)))
-    kept = (n_points(False), n_points(True))
-    log(f"measured occlusions at B={n_bodies}: valid region lines {lines[0]} -> {lines[1]}, "
+    lines = (n_lines(), n_lines(**region))
+    kept = (n_points(pcfg._replace(depth_measure_occlusions=False)),
+            n_points(pcfg, **depth_scene))
+    log(f"{label} at B={n_bodies}: valid region lines {lines[0]} -> {lines[1]}, "
         f"valid depth points {kept[0]} -> {kept[1]}")
     if not (lines[1] < lines[0] and kept[1] < kept[0]):
-        raise AssertionError("measured occlusions dropped no region line or no depth point")
+        raise AssertionError(f"{label} dropped no region line or no depth point")
+
+
+def walled(inp):
+    """inp with a wall 0.3 m from the camera over the left half of the depth frame: it
+    hides half of the sphere, so measured occlusions drop lines and points."""
+    depth = inp["depth_images"].clone()
+    depth[:, :WIDTH // 2] = round(0.3 / DEPTH_SCALE)
+    return dict(inp, depth_images=depth)
 
 
 def check_card_against_cpu(label, inp, cycle, n_bodies: int = 8, n_cycles: int = 3):
@@ -482,7 +649,8 @@ def kernel_line(shapes, paths):
     for name, source, replaces, path in (
             ("sample_lines", REGION_SOURCE, "m3t_tpu/ops/region_fast.py:232", "region"),
             ("bin_counts", REGION_SOURCE, "m3t_tpu/ops/region_fast.py:723", "region"),
-            ("sample_windows", DEPTH_SOURCE, "m3t_tpu/ops/depth_fast.py:98", "rgbd")):
+            ("sample_windows", DEPTH_SOURCE, "m3t_tpu/ops/depth_fast.py:98", "rgbd"),
+            ("query_eval", OCCLUSION_SOURCE, "m3t_tpu/ops/occlusion.py:347", "occlusion")):
         rows = [s for s in shapes if s["kernel"] == name]
 
         def per_cycle(key, rows=rows):
@@ -504,9 +672,10 @@ def kernel_line(shapes, paths):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", type=Path, metavar="TABLE_FILE",
-                        help="also trace a window of region and of RGB-D cycles with "
-                             "torch.profiler and write their tables to TABLE_FILE and "
-                             "TABLE_FILE with '_rgbd' before its suffix")
+                        help="also trace a window of region, RGB-D and occlusion-path "
+                             "cycles with torch.profiler and write their tables to "
+                             "TABLE_FILE and TABLE_FILE with '_rgbd' and '_occlusion' "
+                             "before its suffix")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -529,7 +698,8 @@ def main() -> int:
 
     inp = flagship_inputs("cuda", N_BODIES)
     shapes = check_kernels(inp)
-    region_launches = {"sample_lines": 6, "bin_counts": 2, "sample_windows": 0}
+    region_launches = {"sample_lines": 6, "bin_counts": 2, "sample_windows": 0,
+                       "query_eval": 0}
     at_init = {"sample_lines": 1, "bin_counts": 2}
     paths, tensors = {}, {}
     paths["region"], tensors["region"] = run_path(
@@ -542,20 +712,31 @@ def main() -> int:
     # either modality.
     paths["ycb"], _ = run_path(
         "ycb", inp, rgbd_cycle("ycb_pcfg"),
-        {"sample_lines": 5, "bin_counts": 2, "sample_windows": 12}, at_init, n_windows=1)
+        {"sample_lines": 5, "bin_counts": 2, "sample_windows": 12, "query_eval": 0},
+        at_init, n_windows=1)
+    # bench.py --occlusion: one combined scene evaluation per correspondence iteration.
+    paths["occlusion"], tensors["occlusion"] = run_path(
+        "occlusion", occlusion_path(inp), region_cycle,
+        dict(region_launches, query_eval=5), at_init)
     if args.profile:
-        profile_cycles("region", inp, region_cycle, tensors["region"], args.profile,
-                       paths["region"]["ms_per_cycle"])
-        profile_cycles("rgbd", inp, rgbd_cycle("rgbd_pcfg"), tensors["rgbd"],
-                       args.profile.with_name(f"{args.profile.stem}_rgbd"
-                                              f"{args.profile.suffix}"),
-                       paths["rgbd"]["ms_per_cycle"])
+        for label, path_inp, cycle, suffix in (
+                ("region", inp, region_cycle, ""),
+                ("rgbd", inp, rgbd_cycle("rgbd_pcfg"), "_rgbd"),
+                ("occlusion", occlusion_path(inp), region_cycle, "_occlusion")):
+            profile_cycles(label, path_inp, cycle, tensors[label],
+                           args.profile.with_name(f"{args.profile.stem}{suffix}"
+                                                  f"{args.profile.suffix}"),
+                           paths[label]["ms_per_cycle"])
     check_card_against_cpu("region", inp, region_cycle)
     occlusions = walled(dict(inp, rgbd_pcfg=inp["rgbd_pcfg"]._replace(
         region_measure_occlusions=True, depth_measure_occlusions=True)))
-    check_occlusions_drop(occlusions)
+    check_masks_drop("measured occlusions", occlusions)
     check_card_against_cpu("rgbd with measured occlusions", occlusions,
                            rgbd_cycle("rgbd_pcfg"))
+    scene = occluded(inp)
+    check_masks_drop("scene checks", scene)
+    check_card_against_cpu("region with scene checks", scene, region_cycle)
+    check_card_against_cpu("rgbd with scene checks", scene, rgbd_cycle("rgbd_pcfg"))
 
     print(json.dumps({"kernel_shapes": shapes}))
     print(json.dumps({"paths": paths, "card": card}))

@@ -88,7 +88,15 @@ def library() -> ctypes.CDLL:
     lib.m3t_bin_counts.restype = i32
     lib.m3t_sample_windows.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.m3t_sample_windows.restype = i32
+    lib.m3t_query_eval.argtypes = [ptr] * 8 + [i32, i32, i32, ptr]
+    lib.m3t_query_eval.restype = i32
     return lib
+
+
+def require(cond: bool, msg: str) -> None:
+    """Argument check of the kernel wrappers: raises ValueError(msg) unless cond."""
+    if not cond:
+        raise ValueError(msg)
 
 
 def stream_handle(device: torch.device) -> int:

@@ -1,5 +1,5 @@
 """Depth-modality correspondences and Gauss-Newton terms on PyTorch (port of
-m3t_tpu/ops/depth_fn.py without the scene-occlusion inputs).
+m3t_tpu/ops/depth_fn.py).
 
 ICP-style point-to-plane correspondences on a depth image: per model point, a strided
 (K, K) window around the projection is searched for the nearest valid 3D point
@@ -49,6 +49,53 @@ class DepthDataPoints(NamedTuple):
     normal_f_body: torch.Tensor  # (B, P, 3)
     correspondence_center_f_camera: torch.Tensor  # (B, P, 3)
     valid: torch.Tensor  # (B, P) bool
+
+
+class DepthModeledOcclusionInputs(NamedTuple):
+    """Rendered focused depth crops for the modeled-occlusion check (image mode)."""
+
+    focused_depth: torch.Tensor  # (B, S, S) float32 meters
+    corner_u: torch.Tensor  # (B,)
+    corner_v: torch.Tensor  # (B,)
+    scale: torch.Tensor  # (B,)
+    body_visible: torch.Tensor  # (B,) bool
+
+
+class SilhouetteCheckInputs(NamedTuple):
+    """Rendered focused body-id crops for the silhouette check (image mode)."""
+
+    silhouette: torch.Tensor  # (B, S, S) int32 body ids
+    corner_u: torch.Tensor  # (B,)
+    corner_v: torch.Tensor  # (B,)
+    scale: torch.Tensor  # (B,)
+    body_id: torch.Tensor  # (B,) int32
+    body_visible: torch.Tensor  # (B,) bool
+
+
+class DepthModeledOcclusionQueryInputs(NamedTuple):
+    """Point-query variant of :class:`DepthModeledOcclusionInputs` (SceneCoeffs)."""
+
+    coeffs: torch.Tensor  # (B, T, 12)
+    tri_valid: torch.Tensor  # (B, T) bool
+    corner_u: torch.Tensor  # (B,)
+    corner_v: torch.Tensor  # (B,)
+    scale: torch.Tensor  # (B,)
+    body_visible: torch.Tensor  # (B,) bool
+    image_size: int  # focused image side
+
+
+class SilhouetteCheckQueryInputs(NamedTuple):
+    """Point-query variant of :class:`SilhouetteCheckInputs` (body-id silhouette)."""
+
+    coeffs: torch.Tensor  # (B, T, 12)
+    tri_valid: torch.Tensor  # (B, T) bool
+    sil_body_id: torch.Tensor  # (B, T) int32 per-triangle body ids
+    corner_u: torch.Tensor  # (B,)
+    corner_v: torch.Tensor  # (B,)
+    scale: torch.Tensor  # (B,)
+    body_id: torch.Tensor  # (B,) int32
+    body_visible: torch.Tensor  # (B,) bool
+    image_size: int  # focused image side
 
 
 def _trunc(x):
@@ -167,6 +214,8 @@ def calculate_correspondences(
     depth_scale: float,
     handle_occlusions,
     measure_occlusions: bool = False,
+    modeled_occlusion=None,
+    silhouette_check=None,
     presampled=None,
     measured_presampled=None,
 ) -> DepthDataPoints:
@@ -175,10 +224,14 @@ def calculate_correspondences(
 
     body2camera_pose (B, 4, 4); depth_image (B, H, W) uint16 (may be None when both
     window sets come presampled); handle_occlusions (B,) bool; n_points a Python int or
-    a (B,) tensor.  presampled: optional (d (B, P, K, K) f32 raw depth, in_crop (B, P,
-    K, K) bool) from ops/depth_fast.presample_windows; measured_presampled: optional
-    (d, ok) from ops/depth_fast.presample_occlusion_windows.
+    a (B,) tensor.  modeled_occlusion: DepthModeledOcclusion[Query]Inputs and
+    silhouette_check: SilhouetteCheck[Query]Inputs of the focused scene, or None.
+    presampled: optional (d (B, P, K, K) f32 raw depth, in_crop (B, P, K, K) bool) from
+    ops/depth_fast.presample_windows; measured_presampled: optional (d, ok) from
+    ops/depth_fast.presample_occlusion_windows.
     """
+    from m3t_tpu_torch.ops import occlusion
+
     dev = body2camera_pose.device
     n_bodies, n_pts = points.center_f_body.shape[:2]
     k_max = max_n_strides(cfg, considered_distance)
@@ -194,6 +247,25 @@ def calculate_correspondences(
     i_cu = _trunc(cu + 0.5)
     i_cv = _trunc(cv + 0.5)
     valid = valid & (i_cu >= 0) & (i_cu <= width - 1) & (i_cv >= 0) & (i_cv <= height - 1)
+
+    # Silhouette check (IsPointOnValidSilhouette, cpp:728-734): the body-id silhouette
+    # of the focused scene, sampled at the point's focused pixel.
+    if silhouette_check is not None:
+        s = silhouette_check
+        query = isinstance(s, SilhouetteCheckQueryInputs)
+        size = s.image_size if query else s.silhouette.shape[-1]
+        fu_c = _trunc((cu - s.corner_u[:, None]) * s.scale[:, None] + 0.5)
+        fv_c = _trunc((cv - s.corner_v[:, None]) * s.scale[:, None] + 0.5)
+        inb = (fu_c >= 0) & (fu_c < size) & (fv_c >= 0) & (fv_c < size)
+        su = torch.clamp(fu_c, 0, size - 1)
+        sv = torch.clamp(fv_c, 0, size - 1)
+        if query:
+            vals = occlusion.query_id(s.coeffs, s.tri_valid, s.sil_body_id, su, sv)
+        else:
+            body = torch.arange(n_bodies, device=dev)[:, None]
+            vals = s.silhouette[body, sv.long(), su.long()]
+        ok = inb & (vals == s.body_id[:, None])
+        valid = valid & (ok | ~s.body_visible[:, None])
 
     occl_ok = torch.ones_like(valid)
     if measure_occlusions:
@@ -212,6 +284,30 @@ def calculate_correspondences(
                 depth_image, width, height, u_min, v_min, u_max, v_max, stride,
                 KMAX_N_OCCLUSION_STRIDES + 1)
         occl_ok = occl_ok & strided_window_min_free(d, sample_ok, min_depth)
+
+    if modeled_occlusion is not None:
+        # IsPointUnoccludedModeled (cpp:778-824)
+        occ = modeled_occlusion
+        size = (occ.image_size if isinstance(occ, DepthModeledOcclusionQueryInputs)
+                else occ.focused_depth.shape[-1])
+        meter_to_pixel = fu * occ.scale[:, None]
+        if cfg.use_depth_scaling:
+            meter_to_pixel = meter_to_pixel.expand(z_safe.shape)
+        else:
+            meter_to_pixel = meter_to_pixel / z_safe
+        diameter = 2.0 * cfg.modeled_occlusion_radius * meter_to_pixel
+        fcu = (cu - occ.corner_u[:, None]) * occ.scale[:, None]
+        fcv = (cv - occ.corner_v[:, None]) * occ.scale[:, None]
+        u_min, v_min, u_max, v_max, stride = window_bounds(
+            diameter, KMAX_N_OCCLUSION_STRIDES, fcu, fcv, size, size)
+        _, sample_ok, uu, vv = window_samples(None, size, size, u_min, v_min, u_max, v_max,
+                                              stride, KMAX_N_OCCLUSION_STRIDES + 1)
+        min_rendered = occlusion.window_min_depth(occ, uu, vv, sample_ok)
+        threshold = cfg.modeled_occlusion_threshold
+        if cfg.use_depth_scaling:
+            threshold = threshold * z
+        min_allowed = z - points.modeled_depth_offset - threshold
+        occl_ok = occl_ok & ((min_rendered > min_allowed) | ~occ.body_visible[:, None])
 
     # --- FindCorrespondence (cpp:826-884) ---------------------------------------------
     cd, diameter = correspondence_diameter(cfg, considered_distance, z, z_safe, fu)

@@ -1,13 +1,150 @@
-"""Host-side numpy z-buffer rasterizer (port of m3t_tpu/ops/raster.py::rasterize_np,
-numpy path): renders synthetic frames without JAX, OpenGL or OpenCV.
+"""Triangle rasterization for the port (m3t_tpu/ops/raster.py without JAX).
+
+Three parts:
+  * :func:`triangle_coefficients` and :func:`rasterize`, batched over B independent
+    scenes: every triangle's three edge functions and its interpolated inverse depth
+    are linear in pixel coordinates (u, v), so coverage and depth at a pixel are
+    ``(a*u + b*v) + c`` per plane.  The scene-occlusion queries
+    (ops/occlusion.py) evaluate the same planes at single pixels; :func:`rasterize`
+    evaluates them over a whole (H, W) image (the image mode).
+  * :func:`rasterize_np`, the host-side numpy z-buffer (numpy path of the JAX
+    module's ``rasterize_np``), which renders the synthetic frames.
+  * :func:`decimate_mesh`, a numpy copy of the JAX module's vertex clustering.
 
 Conventions: pixel (iu, iv) samples the projected point (u, v) = (iu, iv); camera frame
-x right, y down, z forward, u = x*fu/z + ppu; background depth = +inf.
+x right, y down, z forward, u = x*fu/z + ppu; background depth = +inf; silhouette id 0 =
+background.  Every expression keeps the JAX source's operation order with one rounding
+per operation; the normal images of the JAX rasterizer are not ported (nothing on the
+port's paths renders them).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
+import torch
+
+from m3t_tpu_torch.ops.depth_fn import rdiv
+
+
+class TriangleSoup(NamedTuple):
+    """Triangle batch of B scenes for one render setup.
+
+    coeffs: (B, T, 12) float32 — 3 edge functions (a, b, c each) premultiplied by
+            sign(area), then the inverse-depth plane (az, bz, cz); all evaluated as
+            ``(a*u + b*v) + c``.
+    valid:  (B, T) bool
+    ids:    (B, T) int32 — silhouette id per triangle
+    bbox:   (B, T, 4) float32 — projected [u_min, u_max, v_min, v_max] per triangle
+            (garbage for invalid triangles)
+    """
+
+    coeffs: torch.Tensor
+    valid: torch.Tensor
+    ids: torch.Tensor
+    bbox: torch.Tensor
+
+
+def _per_scene(x, like: torch.Tensor):
+    """A Python number, or a (B,) tensor shaped to broadcast against (B, T, 3)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(like.dtype).reshape(-1, 1, 1)
+    return x
+
+
+def triangle_coefficients(tri_verts_cam, ids, fu, fv, ppu, ppv, cull_backfaces=False,
+                          z_min: float = 1e-3) -> TriangleSoup:
+    """Per-triangle linear coefficients from camera-frame triangle vertices
+    (m3t_tpu/ops/raster.py:48-115).
+
+    tri_verts_cam: (B, T, 3, 3); ids: (B, T); fu, fv, ppu, ppv: Python numbers or (B,)
+    tensors; cull_backfaces: a bool or a (B, T) bool tensor.
+    """
+    v = tri_verts_cam.to(torch.float32)
+    z = v[..., 2]                                                     # (B, T, 3)
+    fu, fv, ppu, ppv = (_per_scene(x, z) for x in (fu, fv, ppu, ppv))
+    in_front = torch.all(z > z_min, dim=-1)
+    z_safe = torch.where(z > z_min, z, torch.ones_like(z))
+    u = v[..., 0] * fu / z_safe + ppu
+    vv = v[..., 1] * fv / z_safe + ppv
+    inv_z = rdiv(1.0, z_safe)
+
+    def edge(pu, pv, qu, qv):
+        a = -(qv - pv)
+        b = qu - pu
+        c = (qv - pv) * pu - (qu - pu) * pv
+        return a, b, c
+
+    # Edge k runs from vertex k to vertex k+1.
+    a0, b0, c0 = edge(u[..., 0], vv[..., 0], u[..., 1], vv[..., 1])
+    a1, b1, c1 = edge(u[..., 1], vv[..., 1], u[..., 2], vv[..., 2])
+    a2, b2, c2 = edge(u[..., 2], vv[..., 2], u[..., 0], vv[..., 0])
+
+    # Signed area = edge 0 evaluated at vertex 2.
+    area = a0 * u[..., 2] + b0 * vv[..., 2] + c0
+    front_facing = area < 0.0  # y-down image coords: CCW-outward meshes project clockwise
+    cull = torch.as_tensor(cull_backfaces, dtype=torch.bool, device=v.device)
+    big_enough = torch.abs(area) > 1e-12
+    valid = in_front & big_enough & (front_facing | ~cull)
+
+    ones = torch.ones_like(area)
+    sign = torch.where(area >= 0.0, ones, -ones)
+    safe_area = torch.where(big_enough, area, ones)
+
+    # Inverse depth plane: iz(u,v) = (e1*iz0 + e2*iz1 + e0*iz2) / area.
+    iz0, iz1, iz2 = inv_z[..., 0], inv_z[..., 1], inv_z[..., 2]
+    az = (a1 * iz0 + a2 * iz1 + a0 * iz2) / safe_area
+    bz = (b1 * iz0 + b2 * iz1 + b0 * iz2) / safe_area
+    cz = (c1 * iz0 + c2 * iz1 + c0 * iz2) / safe_area
+
+    coeffs = torch.stack([a0 * sign, b0 * sign, c0 * sign,
+                          a1 * sign, b1 * sign, c1 * sign,
+                          a2 * sign, b2 * sign, c2 * sign,
+                          az, bz, cz], dim=-1)
+    bbox = torch.stack([u.amin(dim=-1), u.amax(dim=-1),
+                        vv.amin(dim=-1), vv.amax(dim=-1)], dim=-1)
+    return TriangleSoup(coeffs, valid, ids.to(torch.int32), bbox)
+
+
+def rasterize(soup: TriangleSoup, width: int, height: int, chunk: int = 64):
+    """Z-buffer rasterization of B scenes (m3t_tpu/ops/raster.py:118-188).
+
+    Returns (depth (B, H, W) f32 meters, +inf background; id_image (B, H, W) int32, 0
+    background).  Triangles go in chunks of ``chunk``: within a chunk the first index of
+    the closest triangle wins (argmin), across chunks only a strictly closer triangle
+    replaces the one stored."""
+    b, n_tri, _ = soup.coeffs.shape
+    dev = soup.coeffs.device
+    iv, iu = torch.meshgrid(torch.arange(height, dtype=torch.float32, device=dev),
+                            torch.arange(width, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    uu = iu.reshape(1, 1, -1)
+    vv = iv.reshape(1, 1, -1)
+    depth = torch.full((b, height * width), float("inf"), device=dev)
+    id_img = torch.zeros((b, height * width), dtype=torch.int32, device=dev)
+    for start in range(0, n_tri, chunk):
+        c = soup.coeffs[:, start:start + chunk, :, None]              # (B, t, 12, 1)
+        planes = [c[:, :, 3 * k] * uu + c[:, :, 3 * k + 1] * vv + c[:, :, 3 * k + 2]
+                  for k in range(4)]                                  # (B, t, HW) each
+        inside = ((planes[0] >= 0.0) & (planes[1] >= 0.0) & (planes[2] >= 0.0)
+                  & soup.valid[:, start:start + chunk, None])
+        inv_z = planes[3]
+        z = torch.where(inside & (inv_z > 1e-12),
+                        rdiv(1.0, torch.clamp(inv_z, min=1e-12)),
+                        torch.full_like(inv_z, float("inf")))
+        best = torch.argmin(z, dim=1, keepdim=True)                   # first minimum
+        best_z = torch.gather(z, 1, best)[:, 0]
+        closer = best_z < depth
+        depth = torch.where(closer, best_z, depth)
+        chunk_ids = torch.gather(soup.ids[:, start:start + chunk], 1, best[:, 0])
+        id_img = torch.where(closer, chunk_ids, id_img)
+    return depth.reshape(b, height, width), id_img.reshape(b, height, width)
+
+
+# --------------------------------------------------------------------------------------
+# Host-side numpy rasterizer (synthetic frames)
+# --------------------------------------------------------------------------------------
 
 
 def rasterize_np(
@@ -90,3 +227,45 @@ def rasterize_np(
     if with_normals:
         return depth, id_img, normal_img
     return depth, id_img
+
+
+def decimate_mesh(vertices: np.ndarray, triangles: np.ndarray, target_triangles: int):
+    """Vertex-clustering decimation for occlusion meshes (m3t_tpu/ops/raster.py:318-357,
+    bit for bit).
+
+    Modeled-occlusion checks only need coarse geometry (thresholds are centimetres,
+    m3t/src/region_modality.cpp:1391-1431), so big meshes are clustered onto a uniform
+    grid until the triangle count fits the budget.  Returns (vertices (N, 3) f32,
+    triangles (T, 3) int32).
+    """
+    vertices = np.asarray(vertices, np.float32)
+    triangles = np.asarray(triangles, np.int64)
+    if len(triangles) <= target_triangles:
+        return vertices, triangles.astype(np.int32)
+
+    lo = vertices.min(axis=0)
+    hi = vertices.max(axis=0)
+    extent = float(np.max(hi - lo)) + 1e-9
+    n_cells = 8
+    while True:
+        cell = extent / n_cells
+        keys = np.floor((vertices - lo) / cell).astype(np.int64)
+        flat = keys[:, 0] * 73856093 ^ keys[:, 1] * 19349663 ^ keys[:, 2] * 83492791
+        uniq, remap = np.unique(flat, return_inverse=True)
+        new_tri = remap[triangles]
+        good = (
+            (new_tri[:, 0] != new_tri[:, 1])
+            & (new_tri[:, 1] != new_tri[:, 2])
+            & (new_tri[:, 0] != new_tri[:, 2])
+        )
+        new_tri = new_tri[good]
+        if len(new_tri) > target_triangles and n_cells > 2:
+            n_cells //= 2
+            continue
+        # average vertex position per cluster
+        new_verts = np.zeros((len(uniq), 3), np.float64)
+        counts = np.zeros(len(uniq), np.int64)
+        np.add.at(new_verts, remap, vertices)
+        np.add.at(counts, remap, 1)
+        new_verts /= counts[:, None]
+        return new_verts.astype(np.float32), new_tri.astype(np.int32)

@@ -30,8 +30,9 @@ from typing import NamedTuple
 import torch
 
 from m3t_tpu_torch.ops import _cuda
-from m3t_tpu_torch.ops.region_fn import (MeasuredOcclusionInputs, RegionConfig,
-                                          _measured_occlusion_free)
+from m3t_tpu_torch.ops._cuda import require as _require
+from m3t_tpu_torch.ops import region_fn as rfn
+from m3t_tpu_torch.ops.region_fn import MeasuredOcclusionInputs, RegionConfig
 
 # Parameter-row indices of the staircase kernel input (region_fast.py:45-50).
 _ROW_R0 = 0     # dominant-axis start, crop coords (integer-valued f32)
@@ -89,11 +90,6 @@ def ratio_table(hist_f, hist_b):
 # ----------------------------------------------------------------------------------------
 # Kernel 1: staircase line sampling
 # ----------------------------------------------------------------------------------------
-
-
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
 
 
 def _check_sample_inputs(params, bin_crop, table, output):
@@ -312,16 +308,21 @@ def project_lines_cl(points: ViewPointsCL, pose, fu, fv, ppu, ppv):
 def line_geometry(cfg: RegionConfig, scale: int, points: ViewPointsCL, n_lines,
                   pose, fu, fv, ppu, ppv, width: int, height: int,
                   corner_u, corner_v, crop_size: int, lp: int,
+                  region_check=None,
                   measured_occlusion: MeasuredOcclusionInputs | None = None,
-                  handle_occlusions=None) -> LineGeometry:
+                  modeled_occlusion=None, handle_occlusions=None) -> LineGeometry:
     """Project model points and derive staircase parameters + validity (region_fast.py
-    :309-442 without region checking and modeled occlusions): IsLineValid plus the
-    requirement that every sampled pixel lies inside the (C, C) crop.
+    :309-442): IsLineValid plus the requirement that every sampled pixel lies inside
+    the (C, C) crop.
 
-    With ``measured_occlusion``, lines occluded in the depth image are dropped through
-    the reference's two-pass fallback (cpp:435-463): occlusion handling is off for a
-    body whose ``handle_occlusions`` (B,) bool is False (None means True for all), or
-    when fewer than ``cfg.min_n_unoccluded_lines`` lines would survive."""
+    Region checking (``region_check``: region_fn.RegionCheck[Query]Inputs) folds into
+    the validity (cpp:1293-1341).  Measured occlusions (depth images) and modeled
+    occlusions (``modeled_occlusion``: region_fn.ModeledOcclusion[Query]Inputs, the
+    focused scene) AND into one mask that goes through the reference's two-pass
+    fallback (cpp:435-463): occlusion handling is off for a body whose
+    ``handle_occlusions`` (B,) bool is False (None means True for all), or when fewer
+    than ``cfg.min_n_unoccluded_lines`` lines would survive.  When both scene checks
+    come as queries (the pipeline's default) they share one query evaluation."""
     s_seg = cfg.line_length_in_segments
     line_length = s_seg * scale
     fscale = float(scale)
@@ -374,11 +375,34 @@ def line_geometry(cfg: RegionConfig, scale: int, points: ViewPointsCL, n_lines,
     valid = valid & ((p0 >= corner_p) & (p_end <= corner_p + crop_size - 1)
                      & (s_lo >= corner_s) & (s_hi <= corner_s + crop_size - 1))
 
+    rc_query = isinstance(region_check, rfn.RegionCheckQueryInputs)
+    mo_query = isinstance(modeled_occlusion, rfn.ModeledOcclusionQueryInputs)
+    combined_rc = combined_mo = None
+    if ((rc_query or mo_query) and (region_check is None or rc_query)
+            and (modeled_occlusion is None or mo_query)):
+        combined_rc, combined_mo = rfn.combined_scene_checks(
+            cfg, fscale, center_u, center_v, normal_u, normal_v, z,
+            points.modeled_depth_offset, fu, region_check, modeled_occlusion)
+    if region_check is not None:
+        if combined_rc is None:
+            combined_rc = rfn.region_check_ok(
+                cfg, fscale, center_u, center_v, normal_u, normal_v, region_check,
+                region_check.silhouette.shape[-1])
+        valid = valid & combined_rc
+    occl_ok = torch.ones_like(valid)
     if measured_occlusion is not None:
         depth_image = measured_occlusion.depth_image
-        valid_with = valid & _measured_occlusion_free(
+        occl_ok = occl_ok & rfn._measured_occlusion_free(
             cfg, points.center_f_body.transpose(1, 2), points.measured_depth_offset,
             measured_occlusion, depth_image.shape[2], depth_image.shape[1])
+    if modeled_occlusion is not None:
+        if combined_mo is None:
+            combined_mo = rfn.modeled_occlusion_free(
+                cfg, center_u, center_v, z, points.modeled_depth_offset, fu,
+                modeled_occlusion, modeled_occlusion.focused_depth.shape[-1])
+        occl_ok = occl_ok & combined_mo
+    if measured_occlusion is not None or modeled_occlusion is not None:
+        valid_with = valid & occl_ok
         use_occlusions = valid_with.sum(dim=-1, keepdim=True) >= cfg.min_n_unoccluded_lines
         if handle_occlusions is not None:
             use_occlusions = use_occlusions & handle_occlusions[:, None]

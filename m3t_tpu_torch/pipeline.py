@@ -1,5 +1,6 @@
 """Fused batched tracking cycles on PyTorch/CUDA (port of m3t_tpu/pipeline.py: the
-region cycle and the region+depth (ICG) cycle with measured occlusions).
+region cycle and the region+depth (ICG) cycle, with measured occlusions and with the
+focused scene's modeled occlusions, region checking and silhouette check).
 
 One :func:`tracking_cycle` (or :func:`tracking_cycle_rgbd`) call runs every
 correspondence x update iteration plus the histogram adaptation for a batch of
@@ -12,7 +13,11 @@ structure:
      ``sample_lines`` kernel fetches per-line probability samples, reduced to
      distributions and moments.  RGB-D: the depth image is cropped once per body, and
      the ``sample_windows`` kernel fetches the strided correspondence-search windows
-     (and the measured-occlusion windows of either modality) from the crop;
+     (and the measured-occlusion windows of either modality) from the crop.  With a
+     scene (``scene_geom``), the focused scene is evaluated at the current pose
+     first: the ``query_eval`` kernel evaluates its triangles at the pixels that the
+     modeled-occlusion, region and silhouette checks sample (or, with
+     ``occlusion_queries=False``, the scene is rasterized into focused crops);
   3. per update iteration: gradient/Hessian (region + depth terms) and a batched
      Tikhonov 6x6 LDLT Newton step;
   4. histogram adaptation: ``sample_lines`` in bins mode walks the fg/bg color lines and
@@ -30,12 +35,14 @@ import numpy as np
 import torch
 
 from m3t_tpu_torch.common import pose_variation, resolve_device
-from m3t_tpu_torch.ops import depth_fast, depth_fn
+from m3t_tpu_torch.ops import depth_fast, depth_fn, occlusion
 from m3t_tpu_torch.ops import histogram as hist_ops
 from m3t_tpu_torch.ops import region_fast
 from m3t_tpu_torch.ops.depth_fn import DepthConfig, DepthViewPoints
 from m3t_tpu_torch.ops.region_fast import ViewPointsCL
-from m3t_tpu_torch.ops.region_fn import MeasuredOcclusionInputs, RegionConfig
+from m3t_tpu_torch.ops.region_fn import (MeasuredOcclusionInputs, ModeledOcclusionInputs,
+                                          ModeledOcclusionQueryInputs, RegionCheckInputs,
+                                          RegionCheckQueryInputs, RegionConfig)
 
 
 def _as_tensor(a, device, dtype=None) -> torch.Tensor:
@@ -90,9 +97,8 @@ class RegionModelArrays(NamedTuple):
                                    for name in RegionModelArrays._fields))
 
     @staticmethod
-    def from_npz(paths: str | Sequence[str], n_lines: int, device="cuda",
-                 measured_offset_id: int = 5,
-                 modeled_offset_id: int = 5) -> "RegionModelArrays":
+    def from_npz(paths: str | Sequence[str], n_lines: int,
+                 device="cuda") -> "RegionModelArrays":
         """Stack region-model cache files (the npz that m3t_tpu.region_model.RegionModel
         writes) into a batch, one body per file: the first n_lines points of every view,
         (V, L, 3) -> (V, 3, L), views zero-padded to the largest V."""
@@ -105,16 +111,17 @@ class RegionModelArrays(NamedTuple):
         def cl(a):  # (V, L, 3) -> (V, 3, L)
             return np.swapaxes(a[:, :n_lines], -1, -2)
 
+        # Offset 5 for both, the region modality's default offset ids
+        # (m3t_tpu/region_modality.py:283-286).
+        offsets = stack(lambda m: m["depth_offsets"][:, :n_lines, 5])
         return RegionModelArrays(
             orientations=stack(lambda m: m["orientations"]),
             centers=stack(lambda m: cl(m["centers"])),
             normals=stack(lambda m: cl(m["normals"])),
             foreground_distances=stack(lambda m: m["foreground_distances"][:, :n_lines]),
             background_distances=stack(lambda m: m["background_distances"][:, :n_lines]),
-            measured_depth_offsets=stack(
-                lambda m: m["depth_offsets"][:, :n_lines, measured_offset_id]),
-            modeled_depth_offsets=stack(
-                lambda m: m["depth_offsets"][:, :n_lines, modeled_offset_id]),
+            measured_depth_offsets=offsets,
+            modeled_depth_offsets=offsets,
             contour_lengths=stack(lambda m: np.asarray(m["contour_lengths"], np.float32)),
             max_contour_length=_as_tensor(
                 np.array([np.max(m["contour_lengths"]) for m in models], np.float32),
@@ -188,7 +195,7 @@ class TrackingState(NamedTuple):
 
 class PipelineConfig(NamedTuple):
     """The fields of m3t_tpu.pipeline.PipelineConfig that the port implements: the
-    region cycle, depth fusion and measured occlusions."""
+    region cycle, depth fusion, measured occlusions and the focused scene's checks."""
 
     cfg: RegionConfig = RegionConfig()
     scales: tuple = (6, 4, 2, 1)
@@ -205,14 +212,35 @@ class PipelineConfig(NamedTuple):
     depth_cfg: DepthConfig = DepthConfig()
     considered_distances: tuple = (0.05, 0.02, 0.01)
     depth_standard_deviations: tuple = (0.05, 0.03, 0.02)
-    # Measured occlusions from the depth images (tracking_cycle_rgbd only).
+    # Occlusion handling and region checking.  The measured occlusions read the depth
+    # images (tracking_cycle_rgbd only); the modeled occlusions, region checking and the
+    # depth silhouette check read the focused scene (a SceneGeometry input), evaluated
+    # at the current pose every correspondence iteration (tracker.cpp:448-451).
+    region_model_occlusions: bool = False
     region_measure_occlusions: bool = False
+    region_checking: bool = False
+    depth_model_occlusions: bool = False
     depth_measure_occlusions: bool = False
+    depth_silhouette_check: bool = False
+    focused_image_size: int = 200
+    z_min: float = 0.02
+    z_max: float = 10.0
+    occlusion_raster_chunk: int = 64
     # Adaptive coverage (region_modality.cpp:417-429): scale the traced line
     # count per body by the closest view's contour length, relative to
     # reference_contour_length (if > 0) or the model's max contour length.
     use_adaptive_coverage: bool = False
     reference_contour_length: float = 0.0
+    # Point-query scene evaluation (default): the checks read about 50 focused pixels
+    # per line or point, so the scene's triangles are evaluated at exactly those pixels
+    # (ops/occlusion.py SceneCoeffs, the query_eval kernel).  False renders full
+    # focused crops (ops/occlusion.focused_render) with the same results.
+    occlusion_queries: bool = True
+
+    @property
+    def needs_scene_render(self) -> bool:
+        return (self.region_model_occlusions or self.region_checking
+                or self.depth_model_occlusions or self.depth_silhouette_check)
 
     def iteration_scale(self, corr_iteration: int):
         scale = self.scales[min(corr_iteration, len(self.scales) - 1)]
@@ -387,7 +415,8 @@ def _solve_and_update(pcfg: PipelineConfig, gradient, hessian, pose, group=None)
 
 def _region_terms(pcfg: PipelineConfig, intr, scale, points, poses, n_lines,
                   bin_crop, rtab, corner_u, corner_v, width, height,
-                  measured_occlusion=None, handle_occlusions=None):
+                  region_check=None, measured_occlusion=None, modeled_occlusion=None,
+                  handle_occlusions=None):
     """One correspondence pass for the whole batch -> lane-major DataLines.
 
     ``handle_occlusions`` is a (B,) bool (per body, so the reference's per-modality
@@ -397,8 +426,9 @@ def _region_terms(pcfg: PipelineConfig, intr, scale, points, poses, n_lines,
     kp = region_fast.round_up(cfg.line_length_in_segments * scale, 8)
     geo = region_fast.line_geometry(
         cfg, scale, points, n_lines, poses, fu, fv, ppu, ppv, width, height,
-        corner_u, corner_v, pcfg.crop_size, pcfg.lp,
-        measured_occlusion=measured_occlusion, handle_occlusions=handle_occlusions)
+        corner_u, corner_v, pcfg.crop_size, pcfg.lp, region_check=region_check,
+        measured_occlusion=measured_occlusion, modeled_occlusion=modeled_occlusion,
+        handle_occlusions=handle_occlusions)
     samples = region_fast.sample_lines(geo.params, bin_crop, rtab, kp)
     return region_fast.lines_from_samples(cfg, scale, geo, samples)
 
@@ -461,8 +491,72 @@ def _region_measured_occlusion(pcfg: PipelineConfig, depth: _DepthInputs | None,
                                    presampled)
 
 
+def _render_scene_for(pcfg: PipelineConfig, scene_geom, scene_poses, intr, width: int,
+                      height: int):
+    """Per-iteration scene evaluation: SceneCoeffs (query mode) or FocusedRender."""
+    if pcfg.occlusion_queries:
+        return occlusion.focused_scene_coeffs(
+            scene_geom, scene_poses, intr, width, height, pcfg.focused_image_size,
+            pcfg.z_min, pcfg.z_max)
+    return occlusion.focused_render(
+        scene_geom, scene_poses, intr, width, height, pcfg.focused_image_size,
+        pcfg.z_min, pcfg.z_max, pcfg.occlusion_raster_chunk)
+
+
+def _scene_region_inputs(pcfg: PipelineConfig, rend, scene_geom):
+    """RegionCheck/ModeledOcclusion inputs from either scene-evaluation mode."""
+    region_check = modeled = None
+    if rend is None:
+        return region_check, modeled
+    if isinstance(rend, occlusion.SceneCoeffs):
+        size = pcfg.focused_image_size
+        if pcfg.region_checking:
+            region_check = RegionCheckQueryInputs(
+                rend.coeffs, rend.tri_valid, rend.sil_id & 255, rend.corner_u,
+                rend.corner_v, rend.scale, scene_geom.region_id, rend.body_visible, size)
+        if pcfg.region_model_occlusions:
+            modeled = ModeledOcclusionQueryInputs(
+                rend.coeffs, rend.tri_valid, rend.corner_u, rend.corner_v, rend.scale,
+                rend.body_visible, size)
+        return region_check, modeled
+    if pcfg.region_checking:
+        region_check = RegionCheckInputs(rend.region_sil, rend.corner_u, rend.corner_v,
+                                         rend.scale, scene_geom.region_id,
+                                         rend.body_visible)
+    if pcfg.region_model_occlusions:
+        modeled = ModeledOcclusionInputs(rend.depth, rend.corner_u, rend.corner_v,
+                                         rend.scale, rend.body_visible)
+    return region_check, modeled
+
+
+def _scene_depth_inputs(pcfg: PipelineConfig, rend, scene_geom):
+    """DepthModeledOcclusion/SilhouetteCheck inputs from either mode."""
+    d_modeled = d_sil = None
+    if rend is None:
+        return d_modeled, d_sil
+    if isinstance(rend, occlusion.SceneCoeffs):
+        size = pcfg.focused_image_size
+        if pcfg.depth_model_occlusions:
+            d_modeled = depth_fn.DepthModeledOcclusionQueryInputs(
+                rend.coeffs, rend.tri_valid, rend.corner_u, rend.corner_v, rend.scale,
+                rend.body_visible, size)
+        if pcfg.depth_silhouette_check:
+            d_sil = depth_fn.SilhouetteCheckQueryInputs(
+                rend.coeffs, rend.tri_valid, rend.sil_id >> 8, rend.corner_u,
+                rend.corner_v, rend.scale, scene_geom.body_id, rend.body_visible, size)
+        return d_modeled, d_sil
+    if pcfg.depth_model_occlusions:
+        d_modeled = depth_fn.DepthModeledOcclusionInputs(
+            rend.depth, rend.corner_u, rend.corner_v, rend.scale, rend.body_visible)
+    if pcfg.depth_silhouette_check:
+        d_sil = depth_fn.SilhouetteCheckInputs(
+            rend.body_sil, rend.corner_u, rend.corner_v, rend.scale, scene_geom.body_id,
+            rend.body_visible)
+    return d_modeled, d_sil
+
+
 def _depth_terms(pcfg: PipelineConfig, depth: _DepthInputs, corr_iteration: int, pose,
-                 handle_occlusions):
+                 handle_occlusions, modeled_occlusion=None, silhouette_check=None):
     """One depth correspondence pass for the batch (depth_modality.cpp:252-315), the
     windows fetched from the depth crops by the sample_windows kernel."""
     cd, _ = pcfg.iteration_depth(corr_iteration)
@@ -481,19 +575,35 @@ def _depth_terms(pcfg: PipelineConfig, depth: _DepthInputs, corr_iteration: int,
     return depth_fn.calculate_correspondences(
         pcfg.depth_cfg, cd, view, pcfg.depth_cfg.n_points_max, pose, depth.images,
         dfu, dfv, dppu, dppv, width, height, depth.scale, handle_occlusions,
-        measure_occlusions=pcfg.depth_measure_occlusions, presampled=presampled,
-        measured_presampled=measured)
+        measure_occlusions=pcfg.depth_measure_occlusions,
+        modeled_occlusion=modeled_occlusion, silhouette_check=silhouette_check,
+        presampled=presampled, measured_presampled=measured)
 
 
 def _cycle_core(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
-                state: TrackingState, depth: _DepthInputs | None = None,
-                handle_occlusions=None, pose_group=None) -> TrackingState:
+                state: TrackingState, depth: _DepthInputs | None = None, scene_geom=None,
+                occluder_poses=None, handle_occlusions=None,
+                pose_group=None) -> TrackingState:
     """Full tracking cycle for a batch (the JAX package's _cycle_core, :519-662, without
-    scene occlusion and texture).  handle_occlusions: (B,) bool, or None without depth."""
+    texture).  handle_occlusions: a bool or a (B,) bool; None means True."""
     cfg = pcfg.cfg
     fu, fv, ppu, ppv = _intrinsics(intr)
     width, height = _image_size(images)
     use_depth = depth is not None and depth.crop is not None
+    render_scene = pcfg.needs_scene_render and scene_geom is not None
+    n_bodies = state.body2camera_pose.shape[0]
+    dev = state.body2camera_pose.device
+    if handle_occlusions is None:
+        handle_occlusions = True
+    handle_occlusions = torch.as_tensor(handle_occlusions, device=dev).expand(n_bodies)
+
+    def scene_render(pose):
+        # Correspondence renderers StartRendering (tracker.cpp:448-451): the full scene
+        # (tracked body in slot 0, then the occluders) at the current pose estimate.
+        scene_poses = pose[:, None]
+        if occluder_poses is not None:
+            scene_poses = torch.cat([scene_poses, occluder_poses], dim=1)
+        return _render_scene_for(pcfg, scene_geom, scene_poses, intr, width, height)
 
     pose = state.body2camera_pose
     hist_f, hist_b = state.histogram_f, state.histogram_b
@@ -502,16 +612,20 @@ def _cycle_core(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
 
     for corr_iteration in range(pcfg.n_corr_iterations):
         scale, std = pcfg.iteration_scale(corr_iteration)
+        rend = scene_render(pose) if render_scene else None
         points = _select_view_cl(model, pose)
         n_lines = _adaptive_n_lines(pcfg, model, pose)
+        region_check, modeled = _scene_region_inputs(pcfg, rend, scene_geom)
         measured = _region_measured_occlusion(pcfg, depth, points, pose)
         lines = _region_terms(pcfg, intr, scale, points, pose, n_lines,
                               bin_crop, rtab, corner_u, corner_v, width, height,
-                              measured_occlusion=measured,
+                              region_check=region_check, measured_occlusion=measured,
+                              modeled_occlusion=modeled,
                               handle_occlusions=handle_occlusions)
         if use_depth:
+            d_modeled, d_sil = _scene_depth_inputs(pcfg, rend, scene_geom)
             depth_points = _depth_terms(pcfg, depth, corr_iteration, pose,
-                                        handle_occlusions)
+                                        handle_occlusions, d_modeled, d_sil)
             depth_std = pcfg.iteration_depth(corr_iteration)[1]
         for update_iteration in range(pcfg.n_update_iterations):
             gradient, hessian = region_fast.gradient_hessian_cl(
@@ -535,37 +649,40 @@ def _cycle_core(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
 
 
 def tracking_cycle(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
-                   state: TrackingState, pose_group=None) -> TrackingState:
+                   state: TrackingState, scene_geom=None, occluder_poses=None,
+                   handle_occlusions=None, pose_group=None) -> TrackingState:
     """One full region tracking cycle for a batch of bodies.
 
     intr: (fu, fv, ppu, ppv); images: (B, H, W, 3) or planar (B, 3, H, W) uint8 on the
-    device of the state.  pose_group (B,) ties batch slots to one shared pose (see
+    device of the state.  scene_geom (ops.occlusion.SceneGeometry) and occluder_poses
+    (B, NO-1, 4, 4) enable the modeled occlusions and region checking that the
+    PipelineConfig flags ask for; handle_occlusions (a bool or a (B,) bool, None means
+    True) is False for the first iterations after StartModality
+    (region_modality.h:442).  pose_group (B,) ties batch slots to one shared pose (see
     _solve_and_update).
     """
-    return _cycle_core(pcfg, intr, images, model, state, pose_group=pose_group)
+    return _cycle_core(pcfg, intr, images, model, state, scene_geom=scene_geom,
+                       occluder_poses=occluder_poses, handle_occlusions=handle_occlusions,
+                       pose_group=pose_group)
 
 
 def tracking_cycle_rgbd(pcfg: PipelineConfig, intr, depth_intr, depth_scale, images,
                         depth_images, model: RegionModelArrays,
                         depth_model: DepthModelArrays, state: TrackingState,
-                        handle_occlusions=None, pose_group=None) -> TrackingState:
+                        scene_geom=None, occluder_poses=None, handle_occlusions=None,
+                        pose_group=None) -> TrackingState:
     """ICG-style region+depth fused cycle for a batch of bodies.
 
     depth_images: (B, Hd, Wd) uint16 with shared depth intrinsics ``depth_intr``
     (fu, fv, ppu, ppv) and ``depth_scale`` (meters per unit), registered to the colour
     camera (the reference's ICG configuration, ICG/readme.md:51-73).  Depth terms are
     fused when ``pcfg.use_depth``; measured occlusions on either modality follow
-    ``pcfg.region_measure_occlusions`` and ``pcfg.depth_measure_occlusions``.
-    handle_occlusions: a bool or (B,) bool, False for the first iterations after
-    StartModality (region_modality.h:442); None means True.  pose_group as in
+    ``pcfg.region_measure_occlusions`` and ``pcfg.depth_measure_occlusions``; the
+    focused scene's checks of both modalities follow the other occlusion flags.
+    scene_geom, occluder_poses, handle_occlusions and pose_group as in
     :func:`tracking_cycle`.
     """
     pose = state.body2camera_pose
-    if handle_occlusions is None:
-        handle_occlusions = torch.ones(pose.shape[0], dtype=torch.bool, device=pose.device)
-    else:
-        handle_occlusions = torch.as_tensor(handle_occlusions, device=pose.device).expand(
-            pose.shape[0])
     crop = corner_u = corner_v = None
     if pcfg.use_depth:
         crop, corner_u, corner_v = depth_fast.depth_crops(
@@ -573,6 +690,7 @@ def tracking_cycle_rgbd(pcfg: PipelineConfig, intr, depth_intr, depth_scale, ima
     depth = _DepthInputs(depth_images, _intrinsics(depth_intr), float(depth_scale),
                          depth_model, crop, corner_u, corner_v)
     return _cycle_core(pcfg, intr, images, model, state, depth=depth,
+                       scene_geom=scene_geom, occluder_poses=occluder_poses,
                        handle_occlusions=handle_occlusions, pose_group=pose_group)
 
 

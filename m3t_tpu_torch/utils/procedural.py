@@ -1,5 +1,5 @@
 """Procedural meshes + synthetic frame rendering on the host (port of
-m3t_tpu/utils/procedural.py:15-60, 96-146), working on triangle-vertex arrays instead of
+m3t_tpu/utils/procedural.py:15-79, 96-146), working on triangle-vertex arrays instead of
 Body objects so that no JAX or OpenCV is needed."""
 
 from __future__ import annotations
@@ -53,6 +53,27 @@ def icosphere(n_subdiv: int = 2, radius: float = 0.05):
         faces = np.asarray(new_faces, np.int64)
         verts = np.asarray(verts, np.float64)
     return (verts * radius).astype(np.float32), faces.astype(np.int32)
+
+
+def cube(half: float = 0.05):
+    """Axis-aligned cube, outward CCW winding (m3t_tpu/utils/procedural.py:61-79)."""
+    v = np.array(
+        [[-1, -1, -1], [1, -1, -1], [1, 1, -1], [-1, 1, -1],
+         [-1, -1, 1], [1, -1, 1], [1, 1, 1], [-1, 1, 1]],
+        np.float32,
+    ) * half
+    f = np.array(
+        [
+            [0, 2, 1], [0, 3, 2],  # z = -1 face (outward -z)
+            [4, 5, 6], [4, 6, 7],  # z = +1
+            [0, 1, 5], [0, 5, 4],  # y = -1
+            [2, 3, 7], [2, 7, 6],  # y = +1
+            [0, 4, 7], [0, 7, 3],  # x = -1
+            [1, 2, 6], [1, 6, 5],  # x = +1
+        ],
+        np.int32,
+    )
+    return v, f
 
 
 def sphere_triangles(radius: float = 0.05, n_subdiv: int = 2) -> np.ndarray:

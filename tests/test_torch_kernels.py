@@ -17,6 +17,8 @@ import torch
 from m3t_tpu_torch import pipeline
 from m3t_tpu_torch.common import Intrinsics
 from m3t_tpu_torch.ops import depth_fast as df
+from m3t_tpu_torch.ops import occlusion as oc
+from m3t_tpu_torch.ops import raster
 from m3t_tpu_torch.ops import region_fast as rf
 from m3t_tpu_torch.ops.region_fn import RegionConfig
 from m3t_tpu_torch.utils import procedural
@@ -57,6 +59,52 @@ def _depth_scene(device, n_bodies=4):
     pcfg = pcfg._replace(use_depth=True, region_measure_occlusions=True,
                          depth_measure_occlusions=True)
     return pcfg, intr, model, images, poses, depth_model.expand(n_bodies), depth_images
+
+
+def _occluded_scene(device, n_bodies=4):
+    """The depth scene plus a 3 cm cube occluder 0.35 m from the camera, in front of
+    the sphere's left side, as a scene geometry with every scene check on:
+    (pcfg, intr, model, images, poses, depth_model, depth, geom, occluder_poses)."""
+    pcfg, intr, model, images, poses, depth_model, depth = _depth_scene(device, n_bodies)
+    pcfg = pcfg._replace(region_model_occlusions=True, region_checking=True,
+                         depth_model_occlusions=True, depth_silhouette_check=True,
+                         region_measure_occlusions=False, depth_measure_occlusions=False,
+                         focused_image_size=128)
+    sphere = oc.SceneBody(*procedural.icosphere(2, 0.06), body_id=1, region_id=1)
+    cube = oc.SceneBody(*procedural.cube(0.03), body_id=2, region_id=2)
+    geom = oc.build_scene_geometry([[sphere, cube]], device=device).expand(n_bodies)
+    occluder = np.eye(4, dtype=np.float32)
+    occluder[:3, 3] = [-0.04, 0.0, 0.35]
+    occluder_poses = torch.as_tensor(occluder, device=device).expand(n_bodies, 1, 4, 4)
+    return pcfg, intr, model, images, poses, depth_model, depth, geom, occluder_poses
+
+
+def _query_inputs(device, n_tri=None, n_bodies=4, n_query=3000):
+    """(coeffs, tri_valid, sil_id, u, v): the occluded scene's focused coefficients at
+    integer pixels in and around the 128-pixel crop, or (n_tri given) random
+    camera-frame triangles with a random validity mask, which exceeds one shared-memory
+    tile of the kernel when n_tri > 512."""
+    rng = np.random.default_rng(5 if n_tri is None else n_tri)
+    if n_tri is None:
+        pcfg, intr, _, _, poses, _, _, geom, occluder_poses = _occluded_scene(device,
+                                                                               n_bodies)
+        sc = oc.focused_scene_coeffs(geom, torch.cat([poses[:, None], occluder_poses], 1),
+                                     intr, 320, 240, pcfg.focused_image_size)
+        coeffs, valid, sil = sc.coeffs, sc.tri_valid, sc.sil_id
+    else:
+        tri = np.empty((n_bodies, n_tri, 3, 3), np.float32)
+        tri[..., :2] = rng.uniform(-0.1, 0.1, (n_bodies, n_tri, 3, 2))
+        tri[..., 2] = rng.uniform(0.4, 0.8, (n_bodies, n_tri, 3))
+        ids = rng.integers(1, 1 << 16, (n_bodies, n_tri)).astype(np.int32)
+        soup = raster.triangle_coefficients(torch.as_tensor(tri, device=device),
+                                            torch.as_tensor(ids, device=device),
+                                            300.0, 300.0, 63.5, 63.5)
+        coeffs, sil = soup.coeffs, soup.ids
+        valid = soup.valid & torch.as_tensor(rng.random((n_bodies, n_tri)) > 0.2,
+                                             device=device)
+    u = torch.as_tensor(rng.integers(-8, 136, (n_bodies, n_query)), device=device)
+    v = torch.as_tensor(rng.integers(-8, 136, (n_bodies, n_query)), device=device)
+    return coeffs, valid, sil, u.to(torch.int32), v.to(torch.int32)
 
 
 def _window_inputs(device, considered_distance):
@@ -127,6 +175,30 @@ def test_plain_sample_windows_matches_scalar_formula(considered_distance):
             assert got[1, k, lane] == cr[1, r, col], (lane, k)
 
 
+@pytest.mark.parametrize("n_tri", [None, 600])
+def test_plain_query_eval_matches_scalar_chains(n_tri):
+    """The plain twin against a scalar numpy walk of the two chains, with one rounding
+    per operation (numpy float32 scalars), on some queries of each body."""
+    coeffs, valid, sil, u, v = _query_inputs("cpu", n_tri, n_query=400)
+    inv, ids = oc.query_eval(coeffs, valid, sil, u, v)
+    c = np.where(valid.numpy()[..., None], coeffs.numpy(), np.float32(0))
+    n = oc.leading_valid_count(valid).numpy()
+    f32 = np.float32
+    for b in range(c.shape[0]):
+        for q in range(0, u.shape[1], 9):
+            uq, vq = f32(u[b, q]), f32(v[b, q])
+            best, best_id = [f32(0), f32(0)], [0, 0]
+            for t in range(n[b]):
+                e = [f32(f32(f32(c[b, t, 3 * k] * uq) + f32(c[b, t, 3 * k + 1] * vq))
+                         + c[b, t, 3 * k + 2]) for k in range(4)]
+                s = e[3] if min(e[:3]) >= 0 and e[3] > f32(1e-12) else f32(0)
+                if s > best[t % 2]:
+                    best[t % 2], best_id[t % 2] = s, int(sil[b, t])
+            chain = 1 if best[1] > best[0] else 0
+            assert inv[b, q].item() == best[chain] and ids[b, q].item() == best_id[chain]
+    assert (ids != 0).float().mean() > 0.05
+
+
 def test_wrappers_reject_bad_inputs():
     params = torch.zeros((2, 8, 128))
     crop = torch.zeros((2, 16, 16), dtype=torch.int32)
@@ -148,13 +220,20 @@ def test_wrappers_reject_bad_inputs():
         df.sample_windows(window_params, crop.long(), 8)
     with pytest.raises(ValueError):
         df.sample_windows(window_params, crop[:1], 8)
-    before = (rf.sample_lines.launches, rf.bin_counts.launches, df.sample_windows.launches)
+    coeffs, valid = torch.zeros((2, 4, 12)), torch.ones((2, 4), dtype=torch.bool)
+    sil, queries = torch.zeros((2, 4), dtype=torch.int32), torch.zeros((2, 6))
+    with pytest.raises(ValueError):
+        oc.query_eval(coeffs[..., :11], valid, sil, queries, queries)
+    with pytest.raises(ValueError):
+        oc.query_eval(coeffs, valid, sil, queries, queries[:, :3])
+    counters = (rf.sample_lines, rf.bin_counts, df.sample_windows, oc.query_eval)
+    before = [fn.launches for fn in counters]
     rf.sample_lines(params, crop, table, 8)
     rf.bin_counts(torch.zeros((2, 10), dtype=torch.int32),
                   torch.ones((2, 10), dtype=torch.bool))
     df.sample_windows(window_params, crop, 8)
-    assert (rf.sample_lines.launches, rf.bin_counts.launches,
-            df.sample_windows.launches) == before, \
+    oc.query_eval(coeffs, valid, sil, queries, queries)
+    assert [fn.launches for fn in counters] == before, \
         "the CPU twins must not count as kernel launches"
 
 
@@ -251,6 +330,49 @@ def test_rgbd_cycle_on_card_matches_cpu(cuda_device):
             start = pipeline.TrackingState(*(a.to(dev) for a in state))
             results[dev] = pipeline.tracking_cycle_rgbd(
                 pcfg, intr, intr, 0.001, images, depth, model, depth_model, start)
+        for got, want in zip(results["cuda"], results["cpu"]):
+            np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-4)
+        state = results["cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tri,n_bodies,n_query", [(None, 512, 9600), (1600, 16, 4096)])
+def test_query_eval_kernel_matches_plain(cuda_device, n_tri, n_bodies, n_query):
+    """The occluded scene's coefficients at B=512, Q=9600 (the flagship occlusion
+    path's shape), and 1600 random triangles (four shared-memory tiles): inverse
+    depths bit for bit, ids exactly."""
+    coeffs, valid, sil, u, v = _query_inputs(cuda_device, n_tri, n_bodies, n_query)
+    launches = oc.query_eval.launches
+    inv, ids = oc.query_eval(coeffs, valid, sil, u, v)
+    torch.cuda.synchronize()
+    assert oc.query_eval.launches == launches + 1
+    want_inv, want_ids = oc.query_eval_plain(coeffs, valid, sil, u, v)
+    assert torch.equal(inv.view(torch.int32), want_inv.view(torch.int32))
+    assert torch.equal(ids, want_ids)
+    assert (ids != 0).any() and (ids == 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rgbd", [False, True])
+def test_scene_cycles_on_card_match_cpu(cuda_device, rgbd):
+    """The region cycle with both region scene checks and the RGB-D cycle with all four,
+    a cube occluding the sphere; each cycle starts both devices from the CPU's state."""
+    setups = {str(dev): _occluded_scene(dev) for dev in ("cpu", cuda_device)}
+    pcfg, intr, model, images, poses = setups["cpu"][:5]
+    pcfg = pcfg._replace(scales=(2, 1), standard_deviations=(5.0, 1.5), n_corr_iterations=3,
+                         use_depth=rgbd)
+    state = pipeline.initialize_histograms(pcfg, intr, images, model, poses)
+    for _ in range(3):
+        results = {}
+        for dev, (_, _, model, images, _, depth_model, depth, geom, occ) in setups.items():
+            start = pipeline.TrackingState(*(a.to(dev) for a in state))
+            if rgbd:
+                results[dev] = pipeline.tracking_cycle_rgbd(
+                    pcfg, intr, intr, 0.001, images, depth, model, depth_model, start,
+                    scene_geom=geom, occluder_poses=occ)
+            else:
+                results[dev] = pipeline.tracking_cycle(pcfg, intr, images, model, start,
+                                                       scene_geom=geom, occluder_poses=occ)
         for got, want in zip(results["cuda"], results["cpu"]):
             np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-4)
         state = results["cpu"]

@@ -347,6 +347,7 @@ def test_port_imports_neither_jax_nor_reference():
         "import m3t_tpu_torch.ops.region_fast, m3t_tpu_torch.ops.region_fn\n"
         "import m3t_tpu_torch.ops.histogram, m3t_tpu_torch.ops.raster\n"
         "import m3t_tpu_torch.ops.depth_fn, m3t_tpu_torch.ops.depth_fast\n"
+        "import m3t_tpu_torch.ops.occlusion\n"
         "import m3t_tpu_torch.ops._cuda, m3t_tpu_torch.utils.procedural\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'm3t_tpu'))\n"
         "assert not bad, bad\n"
@@ -376,3 +377,11 @@ def test_entry_points_default_to_the_card(batch):
         tpipe.DepthModelArrays.from_numpy(depth_arrays)
     with pytest.raises(RuntimeError, match="cuda"):
         tpipe.DepthModelArrays.from_npz(str(BENCH_DEPTH_NPZ), 200)
+    from m3t_tpu_torch.ops import occlusion as tocc
+    from m3t_tpu_torch.utils import procedural as tproc
+
+    body = tocc.SceneBody(*tproc.cube(0.05), body_id=1, region_id=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tocc.build_scene_geometry([[body]])
+    with pytest.raises(RuntimeError, match="cuda"):
+        tocc.build_kinematic_scene_geometry([[body, body]])
