@@ -10,14 +10,19 @@ Phases (any failure exits non-zero; no phase catches its own failure):
   2. build the Hopper kernels from m3t_tpu_torch/csrc and hold each against its plain
      PyTorch twin at the flagship shapes, on inputs the flagship paths produce
      (sample_lines ratio mode at kp 136/120/80/40/24, the scales of every path driven
-     below, bins mode at LP=512 kp=24; bin_counts
-     at (512, 6144, 4096); sample_windows at (LP, kp) = (2304, 16), (1024, 8), (640, 8)
-     for the correspondence windows and (1280, 8) for the measured-occlusion windows;
-     query_eval on the calls that one occlusion-path cycle makes (B=512, Q=9600), on
-     the silhouette (Q=200) and depth modeled-occlusion (Q=7200) calls of one RGB-D
-     cycle with a cube occluder and all four scene checks, and on 1600 random
-     triangles, which take four shared-memory tiles); every result must equal its twin
-     exactly (query_eval's inverse depths bit for bit);
+     below, bins mode on the kp=120 and kp=24 lines and the walk's LP=512 kp=24;
+     bin_counts at (512, 6144, 4096); sample_windows at (LP, kp) = (2304, 16),
+     (1024, 8), (640, 8) for the correspondence windows and (1280, 8) for the
+     measured-occlusion windows; query_eval, with and without its cull, on the calls
+     that one occlusion-path cycle makes (B=512, Q=9600), on the silhouette (Q=200) and
+     depth modeled-occlusion (Q=7200) calls of one RGB-D cycle with a cube occluder and
+     all four scene checks, on 1600 random triangles, which take four shared-memory
+     tiles, and on the adversarial case at B=512 (adversarial_queries)); every result
+     must equal its twin exactly (query_eval's inverse depths bit for bit).  Each
+     kernel is timed twice: by replaying a CUDA graph of 20 calls (``ms``, the host
+     left out) and by 20 eager calls (``eager_ms``); the twins and torch.bincount
+     eagerly, torch.take by graph replay.  query_eval's rows add the work its inputs
+     ask for (query_work);
   3. the flagship region cycle, bench.py's default workload: B=512 bodies, 640x512
      frames, 200 lines, scales {6,4,2,1}, 5 correspondence x 2 update iterations,
      histogram adaptation, the committed sphere model, run eagerly through
@@ -88,21 +93,44 @@ def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
 
 
-def time_ms(fn, iters: int, windows: int = 5) -> float:
-    """Median over windows of the CUDA-event time per call."""
+def time_ms(fn, iters: int, windows: int = 5, graph: bool = False) -> float:
+    """Median over windows of the CUDA-event time per call.
+
+    graph=False times ``iters`` eager calls, so a call that takes the device less time
+    than the host needs to issue it is timed at the host's rate.  graph=True captures
+    ``iters`` calls in one CUDA graph after the warm-up call and times its replays: the
+    device runs the launches back to back, and the host does not enter the time."""
     fn()
     torch.cuda.synchronize()
+    if graph:
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            for _ in range(iters):
+                fn()
+        run = captured.replay
+        run()
+        torch.cuda.synchronize()
+    else:
+        def run():
+            for _ in range(iters):
+                fn()
     times = []
     for _ in range(windows):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(iters):
-            fn()
+        run()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def kernel_times(fn, iters: int = 20) -> dict:
+    """A kernel wrapper's time per call under both yardsticks: ``ms`` by graph replay
+    (the kernel's own time) and ``eager_ms`` by the eager loop (what an eager caller
+    sees, host issue included)."""
+    return dict(ms=time_ms(fn, iters, graph=True), eager_ms=time_ms(fn, iters))
 
 
 def bound(n_bytes: int, n_ops: int) -> dict:
@@ -252,24 +280,119 @@ def launch_counters():
 
 @contextlib.contextmanager
 def recorded_queries():
-    """The arguments of every query_eval call made inside the block, in order (the
-    callers look the kernel's wrapper up in its module at each call)."""
+    """The arguments of every query_eval call made inside the block, in order, each with
+    the (B, T, 4) triangle boxes of the focused scene whose coefficients it reads (the
+    callers look both functions up in their module at each call)."""
     from m3t_tpu_torch.ops import occlusion
 
-    kernel, calls = occlusion.query_eval, []
+    kernel, scene_coeffs, calls, scenes = (occlusion.query_eval,
+                                           occlusion.focused_scene_coeffs, [], [])
 
     def record(*args):
-        calls.append(args)
+        boxes = [sc.bbox for sc in scenes if sc.coeffs is args[0]]
+        calls.append((args, boxes[-1] if boxes else None))
         return kernel(*args)
+
+    def record_scene(*args, **kwargs):
+        scenes.append(scene_coeffs(*args, **kwargs))
+        return scenes[-1]
 
     # The wrapper counts its launches on the function its module's name refers to.
     record.launches = kernel.launches
-    occlusion.query_eval = record
+    occlusion.query_eval, occlusion.focused_scene_coeffs = record, record_scene
     try:
         yield calls
     finally:
-        occlusion.query_eval = kernel
+        occlusion.query_eval, occlusion.focused_scene_coeffs = kernel, scene_coeffs
         kernel.launches = record.launches
+
+
+def adversarial_queries(n_scenes: int, device):
+    """query_eval inputs built to catch a wrong cull: ((coeffs, tri_valid, sil_id, u, v),
+    bbox), the same scene n_scenes times.  Triangles (pixel-space vertices, so the edge
+    planes are exact): t0 a triangle at inverse depth 0.5 (id 11); t1 far from every
+    query (12), so it is culled between t0 and t2; t2 and t3 copies of t0 (13, 14): ties
+    on chain 0 and across the chains, which t0 must win; t4 a nearer triangle (inverse
+    depth 1, id 15) whose left edge is the column u = 40 on which a half-warp of queries
+    sits, the edge of that half-warp's box; t5 an invalid row of NaN coefficients (16);
+    t6 a valid row of NaN coefficients (17); t7 a triangle one float step right of u =
+    48, just outside the box of the queries at u <= 48 (18).  Queries: a 16 x 16 grid of
+    integer pixels, the column u = 40 and the column u = 48, NaN, -1e9 and +inf pixels,
+    as float32."""
+    from m3t_tpu_torch.ops import raster
+
+    after_48 = float(np.nextafter(np.float32(48.0), np.float32(100.0)))
+    tris = np.array([
+        [[8, 8], [8, 40], [40, 8]],                      # t0, z = 2
+        [[200, 200], [230, 200], [200, 230]],            # t1, z = 1
+        [[8, 8], [8, 40], [40, 8]],                      # t2, z = 2
+        [[8, 8], [8, 40], [40, 8]],                      # t3, z = 2
+        [[40, 0], [40, 60], [70, 0]],                    # t4, z = 1
+        [[0, 0], [0, 1], [1, 0]],                        # t5 (invalid, NaN)
+        [[0, 0], [0, 1], [1, 0]],                        # t6 (NaN)
+        [[after_48, 0], [after_48, 60], [80, 0]],        # t7, z = 1
+    ], np.float32)
+    z = np.array([2, 1, 2, 2, 1, 1, 1, 1], np.float32)[:, None, None]
+    verts = np.concatenate([tris * z, np.broadcast_to(z, tris.shape[:2] + (1,))], -1)
+    soup = raster.triangle_coefficients(
+        torch.as_tensor(verts[None], device=device),
+        torch.arange(11, 19, dtype=torch.int32, device=device)[None], 1.0, 1.0, 0.0, 0.0)
+    coeffs = soup.coeffs.clone()
+    coeffs[0, 5:7] = float("nan")
+    valid = torch.ones((1, 8), dtype=torch.bool, device=device)
+    valid[0, 5] = False
+    grid_v, grid_u = np.meshgrid(np.arange(16) * 3.0, np.arange(16) * 3.0, indexing="ij")
+    column = np.arange(16, dtype=np.float64) * 4.0
+    u = np.concatenate([grid_u.ravel(), np.full(16, 40.0), np.full(16, 48.0),
+                        [np.nan] * 8 + [-1e9] * 4 + [np.inf] * 4])
+    v = np.concatenate([grid_v.ravel(), column, column,
+                        [5.0] * 8 + [-1e9, 5.0, -1e9, 5.0] + [5.0, np.inf, -np.inf, 5.0]])
+    queries = [torch.as_tensor(x, dtype=torch.float32, device=device)[None].expand(
+        n_scenes, -1).contiguous() for x in (u, v)]
+    return ((coeffs.expand(n_scenes, -1, -1), valid.expand(n_scenes, -1),
+             soup.ids.expand(n_scenes, -1), *queries),
+            soup.bbox.expand(n_scenes, -1, -1))
+
+
+def query_work(args, bbox):
+    """What query_eval's inputs ask of it, counted on the card triangle by triangle (no
+    (B, Q, T) tensor): the loop bound per scene, the (query, valid triangle) pairs under
+    it, the share of them whose query lies in the triangle's box (bbox, (B, T, 4)), the
+    share of the kernel's (half-warp box, valid triangle) tests that survive its cull,
+    and the share of (warp, valid triangle) pairs the kernel evaluates (those where
+    either half survives)."""
+    from m3t_tpu_torch.ops import occlusion
+
+    coeffs, valid, _, u, v = args
+    b = coeffs.shape[0]
+    u = u.reshape(b, -1).to(torch.float32)
+    v = v.reshape(b, -1).to(torch.float32)
+    q = u.shape[1]
+    n_bound = occlusion.leading_valid_count(valid)
+    pad = (-q) % 32
+    halves = []
+    for x in (u, v):
+        x = torch.nn.functional.pad(x, (0, pad), value=float("nan")).reshape(b, -1, 16)
+        halves.append((torch.where(x.isnan(), torch.inf, x).amin(-1),
+                       torch.where(x.isnan(), -torch.inf, x).amax(-1)))
+    box = torch.stack([halves[0][0], halves[0][1], halves[1][0], halves[1][1]], -1)
+    has = ~(u.isnan() | v.isnan())
+    has = torch.nn.functional.pad(has, (0, pad)).reshape(b, -1, 16).any(-1)  # (B, H)
+    pairs = in_box = tests = kept = evaluated = 0
+    for t in range(int(n_bound.max())):
+        ok = valid[:, t]
+        lo_u, hi_u, lo_v, hi_v = bbox[:, t, :, None].unbind(1)
+        in_box += int(((u >= lo_u) & (u <= hi_u) & (v >= lo_v) & (v <= hi_v)
+                       & ok[:, None]).sum())
+        pairs += int(ok.sum()) * q
+        survive = ~occlusion.box_outside(coeffs[:, t, None, :], box) & has & ok[:, None]
+        tests += int(ok.sum()) * box.shape[1]
+        kept += int(survive.sum())
+        evaluated += int(survive.reshape(b, -1, 2).any(-1).sum())
+    return dict(loop_bound_rows=int(n_bound.sum()), pairs=pairs,
+                in_box_share=in_box / max(pairs, 1), in_box_pairs=in_box,
+                halfwarp_survive_share=kept / max(tests, 1),
+                warp_evaluated_share=2 * evaluated / max(tests, 1))
 
 
 def check_kernels(inp):
@@ -305,8 +428,8 @@ def check_kernels(inp):
         n_bytes = (b * SAMPLE_LINES_PARAM_ROWS * params.shape[-1] * 4 + touched * 4
                    + got.numel() * 4 + (table.numel() * 4 if output == "ratio" else 0))
         return dict(kernel="sample_lines", case=name, per_cycle=per_cycle, max_abs_err=err,
-                    ms=time_ms(lambda: rf.sample_lines(params, bin_crop, table, kp, output),
-                               20),
+                    **kernel_times(lambda: rf.sample_lines(params, bin_crop, table, kp,
+                                                           output)),
                     plain_ms=time_ms(
                         lambda: rf.sample_lines_plain(params, bin_crop, table, kp, output), 3),
                     library_ms=None, **bound(n_bytes, SAMPLE_LINES_OPS * got.numel()))
@@ -323,6 +446,10 @@ def check_kernels(inp):
                     for i in range(pcfg.n_corr_iterations))
         shapes.append(k1_case(f"ratio kp={kp} LP={pcfg.lp}", geo.params, rtab, kp,
                               "ratio", calls))
+        if scale in (max(pcfg.scales), min(pcfg.scales)):
+            # The same lines in bins mode (no table): what the table costs.
+            shapes.append(k1_case(f"bins kp={kp} LP={pcfg.lp}", geo.params, None, kp,
+                                  "bins", 0))
     params, mask = rf.histogram_walk_geometry(cfg, points, N_LINES, poses, *intr, WIDTH,
                                               HEIGHT, cu, cv, c, 2 * pcfg.lp)
     kp2 = mask.shape[-1]
@@ -347,11 +474,13 @@ def check_kernels(inp):
         shapes.append(dict(
             kernel="bin_counts", case=f"{side} B={b} N={k2_bins.shape[1]} bins={n_total}",
             per_cycle=1, max_abs_err=err,
-            ms=time_ms(lambda: rf.bin_counts(k2_bins, k2_mask, n_total), 20),
+            **kernel_times(lambda: rf.bin_counts(k2_bins, k2_mask, n_total)),
             plain_ms=time_ms(lambda: rf.bin_counts_plain(k2_bins, k2_mask, n_total), 5),
             **bound(n_bytes, BIN_COUNTS_OPS * k2_bins.numel()),
+            # torch.bincount reads its input on the host to size its output, so it
+            # cannot be captured in a graph: its time is the eager loop's.
             library_ms=time_ms(lambda: torch.bincount(offset, minlength=b * (n_total + 1)),
-                               20)))
+                               20), library_timing="eager"))
 
     # sample_windows on the RGB-D path's depth crops and selected depth views.  The
     # crop is gathered from the uint16 frames (through their int16 view) as the cycle
@@ -374,10 +503,11 @@ def check_kernels(inp):
                    + torch.unique(index).numel() * 4 + got.numel() * 4)
         return dict(kernel="sample_windows", case=f"{name} K={k} kp={kp} LP={params.shape[-1]}",
                     per_cycle=per_cycle, max_abs_err=err,
-                    ms=time_ms(lambda: df.sample_windows(params, depth_crop, kp), 20),
+                    **kernel_times(lambda: df.sample_windows(params, depth_crop, kp)),
                     plain_ms=time_ms(lambda: df.sample_windows_plain(params, depth_crop, kp),
                                      5),
-                    library_ms=time_ms(lambda: torch.take(depth_crop, index), 20),
+                    library_ms=time_ms(lambda: torch.take(depth_crop, index), 20, graph=True),
+                    library_timing="graph",
                     **bound(n_bytes, SAMPLE_WINDOWS_OPS * got.numel()))
 
     for cd in sorted(set(rgbd.considered_distances) | set(ycb.considered_distances),
@@ -392,7 +522,8 @@ def check_kernels(inp):
     shapes.append(k3_case("measured occlusion", u_min, v_min, stride,
                           df.KMAX_N_OCCLUSION_STRIDES + 1, 0))
 
-    def k4_case(name, args, per_cycle, plain_iters=3):
+    def k4_case(name, recorded, per_cycle, plain_iters=3):
+        args, bbox = recorded
         coeffs, valid, _, u, _ = args
         inv, ids = occlusion.query_eval(*args)
         want_inv, want_ids = occlusion.query_eval_plain(*args)
@@ -402,19 +533,25 @@ def check_kernels(inp):
                 and torch.equal(ids, want_ids)):
             raise AssertionError(f"query_eval {name}: kernel != plain (max diff {err}, "
                                  f"{int((ids != want_ids).sum())} ids differ)")
-        nvalid = occlusion.leading_valid_count(valid)
-        q = u[0].numel()
-        # Each query's (u, v) read and (inv, id) written; each scene's coefficient rows,
-        # validity flags and ids up to its loop bound, and the bound itself.
-        n_bytes = 16 * u.numel() + 53 * int(nvalid.sum()) + 4 * len(nvalid)
+        inv, ids = occlusion.query_eval(*args, cull=False)
+        torch.cuda.synchronize()
+        if not (torch.equal(inv.view(torch.int32), want_inv.view(torch.int32))
+                and torch.equal(ids, want_ids)):
+            raise AssertionError(f"query_eval {name}: kernel without cull != plain")
+        work = query_work(args, bbox)
+        # Each query's (u, v) read and (inv, id) written; each scene's validity flags, and
+        # its coefficient rows and ids up to its loop bound.  The data-dependent work is
+        # 27 operations per pair whose query lies in the triangle's box.
+        n_bytes = 16 * u.numel() + valid.numel() + 52 * work["loop_bound_rows"]
         return dict(kernel="query_eval",
-                    case=f"{name} B={u.shape[0]} Q={q} T={coeffs.shape[1]} "
-                         f"nvalid={int(nvalid.min())}-{int(nvalid.max())}",
-                    per_cycle=per_cycle, max_abs_err=err,
-                    ms=time_ms(lambda: occlusion.query_eval(*args), 20),
+                    case=f"{name} B={u.shape[0]} Q={u[0].numel()} T={coeffs.shape[1]}",
+                    per_cycle=per_cycle, max_abs_err=err, **work,
+                    **kernel_times(lambda: occlusion.query_eval(*args)),
+                    no_cull_ms=time_ms(lambda: occlusion.query_eval(*args, cull=False), 20,
+                                       graph=True),
                     plain_ms=time_ms(lambda: occlusion.query_eval_plain(*args), plain_iters),
                     library_ms=None,
-                    **bound(n_bytes, QUERY_EVAL_OPS * q * int(nvalid.sum())))
+                    **bound(n_bytes, QUERY_EVAL_OPS * work["in_box_pairs"]))
 
     # query_eval on the calls of one flagship occlusion-path cycle (the first of its five
     # correspondence iterations) and of one RGB-D cycle with the cube and all four scene
@@ -444,13 +581,20 @@ def check_kernels(inp):
     keep = torch.as_tensor(rng.random((n_scenes, n_tri)) > 0.2, device=dev)
     pixels = torch.as_tensor(rng.integers(-8, 136, (2, n_scenes, 4096)), dtype=torch.int32,
                              device=dev)
-    shapes.append(k4_case("random triangles", (soup.coeffs, soup.valid & keep, soup.ids,
-                                               pixels[0], pixels[1]), 0, plain_iters=1))
+    shapes.append(k4_case("random triangles", ((soup.coeffs, soup.valid & keep, soup.ids,
+                                                pixels[0], pixels[1]), soup.bbox), 0,
+                          plain_iters=1))
+    shapes.append(k4_case("adversarial", adversarial_queries(b, dev), 0))
     for s in shapes:
         library = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f}"
         log(f"{s['kernel']:<14} {s['case']:<44} x{s['per_cycle']} ms {s['ms']:.4f}"
-            f"  plain {s['plain_ms']:.4f}  bound {s['bound_ms']:.4f}  library {library}"
-            f"  max_abs_err {s['max_abs_err']}")
+            f"  eager {s['eager_ms']:.4f}  plain {s['plain_ms']:.4f}"
+            f"  bound {s['bound_ms']:.4f}  library {library}  max_abs_err {s['max_abs_err']}")
+        if s["kernel"] == "query_eval":
+            log(f"{'':<14} {'':<44} without cull ms {s['no_cull_ms']:.4f}  in-box pairs "
+                f"{s['in_box_share']:.4f}  half-warp tests surviving "
+                f"{s['halfwarp_survive_share']:.4f}  (warp, triangle) pairs evaluated "
+                f"{s['warp_evaluated_share']:.4f}")
     return shapes
 
 
@@ -661,7 +805,7 @@ def kernel_line(shapes, paths):
             name=name, route="cuda", source=source, replaces=replaces,
             launches=paths[path]["launches"][name],
             max_abs_err=max(s["max_abs_err"] for s in rows),
-            ms=per_cycle("ms"), plain_ms=per_cycle("plain_ms"),
+            ms=per_cycle("ms"), eager_ms=per_cycle("eager_ms"), plain_ms=per_cycle("plain_ms"),
             bound_ms=per_cycle("bound_ms"),
             bound_by=max(("bytes", "operations"), key=lambda by, rows=rows: sum(
                 s["bound_ms"] * s["per_cycle"] for s in rows if s["bound_by"] == by)),

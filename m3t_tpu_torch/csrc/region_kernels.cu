@@ -17,17 +17,30 @@
 //   Bound on this card: bytes.  At the flagship shape (B=512, LP=256, kp=120, C=256) the
 //   output is 63 MB, the gathered crop words at most as much again, the tables 8 MB and
 //   the params 4 MB; a few integer/float operations per output element are far below
-//   the H100's rates.  Design: the TPU version needed two composed lane gathers, 128-lane
-//   stripes and a transposed crop copy because Mosaic gathers only within a vreg; here
-//   one thread computes one output element with l fastest, so params loads and output
-//   stores coalesce, and the crop is read directly from global memory (a 256x256 int32
-//   crop is 256 KB, more than a block's shared memory).  The body's ratio table (16 KB
-//   for 16^3 bins, 128 KB for 32^3 as dynamic shared memory) is staged in shared memory
-//   once per block of 128 lines x all k.
-//   Numerics: the index expressions use __fmul_rn/__fadd_rn/__fsub_rn so nvcc cannot
-//   contract them into an FMA (which can move a value across an integer boundary), and
-//   values are clamped in float before the conversion to int, so out-of-range and NaN
-//   lanes give the same index as the plain PyTorch twin on every device.
+//   the H100's rates.  What holds it back in practice is the crop gather: the 32 lanes
+//   of a warp read 32 different lines, so each gather instruction asks the L1 for about
+//   27 distinct 128-byte lines (0.85 per sample at the flagship shapes), one line per
+//   cycle; in bins mode (no table) the kernel runs within 10 % of that rate.  Design:
+//   the TPU version needed two composed lane gathers, 128-lane stripes and a transposed
+//   crop copy because Mosaic gathers only within a vreg; here one thread computes
+//   kUnroll consecutive samples of one line, with l fastest across the warp, so params
+//   loads and output stores coalesce, and the crop is read directly from global memory
+//   (a 256x256 int32 crop is 256 KB, more than a block's shared memory).
+//   - The body's ratio table (16 KB for 16^3 bins, 128 KB for 32^3 as dynamic shared
+//     memory) arrives by one bulk asynchronous copy (cp.async.bulk, the TMA's
+//     non-tensor form) that completes on an mbarrier.  Thread 0 issues it first; while
+//     it is in flight every thread computes its indices and issues its first kUnroll
+//     crop gathers, and waits on the barrier only before its first table lookup.  A copy
+//     by all threads behind a __syncthreads() before any gather cost 37 % of a kp=24
+//     call on the H100.
+//   - The kUnroll gathers of a thread are independent and issued together, and
+//     consecutive samples of a line often share a cache line (a u-dominant line walks
+//     along a row).  With 4 blocks of 512 threads per SM that is 4096 gathers in flight
+//     per SM; measured on the H100, 2 steps per thread beat 1, 4 and 8 (4 and 8
+//     split kp = 24 into fewer, uneven pieces over the 4 step rows, and 8 needs 48
+//     registers, which halves the blocks per SM).
+//   - Blocks are (128 lines) x (kStepRowsPerBlock rows of kUnroll steps), one body each;
+//     a body's line tiles run next to each other, so its crop and table stay in L2.
 //
 // bin_counts    (replaces the Pallas kernel m3t_tpu/ops/region_fast.py::bin_counts,
 //                pallas_call at :723, body _bin_counts_kernel :667)
@@ -53,6 +66,8 @@ constexpr int kNParam = 8;
 
 constexpr int kLinesPerBlock = 128;
 constexpr int kStepRowsPerBlock = 4;
+constexpr int kUnroll = 2;  // consecutive steps per thread, gathered together
+constexpr int kBlocksPerSM = 4;  // 2048 threads: at most 32 registers each
 constexpr int kCountThreads = 512;
 constexpr int kStaticSharedLimit = 48 * 1024;
 
@@ -62,20 +77,52 @@ __device__ __forceinline__ int clamp_to_index(float x, int hi) {
   return static_cast<int>(x);
 }
 
+__device__ __forceinline__ uint32_t shared_address(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ bool mbarrier_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
 template <bool kRatio>
-__global__ void sample_lines_kernel(const float* __restrict__ params,
-                                    const int32_t* __restrict__ crop,
-                                    const float* __restrict__ table,
-                                    void* __restrict__ out, int lp, int kp, int c,
-                                    int n_table) {
-  extern __shared__ float s_table[];
+__global__ void __launch_bounds__(kLinesPerBlock * kStepRowsPerBlock, kBlocksPerSM)
+sample_lines_kernel(const float* __restrict__ params, const int32_t* __restrict__ crop,
+                    const float* __restrict__ table, void* __restrict__ out, int lp, int kp,
+                    int c, int n_table) {
+  extern __shared__ __align__(16) float s_table[];
+  __shared__ __align__(8) uint64_t s_table_ready;
   const int b = blockIdx.y;
+  const uint32_t ready = shared_address(&s_table_ready);
   if (kRatio) {
-    const float* tb = table + static_cast<size_t>(b) * n_table;
-    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-    for (int j = tid; j < n_table; j += blockDim.x * blockDim.y) s_table[j] = tb[j];
-    __syncthreads();
+    const bool issuer = threadIdx.x == 0 && threadIdx.y == 0;
+    if (issuer) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(ready) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();  // the barrier is initialised before anyone waits on it
+    if (issuer) {
+      const uint32_t bytes = static_cast<uint32_t>(n_table) * sizeof(float);
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(ready),
+                   "r"(bytes)
+                   : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+          "[%3];\n" ::"r"(shared_address(s_table)),
+          "l"(reinterpret_cast<uint64_t>(table + static_cast<size_t>(b) * n_table)),
+          "r"(bytes), "r"(ready)
+          : "memory");
+    }
   }
+  // Thread (0, 0) always has work below, so the block never ends with the copy in flight.
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= lp) return;
 
@@ -88,18 +135,36 @@ __global__ void sample_lines_kernel(const float* __restrict__ params,
   const float stp = __fmul_rn(step, dir);
   const int32_t* cb = crop + static_cast<size_t>(b) * c * c;
 
-  for (int k = threadIdx.y; k < kp; k += blockDim.y) {
-    const int i = clamp_to_index(__fadd_rn(r0, __fmul_rn(dir, static_cast<float>(k))), c - 1);
-    const float col_f =
-        floorf(__fadd_rn(s0, __fmul_rn(__fsub_rn(static_cast<float>(i), r0), stp)));
-    const int col = clamp_to_index(col_f, c - 1);
-    const int32_t bin = udom ? cb[col * c + i] : cb[i * c + col];
-    const size_t o = (static_cast<size_t>(b) * kp + k) * lp + l;
-    if (kRatio) {
-      static_cast<float*>(out)[o] =
-          (bin >= 0 && bin < n_table) ? s_table[bin] : __int_as_float(0x7fc00000);
-    } else {
-      static_cast<int32_t*>(out)[o] = bin;
+  bool table_ready = false;
+  for (int k0 = threadIdx.y * kUnroll; k0 < kp; k0 += kStepRowsPerBlock * kUnroll) {
+    int32_t bin[kUnroll];
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      const int k = k0 + j;
+      const int i =
+          clamp_to_index(__fadd_rn(r0, __fmul_rn(dir, static_cast<float>(k))), c - 1);
+      const float col_f =
+          floorf(__fadd_rn(s0, __fmul_rn(__fsub_rn(static_cast<float>(i), r0), stp)));
+      const int col = clamp_to_index(col_f, c - 1);
+      bin[j] = __ldg(udom ? cb + col * c + i : cb + i * c + col);  // clamped: in range
+    }
+    if (kRatio && !table_ready) {
+      while (!mbarrier_try_wait(ready, 0)) {
+      }
+      table_ready = true;
+    }
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      const int k = k0 + j;
+      if (k >= kp) break;
+      const size_t o = (static_cast<size_t>(b) * kp + k) * lp + l;
+      if (kRatio) {
+        static_cast<float*>(out)[o] = (bin[j] >= 0 && bin[j] < n_table)
+                                          ? s_table[bin[j]]
+                                          : __int_as_float(0x7fc00000);
+      } else {
+        static_cast<int32_t*>(out)[o] = bin[j];
+      }
     }
   }
 }

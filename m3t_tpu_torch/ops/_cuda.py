@@ -88,7 +88,7 @@ def library() -> ctypes.CDLL:
     lib.m3t_bin_counts.restype = i32
     lib.m3t_sample_windows.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.m3t_sample_windows.restype = i32
-    lib.m3t_query_eval.argtypes = [ptr] * 8 + [i32, i32, i32, ptr]
+    lib.m3t_query_eval.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
     lib.m3t_query_eval.restype = i32
     return lib
 

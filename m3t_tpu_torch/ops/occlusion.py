@@ -323,10 +323,32 @@ def _check_query_inputs(coeffs, tri_valid, sil_id, u, v):
 def leading_valid_count(tri_valid):
     """(B,) int32 loop bound per scene: index of the last valid triangle + 1, or 0
     (occlusion.py:341-345).  Equals the valid count for front-compacted triangles and
-    over-estimates safely for other masks, since invalid triangles count as zeros."""
+    over-estimates safely for other masks, since invalid triangles count as zeros.  The
+    plain twin loops to it; the kernel finds the same bound from tri_valid itself."""
     t = tri_valid.shape[-1]
     index = torch.arange(1, t + 1, dtype=torch.int32, device=tri_valid.device)
     return torch.where(tri_valid, index, torch.zeros_like(index)).amax(dim=-1)
+
+
+def box_outside(coeffs, box):
+    """The query_eval kernel's cull: True where no pixel of the box can be covered.
+
+    coeffs (..., 12) triangle coefficients, box (..., 4) [u_lo, u_hi, v_lo, v_hi]
+    broadcast against them.  Each edge plane is evaluated, with the kernel's rounding, at
+    the box corner where it is largest (u_hi where its u factor is >= 0, else u_lo; v
+    likewise); the box is out if one of the three is < 0.  Every operation of a plane
+    is correctly rounded and so monotone in u and in v, so the plane is < 0 (or NaN) at
+    every pixel of the box too: no margin is needed, and a NaN corner value keeps the
+    triangle."""
+    u_lo, u_hi, v_lo, v_hi = box.unbind(-1)
+    out = torch.zeros(torch.broadcast_shapes(coeffs.shape[:-1], box.shape[:-1]),
+                      dtype=torch.bool, device=coeffs.device)
+    for k in range(3):
+        a, b, c = coeffs[..., 3 * k], coeffs[..., 3 * k + 1], coeffs[..., 3 * k + 2]
+        u = torch.where(a >= 0, u_hi, u_lo)
+        v = torch.where(b >= 0, v_hi, v_lo)
+        out |= ((a * u + b * v) + c) < 0
+    return out
 
 
 def query_eval_plain(coeffs, tri_valid, sil_id, u, v):
@@ -359,15 +381,19 @@ def query_eval_plain(coeffs, tri_valid, sil_id, u, v):
             torch.where(sel, best_id[1], best_id[0]).reshape(shape))
 
 
-def query_eval(coeffs, tri_valid, sil_id, u, v):
+def query_eval(coeffs, tri_valid, sil_id, u, v, cull: bool = True):
     """Max inverse depth over covering triangles and the silhouette id of that triangle
     at focused pixels (u, v), for B scenes (m3t_tpu/ops/occlusion.py:322-357).
 
     coeffs (B, T, 12) f32, tri_valid (B, T) bool, sil_id (B, T) int32; u, v (B, ...)
-    pixel coordinates of any type (read as float32).  Returns (inv (B, ...) f32, id
-    (B, ...) int32), 0 and 0 where no triangle covers the pixel.  Ties: triangles run
-    on two chains (even t, odd t), a triangle replaces a chain's best only if strictly
-    greater, and chain 0 wins ties at the merge.
+    pixel coordinates of any type (read as float32; int32 pixels go to the kernel as
+    they are).  Returns (inv (B, ...) f32, id (B, ...) int32), 0 and 0 where no triangle
+    covers the pixel.  Ties: triangles run on two chains (even t, odd t), a triangle
+    replaces a chain's best only if strictly greater, and chain 0 wins ties at the merge.
+    The kernel skips the triangles that :func:`box_outside` rules out for the boxes of
+    a warp's queries (two boxes of 16 consecutive queries); ``cull=False`` makes it
+    evaluate every (query, triangle) pair instead.  Both give the plain twin's result,
+    bit for bit (the twin has no cull).
     """
     if coeffs.device.type == "cpu":
         return query_eval_plain(coeffs, tri_valid, sil_id, u, v)
@@ -376,19 +402,20 @@ def query_eval(coeffs, tri_valid, sil_id, u, v):
     b, n_tri, _ = coeffs.shape
     _require(0 < b <= 65535 and n_tri > 0, "query_eval: need 0 < B <= 65535 and T > 0")
     shape = u.shape
-    uf = u.reshape(b, -1).to(torch.float32).contiguous()
-    vf = v.reshape(b, -1).to(torch.float32).contiguous()
+    int_queries = u.dtype == torch.int32 and v.dtype == torch.int32
+    qtype = torch.int32 if int_queries else torch.float32
+    uq = u.reshape(b, -1).to(qtype).contiguous()
+    vq = v.reshape(b, -1).to(qtype).contiguous()
     coeffs, tri_valid, sil_id = (x.contiguous() for x in (coeffs, tri_valid, sil_id))
-    nvalid = leading_valid_count(tri_valid)
-    inv = torch.empty_like(uf)
-    ids = torch.empty(uf.shape, dtype=torch.int32, device=uf.device)
-    if uf.shape[1] == 0:
+    inv = torch.empty(uq.shape, dtype=torch.float32, device=uq.device)
+    ids = torch.empty(uq.shape, dtype=torch.int32, device=uq.device)
+    if uq.shape[1] == 0:
         return inv.reshape(shape), ids.reshape(shape)
     with torch.cuda.device(coeffs.device):
         err = _cuda.library().m3t_query_eval(
-            coeffs.data_ptr(), tri_valid.data_ptr(), sil_id.data_ptr(), nvalid.data_ptr(),
-            uf.data_ptr(), vf.data_ptr(), inv.data_ptr(), ids.data_ptr(), b, n_tri,
-            uf.shape[1], _cuda.stream_handle(coeffs.device))
+            coeffs.data_ptr(), tri_valid.data_ptr(), sil_id.data_ptr(), uq.data_ptr(),
+            vq.data_ptr(), inv.data_ptr(), ids.data_ptr(), b, n_tri, uq.shape[1],
+            int(int_queries), int(cull), _cuda.stream_handle(coeffs.device))
     _cuda.check(err, "query_eval")
     query_eval.launches += 1
     return inv.reshape(shape), ids.reshape(shape)

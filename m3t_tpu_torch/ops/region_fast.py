@@ -160,6 +160,9 @@ def sample_lines(params, bin_crop, table, kp: int, output: str = "ratio"):
     _require(0 < b <= 65535 and kp > 0, "sample_lines: need 0 < B <= 65535 and kp > 0")
     n_table = table.shape[1] if ratio else 0
     _require(n_table * 4 <= 227 * 1024, "ratio table exceeds a block's shared memory")
+    # The kernel brings each body's table in with one bulk copy: 16-byte units.
+    _require(not ratio or (n_table % 4 == 0 and table.data_ptr() % 16 == 0),
+             "ratio table rows must be 16-byte aligned multiples of 4 floats")
     out = torch.empty((b, kp, lp), dtype=torch.float32 if ratio else torch.int32,
                       device=params.device)
     with torch.cuda.device(params.device):

@@ -281,8 +281,8 @@ def combined_scene_checks(cfg: RegionConfig, fscale: float, center_u, center_v,
         qs_u += [fg_u, bg_u]
         qs_v += [fg_v, bg_v]
 
-    u_all = torch.cat(qs_u, dim=-1).to(torch.float32)                   # (B, L, 48)
-    v_all = torch.cat(qs_v, dim=-1).to(torch.float32)
+    u_all = torch.cat(qs_u, dim=-1)                                     # (B, L, 48) int32
+    v_all = torch.cat(qs_v, dim=-1)
     inv_all, id_all = occlusion.query_eval(src.coeffs, src.tri_valid, sil, u_all, v_all)
 
     off = 0

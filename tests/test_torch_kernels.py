@@ -250,16 +250,32 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scale,n_bins", [(6, 16), (2, 16), (1, 16), (2, 32)])
-def test_sample_lines_kernel_matches_plain(cuda_device, scale, n_bins):
-    """32^3 bins put the ratio table (128 KB) in dynamic shared memory."""
-    geo, bin_crop, rtab, kp, walk_params, walk_mask = _kernel_inputs(
-        cuda_device, scale, n_bins)
+@pytest.mark.parametrize("output", ["ratio", "bins"])
+@pytest.mark.parametrize("lp", [256, 512])
+@pytest.mark.parametrize("scale", [6, 4, 2, 1])
+@pytest.mark.parametrize("n_bins", [16, 32])
+def test_sample_lines_kernel_matches_plain(cuda_device, n_bins, scale, lp, output):
+    """Every kp of the region path (120, 80, 40, 24), LP 256 and 512, both modes; 32^3
+    bins put the ratio table (128 KB) in dynamic shared memory."""
+    pcfg, intr, model, images, poses = _scene(cuda_device, n_bins=n_bins)
+    state = pipeline.initialize_histograms(pcfg, intr, images, model, poses)
+    bin_crop, cu, cv = pipeline._prepare_crops(pcfg, intr, images, poses)
+    points = pipeline._select_view_cl(model, poses)
+    geo = rf.line_geometry(pcfg.cfg, scale, points, 200, poses, *intr, 320, 240, cu, cv,
+                           pcfg.crop_size, lp)
+    table = rf.ratio_table(state.histogram_f, state.histogram_b) if output == "ratio" else None
+    kp = rf.round_up(pcfg.cfg.line_length_in_segments * scale, 8)
     launches = rf.sample_lines.launches
-    got = rf.sample_lines(geo.params, bin_crop, rtab, kp)
+    got = rf.sample_lines(geo.params, bin_crop, table, kp, output)
     torch.cuda.synchronize()
     assert rf.sample_lines.launches == launches + 1
-    assert torch.equal(got, rf.sample_lines_plain(geo.params, bin_crop, rtab, kp))
+    assert torch.equal(got, rf.sample_lines_plain(geo.params, bin_crop, table, kp, output))
+
+
+@pytest.mark.cuda
+def test_sample_lines_kernel_histogram_walk(cuda_device):
+    """The histogram walk's bins-mode call (LP = 2 x the region LP)."""
+    _, bin_crop, _, _, walk_params, walk_mask = _kernel_inputs(cuda_device, 1)
     kp2 = walk_mask.shape[-1]
     got_bins = rf.sample_lines(walk_params, bin_crop, None, kp2, output="bins")
     assert torch.equal(got_bins,
@@ -336,20 +352,43 @@ def test_rgbd_cycle_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cull", [True, False])
+@pytest.mark.parametrize("pixels", [torch.int32, torch.float32])
 @pytest.mark.parametrize("n_tri,n_bodies,n_query", [(None, 512, 9600), (1600, 16, 4096)])
-def test_query_eval_kernel_matches_plain(cuda_device, n_tri, n_bodies, n_query):
+def test_query_eval_kernel_matches_plain(cuda_device, n_tri, n_bodies, n_query, pixels,
+                                         cull):
     """The occluded scene's coefficients at B=512, Q=9600 (the flagship occlusion
-    path's shape), and 1600 random triangles (four shared-memory tiles): inverse
-    depths bit for bit, ids exactly."""
+    path's shape), and 1600 random triangles (four shared-memory tiles), with and
+    without the cull, with int32 and float32 pixels: inverse depths bit for bit, ids
+    exactly."""
     coeffs, valid, sil, u, v = _query_inputs(cuda_device, n_tri, n_bodies, n_query)
+    u, v = u.to(pixels), v.to(pixels)
     launches = oc.query_eval.launches
-    inv, ids = oc.query_eval(coeffs, valid, sil, u, v)
+    inv, ids = oc.query_eval(coeffs, valid, sil, u, v, cull=cull)
     torch.cuda.synchronize()
     assert oc.query_eval.launches == launches + 1
     want_inv, want_ids = oc.query_eval_plain(coeffs, valid, sil, u, v)
     assert torch.equal(inv.view(torch.int32), want_inv.view(torch.int32))
     assert torch.equal(ids, want_ids)
     assert (ids != 0).any() and (ids == 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cull", [True, False])
+def test_query_eval_kernel_adversarial(cuda_device, cull):
+    """chip_smoke's adversarial case at B=512: ties at t=0 and t=2 with t=1 culled and
+    across the chains, an invalid and a valid row of NaN coefficients, a triangle whose
+    edge is the edge of a half-warp's query box, one a float step beyond it, and NaN,
+    -1e9 and infinite queries."""
+    import chip_smoke
+
+    args, _ = chip_smoke.adversarial_queries(512, cuda_device)
+    inv, ids = oc.query_eval(*args, cull=cull)
+    want_inv, want_ids = oc.query_eval_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(inv.view(torch.int32), want_inv.view(torch.int32))
+    assert torch.equal(ids, want_ids)
+    assert set(ids.unique().tolist()) == {0, 11, 15}
 
 
 @pytest.mark.cuda
