@@ -11,9 +11,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      PyTorch twin at the flagship shapes, on inputs the flagship paths produce
      (sample_lines ratio mode at kp 136/120/80/40/24, the scales of every path driven
      below, bins mode on the kp=120 and kp=24 lines and the walk's LP=512 kp=24;
-     bin_counts at (512, 6144, 4096); sample_windows at (LP, kp) = (2304, 16),
-     (1024, 8), (640, 8) for the correspondence windows and (1280, 8) for the
-     measured-occlusion windows; query_eval, with and without its cull, on the calls
+     bin_counts at (512, 6144, 4096); sample_windows on the RGB-D path's shared frame
+     at K = 11, 5, 3 for the correspondence windows, K = 6 for the measured-occlusion
+     windows and K = 7 (the kernel's runtime-K instantiation), at K = 11 on 512
+     distinct frames (the shared frame rolled by a per-body offset, 335 MB: not
+     L2-resident) and on a 200x160 frame under the 256-pixel crop (0 beyond the
+     frame); query_eval, with and without its cull, on the calls
      that one occlusion-path cycle makes (B=512, Q=9600), on the silhouette (Q=200) and
      depth modeled-occlusion (Q=7200) calls of one RGB-D cycle with a cube occluder and
      all four scene checks, on 1600 random triangles, which take four shared-memory
@@ -21,8 +24,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      must equal its twin exactly (query_eval's inverse depths bit for bit).  Each
      kernel is timed twice: by replaying a CUDA graph of 20 calls (``ms``, the host
      left out) and by 20 eager calls (``eager_ms``); the twins and torch.bincount
-     eagerly, torch.take by graph replay.  query_eval's rows add the work its inputs
-     ask for (query_work);
+     eagerly, torch.take (sample_windows' yardstick: the same windows from a float32
+     copy of the zero-padded frames) by graph replay.  query_eval's rows add the work
+     its inputs ask for (query_work);
   3. the flagship region cycle, bench.py's default workload: B=512 bodies, 640x512
      frames, 200 lines, scales {6,4,2,1}, 5 correspondence x 2 update iterations,
      histogram adaptation, the committed sphere model, run eagerly through
@@ -39,6 +43,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      correspondence iteration through query_eval (5 launches per cycle);
      in phases 3-6 every kernel launch count is set to 0 just before the path runs and
      asserted just after; poses must be finite and within 5 mm of the rendered pose;
+     in one more cycle of each RGB-D path no aten operation may read the depth frame
+     (no depth crop: only sample_windows reads the frame);
   7. card against CPU at B=8: initialize_histograms, then 3 cycles, each started on both
      devices from the same state; poses and histograms within atol 1e-4.  Four cases:
      the region cycle; the RGB-D cycle with measured occlusions, on a depth frame with a
@@ -73,14 +79,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: device memory rate
 FP32_OPS_PER_S = 67e12     # H100 SXM data sheet: float32 outside the tensor cores
 # Scalar operations per element, read off the kernels' source: sample_lines does
 # 2 mul, 3 add/sub, 1 floor and 4 min/max per output sample; bin_counts a mask test,
-# two range compares and one add per input sample; sample_windows 1 mul, 1 add and
-# 2 min/max per output sample; query_eval 8 mul and 8 add for the four planes, 4
-# compares and 3 ands for the coverage test and 1 select for its value, 1 compare and
-# 2 selects for the chain update, per (query, triangle under the scene's loop bound).
-SAMPLE_LINES_OPS, BIN_COUNTS_OPS, SAMPLE_WINDOWS_OPS, QUERY_EVAL_OPS = 10, 4, 4, 27
-# Rows of each kernel's (B, rows, LP) params that it reads: sample_lines R0, S0, STEP,
-# UDOM and DIR of 8; sample_windows U0, ROW and STRIDE of 4.
-SAMPLE_LINES_PARAM_ROWS, SAMPLE_WINDOWS_PARAM_ROWS = 5, 3
+# two range compares and one add per input sample; sample_windows 1 mul, 2 add and
+# 2 min/max per output sample (its column; a window row's K samples share its row);
+# query_eval 8 mul and 8 add for the four planes, 4 compares and 3 ands for the
+# coverage test and 1 select for its value, 1 compare and 2 selects for the chain
+# update, per (query, triangle under the scene's loop bound).
+SAMPLE_LINES_OPS, BIN_COUNTS_OPS, SAMPLE_WINDOWS_OPS, QUERY_EVAL_OPS = 10, 4, 5, 27
+# Rows of sample_lines' (B, 8, LP) params that it reads: R0, S0, STEP, UDOM and DIR.
+SAMPLE_LINES_PARAM_ROWS = 5
 WIDTH, HEIGHT, N_LINES, N_POINTS, N_BODIES = 640, 512, 200, 200, 512
 DEPTH_SCALE = 0.001
 REGION_SOURCE = "m3t_tpu_torch/csrc/region_kernels.cu"
@@ -395,6 +401,73 @@ def query_work(args, bbox):
                 warp_evaluated_share=2 * evaluated / max(tests, 1))
 
 
+def window_reads(image, u_min, v_min, stride, corner_u, corner_v, crop_size, k):
+    """What sample_windows reads, for its bound and its torch.take yardstick: ``touched``,
+    the distinct (frame, pixel) pairs inside the frames that the windows sample (a frame
+    shared by the batch as an expanded view counts once); ``outside``, the samples
+    beyond the frame (they read 0); ``padded``, a float32 copy of the frames zero-padded
+    to at least the crop; ``index``, the (B, P, K, K) flat index of every sample into
+    it."""
+    from m3t_tpu_torch.ops import depth_fast as df
+
+    b, h, w = image.shape
+    n_frames = 1 if image.stride(0) == 0 else b
+    hp, wp = max(h, crop_size), max(w, crop_size)
+    padded = torch.zeros((n_frames, hp, wp), dtype=torch.float32, device=image.device)
+    padded[:, :h, :w] = (image[:n_frames].view(torch.int16).to(torch.int32) & 0xFFFF)
+    rows, cols = df.window_positions(u_min, v_min, stride, corner_u, corner_v, crop_size, k)
+    frame = torch.arange(b, device=image.device) % n_frames
+    index = ((frame[:, None, None, None] * hp + rows[..., :, None].long()) * wp
+             + cols[..., None, :].long())
+    inside = (rows < h)[..., :, None] & (cols < w)[..., None, :]
+    return dict(touched=torch.unique(index[inside]).numel(),
+                outside=int((~inside).sum()), padded=padded, index=index)
+
+
+def rolled_frames(frames):
+    """(B, H, W) uint16: the first frame rolled by a different (rows, cols) offset for
+    every body, materialised (B distinct frames)."""
+    b, h, w = frames.shape
+    rng = np.random.default_rng(6)
+    dev = frames.device
+    dy = torch.as_tensor(rng.integers(-40, 41, b), device=dev)
+    dx = torch.as_tensor(rng.integers(-40, 41, b), device=dev)
+    rows = (torch.arange(h, device=dev)[None, :] - dy[:, None]) % h
+    cols = (torch.arange(w, device=dev)[None, :] - dx[:, None]) % w
+    first = frames[0].view(torch.int16)
+    return first[rows[:, :, None], cols[:, None, :]].view(torch.uint16)
+
+
+def depth_frame_reads(inp, cycle, tensors) -> int:
+    """How many aten operations of one cycle of the path read the depth frame: those
+    that take a tensor on the frame's storage and return one that is not on it (a view
+    of the frame reads nothing).  On the card only sample_windows reads the frame, so a
+    crop of it in any shape, dtype or layout, or a copy of it, counts."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    bt, state = tensors
+    frame = bt["depth_images"].untyped_storage().data_ptr()
+
+    def on_frame(x):
+        return isinstance(x, torch.Tensor) and x.untyped_storage().data_ptr() == frame
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if (any(map(on_frame, tree_leaves((args, kwargs))))
+                    and not all(map(on_frame, tree_leaves(out)))):
+                self.n += 1
+            return out
+
+    with Count() as count:
+        cycle(inp, bt, state)
+    torch.cuda.synchronize()
+    return count.n
+
+
 def check_kernels(inp):
     """Phase 2: every kernel against its plain twin at the flagship shapes.  Each row's
     ``per_cycle`` is its number of calls in one flagship cycle of its path (region for
@@ -482,31 +555,37 @@ def check_kernels(inp):
             library_ms=time_ms(lambda: torch.bincount(offset, minlength=b * (n_total + 1)),
                                20), library_timing="eager"))
 
-    # sample_windows on the RGB-D path's depth crops and selected depth views.  The
-    # crop is gathered from the uint16 frames (through their int16 view) as the cycle
-    # gathers it.
+    # sample_windows on the RGB-D path's frames (one frame shared by the batch as an
+    # expanded view, as the cycle receives it) and selected depth views.
     rgbd, ycb = inp["rgbd_pcfg"], inp["ycb_pcfg"]
-    depth_crop, dcu, dcv = df.depth_crops(bt["depth_images"], poses, *intr, c)
+    frames = bt["depth_images"]
+    dcu, dcv = df.depth_corners(frames, poses, *intr, c)
     centers = pipeline._select_depth_view(bt["depth_model"], poses).center_f_body
 
-    def k3_case(name, u_min, v_min, stride, k, per_cycle):
-        params, _ = df.window_params(u_min, v_min, stride, dcu, dcv, k)
-        kp = rf.round_up(k, 8)
-        got = df.sample_windows(params, depth_crop, kp)
-        want = df.sample_windows_plain(params, depth_crop, kp)
+    def k3_case(name, image, u_min, v_min, stride, corner_u, corner_v, k, per_cycle):
+        args = (image, u_min, v_min, stride, corner_u, corner_v, c, k)
+        got = df.sample_windows(*args)
+        want = df.sample_windows_plain(*args)
         torch.cuda.synchronize()
         err = (got.double() - want.double()).abs().max().item()
         if not torch.equal(got, want):
             raise AssertionError(f"sample_windows {name}: kernel != plain (max diff {err})")
-        index = df.window_index(params, c, kp)
-        n_bytes = (b * SAMPLE_WINDOWS_PARAM_ROWS * params.shape[-1] * 4
-                   + torch.unique(index).numel() * 4 + got.numel() * 4)
-        return dict(kernel="sample_windows", case=f"{name} K={k} kp={kp} LP={params.shape[-1]}",
+        reads = window_reads(*args)
+        # The same work whatever implements it: the f32 output, the (B, P) geometry and
+        # the corners read once, 2 bytes per distinct (frame, pixel) the windows touch.
+        # The bound of the crop-based kernel this one replaced counted that kernel's own
+        # I/O instead: its padded (B, kp, LP) int32 output, its (B, 4, LP) f32 params
+        # rows and the int32 crop words.
+        n_bytes = got.numel() * 4 + 3 * u_min.numel() * 4 + 2 * b * 4 + 2 * reads["touched"]
+        return dict(kernel="sample_windows", case=f"{name} K={k} P={u_min.shape[1]}",
                     per_cycle=per_cycle, max_abs_err=err,
-                    **kernel_times(lambda: df.sample_windows(params, depth_crop, kp)),
-                    plain_ms=time_ms(lambda: df.sample_windows_plain(params, depth_crop, kp),
-                                     5),
-                    library_ms=time_ms(lambda: torch.take(depth_crop, index), 20, graph=True),
+                    frame_bytes=image[0].numel() * 2 * (1 if image.stride(0) == 0 else b),
+                    touched_pixels=reads["touched"],
+                    outside_frame_samples=reads["outside"],
+                    **kernel_times(lambda: df.sample_windows(*args)),
+                    plain_ms=time_ms(lambda: df.sample_windows_plain(*args), 5),
+                    library_ms=time_ms(lambda: torch.take(reads["padded"], reads["index"]),
+                                       20, graph=True),
                     library_timing="graph",
                     **bound(n_bytes, SAMPLE_WINDOWS_OPS * got.numel()))
 
@@ -515,12 +594,34 @@ def check_kernels(inp):
         u_min, v_min, stride, k = df.correspondence_windows(rgbd.depth_cfg, cd, centers,
                                                            poses, *intr)
         calls = sum(rgbd.iteration_depth(i)[0] == cd for i in range(rgbd.n_corr_iterations))
-        shapes.append(k3_case(f"correspondence cd={cd}", u_min, v_min, stride, k, calls))
+        shapes.append(k3_case(f"correspondence cd={cd}", frames, u_min, v_min, stride, dcu,
+                              dcv, k, calls))
+        if k == 11:
+            widest = (u_min, v_min, stride)
     u_min, v_min, _, _, stride = df.occlusion_windows(
         rgbd.depth_cfg.measured_occlusion_radius, False, centers, poses, *intr, WIDTH,
         HEIGHT)
-    shapes.append(k3_case("measured occlusion", u_min, v_min, stride,
+    shapes.append(k3_case("measured occlusion", frames, u_min, v_min, stride, dcu, dcv,
                           df.KMAX_N_OCCLUSION_STRIDES + 1, 0))
+    # A K that no template instantiation takes.
+    u_min, v_min, stride, k = df.correspondence_windows(rgbd.depth_cfg, 0.03, centers,
+                                                       poses, *intr)
+    if k in (3, 5, 6, 11):
+        raise AssertionError(f"sample_windows runtime-K case has a template K ({k})")
+    shapes.append(k3_case("runtime K, correspondence cd=0.03", frames, u_min, v_min,
+                          stride, dcu, dcv, k, 0))
+    # A batch of sequences rather than many objects in one camera: a frame per body.
+    shapes.append(k3_case("distinct frames", rolled_frames(frames), *widest, dcu, dcv, 11, 0))
+    # A 200x160 camera (the frame's centre) under the 256-pixel crop.
+    small = frames[0, 176:336, 220:420].contiguous().expand(b, -1, -1)
+    fu, fv, ppu, ppv = intr
+    u_min, v_min, stride, k = df.correspondence_windows(
+        rgbd.depth_cfg, 0.05, centers, poses, fu, fv, ppu - 220, ppv - 176)
+    row = k3_case("small frame 200x160", small, u_min, v_min, stride,
+                  *df.depth_corners(small, poses, fu, fv, ppu - 220, ppv - 176, c), k, 0)
+    if row["outside_frame_samples"] == 0:
+        raise AssertionError("sample_windows small frame: no sample beyond the frame")
+    shapes.append(row)
 
     def k4_case(name, recorded, per_cycle, plain_iters=3):
         args, bbox = recorded
@@ -697,9 +798,9 @@ def check_masks_drop(label, inp, device="cuda", n_bodies: int = 8):
     bt = batch_of(inp, n_bodies, device)
     poses = bt["poses"]
     handle = torch.ones(n_bodies, dtype=torch.bool, device=device)
-    crop, dcu, dcv = df.depth_crops(bt["depth_images"], poses, *intr, pcfg.crop_size)
+    dcu, dcv = df.depth_corners(bt["depth_images"], poses, *intr, pcfg.crop_size)
     depth = pipeline._DepthInputs(bt["depth_images"], intr, DEPTH_SCALE, bt["depth_model"],
-                                  crop, dcu, dcv)
+                                  dcu, dcv)
     _, cu, cv = pipeline._prepare_crops(pcfg, intr, bt["images"], poses)
     points = pipeline._select_view_cl(bt["model"], poses)
     region = dict(measured_occlusion=pipeline._region_measured_occlusion(pcfg, depth, points,
@@ -854,10 +955,19 @@ def main() -> int:
     # YCB parameters: 4 correspondence iterations (scales 7, 4, 2, 2), each with one
     # window fetch for the depth correspondences and one for the measured occlusions of
     # either modality.
-    paths["ycb"], _ = run_path(
+    paths["ycb"], tensors["ycb"] = run_path(
         "ycb", inp, rgbd_cycle("ycb_pcfg"),
         {"sample_lines": 5, "bin_counts": 2, "sample_windows": 12, "query_eval": 0},
         at_init, n_windows=1)
+    # No depth crop on the RGB-D paths: no aten operation of a cycle reads the frame.
+    reads = {label: depth_frame_reads(inp, rgbd_cycle(key), tensors[label])
+             for label, key in (("rgbd", "rgbd_pcfg"), ("ycb", "ycb_pcfg"))}
+    log(f"aten operations per cycle that read the depth frame: {json.dumps(reads)}")
+    if any(reads.values()):
+        raise AssertionError(f"an RGB-D path reads the depth frame outside "
+                             f"sample_windows: {reads}")
+    for label, n in reads.items():
+        paths[label]["depth_frame_reads_per_cycle"] = n
     # bench.py --occlusion: one combined scene evaluation per correspondence iteration.
     paths["occlusion"], tensors["occlusion"] = run_path(
         "occlusion", occlusion_path(inp), region_cycle,

@@ -86,7 +86,8 @@ def library() -> ctypes.CDLL:
     lib.m3t_sample_lines.restype = i32
     lib.m3t_bin_counts.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.m3t_bin_counts.restype = i32
-    lib.m3t_sample_windows.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.m3t_sample_windows.argtypes = ([ptr, ctypes.c_longlong, i32, i32] + [ptr] * 6
+                                       + [i32] * 4 + [ptr])
     lib.m3t_sample_windows.restype = i32
     lib.m3t_query_eval.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
     lib.m3t_query_eval.restype = i32

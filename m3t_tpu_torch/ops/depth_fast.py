@@ -3,20 +3,18 @@
 The depth modality samples a strided (K, K) window of the depth image around every
 projected model point, both to search correspondences (FindCorrespondence,
 depth_modality.cpp:826-884) and to test measured occlusions (depth_modality.cpp:736-776,
-region_modality.cpp:1343-1389).  As in the JAX package, each body's depth image is
-cropped once per cycle to a (C, C) window around the projected body origin, and the
-windows are fetched from the crop by one kernel, :func:`sample_windows`: every
-(point, window row) pair is a "line" that walks K samples along u at ``stride`` pixels
-per step at a fixed crop row.  Samples outside the crop are masked invalid (the
-crop-coverage caveat of the JAX module: a point whose window leaves the crop loses
-those samples).
+region_modality.cpp:1343-1389).  As in the JAX package, every body's samples are confined
+to a (C, C) crop around its projected body origin: a sample position is clamped to the
+crop, and a sample outside it is masked invalid (the crop-coverage caveat of the JAX
+module: a point whose window leaves the crop loses those samples).
 
-The hand-written Hopper kernel is in ``csrc/depth_kernels.cu``; the wrapper launches it
-for CUDA tensors and runs its plain PyTorch twin (:func:`sample_windows_plain`) for CPU
-tensors, with no fallback from one to the other.  The crop is (B, C, C) int32, not
-transposed: the TPU-only ``cropT`` is gone, as ``bin_cropT`` went from the region path.
-Layouts at the function boundary are the JAX module's: params (B, 4, LP), samples
-(B, kp, LP), windows (B, P, Kv, Ku).
+The crop itself is never built.  One kernel, :func:`sample_windows`, reads the (B, H, W)
+uint16 frame at the clamped crop positions (0 outside the frame, which is what the JAX
+package's zero-padding of a frame smaller than the crop gives) and writes the windows as
+(B, P, Kv, Ku) float32, the layout depth_fn.calculate_correspondences reads.  The
+hand-written Hopper kernel is in ``csrc/depth_kernels.cu``; the wrapper launches it for
+CUDA tensors and runs its plain PyTorch twin (:func:`sample_windows_plain`) for CPU
+tensors, with no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -26,69 +24,89 @@ import torch
 from m3t_tpu_torch.ops import _cuda
 from m3t_tpu_torch.ops import depth_fn
 from m3t_tpu_torch.ops.depth_fn import KMAX_N_OCCLUSION_STRIDES, DepthConfig
-from m3t_tpu_torch.ops.region_fast import _require, clamp_index, crop_corners, round_up
-
-# Parameter rows of the window kernel input (depth_fast.py:37-41).
-_ROW_U0 = 0      # u start, crop coords (integer-valued f32)
-_ROW_ROW = 1     # fixed crop row (v) per line (integer-valued f32)
-_ROW_STRIDE = 2  # pixels advanced per step along u (integer-valued f32)
-_NPARAM = 4
-
+from m3t_tpu_torch.ops.region_fast import _require, crop_corners
 
 # ----------------------------------------------------------------------------------------
-# Kernel 3: strided window rows
+# Kernel 3: strided windows
 # ----------------------------------------------------------------------------------------
 
 
-def _check_window_inputs(params, crop, kp: int):
-    _require(params.dtype == torch.float32 and params.dim() == 3
-             and params.shape[1] == _NPARAM, "params must be (B, 4, LP) float32")
-    _require(crop.dtype == torch.int32 and crop.dim() == 3
-             and crop.shape[0] == params.shape[0] and crop.shape[1] == crop.shape[2],
-             "crop must be (B, C, C) int32")
-    _require(params.device == crop.device,
-             f"inputs on different devices: {params.device}, {crop.device}")
-    _require(kp > 0, "kp must be positive")
+def _check_window_inputs(image, u_min, v_min, stride, corner_u, corner_v, crop_size: int,
+                         k: int):
+    _require(image.dtype == torch.uint16 and image.dim() == 3,
+             "image must be (B, H, W) uint16")
+    b = image.shape[0]
+    _require(u_min.dim() == 2 and u_min.shape[0] == b
+             and all(x.dtype == torch.int32 and x.shape == u_min.shape
+                     for x in (u_min, v_min, stride)),
+             "u_min, v_min and stride must be (B, P) int32")
+    _require(all(x.dtype == torch.int32 and x.shape == (b,) for x in (corner_u, corner_v)),
+             "corner_u and corner_v must be (B,) int32")
+    devices = {x.device for x in (image, u_min, v_min, stride, corner_u, corner_v)}
+    _require(len(devices) == 1, f"inputs on different devices: {devices}")
+    _require(crop_size > 0 and k > 0, "crop_size and k must be positive")
 
 
-def window_index(params, c: int, kp: int):
-    """(B, kp, LP) int64 flat index into the (B, C, C) crops of every window sample:
-    the address arithmetic of the sample_windows kernel, in the same order."""
-    b = params.shape[0]
-    u0 = params[:, _ROW_U0, None, :]                               # (B, 1, LP)
-    row = clamp_index(params[:, _ROW_ROW, None, :], c)
-    stride = params[:, _ROW_STRIDE, None, :]
-    k = torch.arange(kp, dtype=torch.float32, device=params.device)[None, :, None]
-    col = clamp_index(u0 + stride * k, c)                           # (B, kp, LP)
-    body = torch.arange(b, device=params.device)[:, None, None] * (c * c)
-    return body + row * c + col
+def _crop_offsets(start, corner, stride, k: int):
+    """(B, P, K) int32 crop coordinates of the K samples along one window axis."""
+    ks = torch.arange(k, dtype=torch.int32, device=start.device)
+    return (start - corner[:, None])[:, :, None] + ks * stride[:, :, None]
 
 
-def sample_windows_plain(params, crop, kp: int):
-    """Plain PyTorch twin of the sample_windows kernel (same arithmetic, same order)."""
-    _check_window_inputs(params, crop, kp)
-    return crop.reshape(-1)[window_index(params, crop.shape[-1], kp)]
+def window_positions(u_min, v_min, stride, corner_u, corner_v, crop_size: int, k: int):
+    """Image (rows, cols), each (B, P, K) int32, of every window's samples: the window
+    position clamped to the body's (C, C) crop, in the kernel's int32 arithmetic."""
+    def axis(start, corner):
+        return (torch.clamp(_crop_offsets(start, corner, stride, k), 0, crop_size - 1)
+                + corner[:, None, None])
+
+    return axis(v_min, corner_v), axis(u_min, corner_u)
 
 
-def sample_windows(params, crop, kp: int):
-    """Batched strided row sampling:
-    ``out[b, k, l] = crop[b, clip(int(row_l)), clip(int(u0_l + stride_l * k))]``.
+def sample_windows_plain(image, u_min, v_min, stride, corner_u, corner_v, crop_size: int,
+                         k: int):
+    """Plain PyTorch twin of the sample_windows kernel (same int32 arithmetic)."""
+    _check_window_inputs(image, u_min, v_min, stride, corner_u, corner_v, crop_size, k)
+    b, h, w = image.shape
+    rows, cols = window_positions(u_min, v_min, stride, corner_u, corner_v, crop_size, k)
+    inside = (((rows >= 0) & (rows < h))[..., :, None]
+              & ((cols >= 0) & (cols < w))[..., None, :])                # (B, P, K, K)
+    body = torch.arange(b, device=image.device)[:, None, None, None]
+    d = depth_fn.gather_u16(image, body, rows.clamp(0, h - 1).long()[..., :, None],
+                            cols.clamp(0, w - 1).long()[..., None, :])
+    return torch.where(inside, d, 0).to(torch.float32)
 
-    params: (B, 4, LP) f32 (rows _ROW_*); crop: (B, C, C) int32.  Returns (B, kp, LP)
-    int32."""
-    if params.device.type == "cpu":
-        return sample_windows_plain(params, crop, kp)
-    _check_window_inputs(params, crop, kp)
-    _require(params.device.type == "cuda", f"unsupported device {params.device}")
-    _require(params.is_contiguous() and crop.is_contiguous(),
-             "sample_windows inputs must be contiguous")
-    b, _, lp = params.shape
-    _require(0 < b <= 65535, "sample_windows: need 0 < B <= 65535")
-    out = torch.empty((b, kp, lp), dtype=torch.int32, device=params.device)
-    with torch.cuda.device(params.device):
+
+def sample_windows(image, u_min, v_min, stride, corner_u, corner_v, crop_size: int,
+                   k: int):
+    """(B, P, K, K) float32 strided windows of the (B, H, W) uint16 frames:
+    ``d[b, p, kv, ku] = image[b, corner_v + r, corner_u + c]`` with
+    ``r = clamp(v_min - corner_v + kv*stride, 0, C-1)``,
+    ``c = clamp(u_min - corner_u + ku*stride, 0, C-1)``, and 0 outside the frame.
+
+    u_min, v_min, stride: (B, P) int32 in image coordinates; corner_u, corner_v: (B,)
+    int32.  On the card each (H, W) plane must be contiguous; the batch may be an
+    expanded view (batch stride 0)."""
+    if image.device.type == "cpu":
+        return sample_windows_plain(image, u_min, v_min, stride, corner_u, corner_v,
+                                    crop_size, k)
+    _check_window_inputs(image, u_min, v_min, stride, corner_u, corner_v, crop_size, k)
+    _require(image.device.type == "cuda", f"unsupported device {image.device}")
+    b, h, w = image.shape
+    p = u_min.shape[1]
+    _require(0 < b <= 65535 and p > 0 and h > 0 and w > 0,
+             "sample_windows: need 0 < B <= 65535, P > 0 and a non-empty frame")
+    _require(p * k * k < 2 ** 31, "sample_windows: P * K * K must fit in int32")
+    _require(image.stride(2) == 1 and image.stride(1) == w and image.stride(0) >= 0,
+             "sample_windows: each (H, W) plane of the image must be contiguous")
+    _require(all(x.is_contiguous() for x in (u_min, v_min, stride, corner_u, corner_v)),
+             "sample_windows: the window geometry must be contiguous")
+    out = torch.empty((b, p, k, k), dtype=torch.float32, device=image.device)
+    with torch.cuda.device(image.device):
         err = _cuda.library().m3t_sample_windows(
-            params.data_ptr(), crop.data_ptr(), out.data_ptr(), b, lp, kp, crop.shape[-1],
-            _cuda.stream_handle(params.device))
+            image.data_ptr(), image.stride(0), h, w, u_min.data_ptr(), v_min.data_ptr(),
+            stride.data_ptr(), corner_u.data_ptr(), corner_v.data_ptr(), out.data_ptr(),
+            b, p, k, crop_size, _cuda.stream_handle(image.device))
     _cuda.check(err, "sample_windows")
     sample_windows.launches += 1
     return out
@@ -98,41 +116,21 @@ sample_windows.launches = 0
 
 
 # ----------------------------------------------------------------------------------------
-# Crops and window presampling (batched over bodies)
+# Crop corners and window presampling (batched over bodies)
 # ----------------------------------------------------------------------------------------
 
 
-def pad_depth(depth_images, crop_size: int):
-    """Zero-pad (B, H, W) so both spatial dims are >= crop_size (small test images)."""
-    b, h, w = depth_images.shape
-    ph = max(crop_size - h, 0)
-    pw = max(crop_size - w, 0)
-    if not (ph or pw):
-        return depth_images
-    out = depth_images.new_zeros((b, h + ph, w + pw))
-    out[:, :h, :w] = depth_images
-    return out
-
-
-def depth_crops(depth_images, poses, fu: float, fv: float, ppu: float, ppv: float,
-                crop_size: int):
-    """Per-body (C, C) int32 crops of (B, H, W) uint16 depth images around the
-    projected body centers: (crop (B, C, C), corner_u (B,), corner_v (B,)).
-
-    The crop is an index gather, as region_fast.binify_crops; an expanded batch of one
-    image is never materialised."""
-    padded = pad_depth(depth_images, crop_size)
+def depth_corners(depth_images, poses, fu: float, fv: float, ppu: float, ppv: float,
+                  crop_size: int):
+    """Top-left corners (corner_u (B,), corner_v (B,)) int32 of the (C, C) crops around
+    the projected body centres in (B, H, W) depth images, computed on the sizes of the
+    images zero-padded to at least the crop (m3t_tpu/ops/depth_fast.py:116-132)."""
+    height, width = depth_images.shape[1], depth_images.shape[2]
     t = poses[:, :3, 3]
     z = torch.where(t[:, 2] > 0, t[:, 2], torch.ones_like(t[:, 2]))
     cu = t[:, 0] * fu / z + ppu
     cv = t[:, 1] * fv / z + ppv
-    corner_u, corner_v = crop_corners(cu, cv, crop_size, padded.shape[2], padded.shape[1])
-    dev = padded.device
-    ar = torch.arange(crop_size, device=dev)
-    rows = (corner_v.long()[:, None] + ar)[:, :, None]              # (B, C, 1)
-    cols = (corner_u.long()[:, None] + ar)[:, None, :]              # (B, 1, C)
-    body = torch.arange(padded.shape[0], device=dev)[:, None, None]
-    return depth_fn.gather_u16(padded, body, rows, cols), corner_u, corner_v
+    return crop_corners(cu, cv, crop_size, max(width, crop_size), max(height, crop_size))
 
 
 def correspondence_windows(cfg: DepthConfig, considered_distance: float, centers_b,
@@ -148,57 +146,35 @@ def correspondence_windows(cfg: DepthConfig, considered_distance: float, centers
     return torch.clamp(u_min0, min=0), torch.clamp(v_min0, min=0), stride, k_max + 1
 
 
-def window_params(u_min, v_min, stride, corner_u, corner_v, k: int):
-    """Kernel parameters (B, 4, LP) of (B, P) windows: line l = p*K + kv walks K samples
-    along u at ``stride`` px per step at crop row v_min_c + kv*stride; LP = P*K rounded
-    up to 128.  Returns (params, v_rows (B, P, K) int32 crop rows)."""
-    b, p = u_min.shape
-    kv = torch.arange(k, dtype=torch.int32, device=u_min.device)
-    u_min_c = (u_min - corner_u[:, None]).to(torch.float32)          # (B, P)
-    v_rows = (v_min - corner_v[:, None])[:, :, None] + kv * stride[:, :, None]
-    lp = round_up(p * k, 128)
-    params = torch.zeros((b, _NPARAM, lp), dtype=torch.float32, device=u_min.device)
-    params[:, _ROW_U0, :p * k] = u_min_c[:, :, None].expand(b, p, k).reshape(b, p * k)
-    params[:, _ROW_ROW, :p * k] = v_rows.to(torch.float32).reshape(b, p * k)
-    params[:, _ROW_STRIDE, :p * k] = (stride.to(torch.float32)[:, :, None]
-                                      .expand(b, p, k).reshape(b, p * k))
-    return params, v_rows
-
-
-def _fetch_strided_windows(u_min, v_min, stride, corner_u, corner_v, crop,
+def _fetch_strided_windows(image, u_min, v_min, stride, corner_u, corner_v,
                            crop_size: int, k: int):
-    """Fetch (B, P, K, K) strided windows from the crops through the kernel.
+    """Fetch (B, P, K, K) strided windows of the frames through the kernel.
 
     u_min/v_min/stride: (B, P) int32 window geometry in image coords.  Returns (d (B, P,
     Kv, Ku) f32 raw depth values, in_crop (B, P, Kv, Ku) bool); samples outside the
     body-centred crop are masked."""
-    b, p = u_min.shape
-    params, v_rows = window_params(u_min, v_min, stride, corner_u, corner_v, k)
-    out = sample_windows(params, crop, round_up(k, 8))
-    # out[b, ku, p*K + kv] -> (B, P, Kv, Ku)
-    d = (out[:, :k, :p * k].reshape(b, k, p, k).permute(0, 2, 3, 1)
-         .to(torch.float32))
-
+    d = sample_windows(image, u_min, v_min, stride, corner_u, corner_v, crop_size, k)
     # Samples outside the crop were clamped by the kernel: mask them out.
-    ks = torch.arange(k, dtype=torch.int32, device=u_min.device)
-    us_c = (u_min - corner_u[:, None])[:, :, None] + ks * stride[:, :, None]  # (B, P, K)
+    us_c = _crop_offsets(u_min, corner_u, stride, k)                 # (B, P, K)
+    vs_c = _crop_offsets(v_min, corner_v, stride, k)
     u_in = (us_c >= 0) & (us_c < crop_size)
-    v_in = (v_rows >= 0) & (v_rows < crop_size)
+    v_in = (vs_c >= 0) & (vs_c < crop_size)
     return d, v_in[:, :, :, None] & u_in[:, :, None, :]
 
 
 def presample_windows(cfg: DepthConfig, considered_distance: float, centers_b, poses,
-                      crop, corner_u, corner_v, crop_size: int,
+                      image, corner_u, corner_v, crop_size: int,
                       fu: float, fv: float, ppu: float, ppv: float):
     """Fetch the strided correspondence-search windows for a batch of bodies.
 
-    centers_b: (B, P, 3) model-point centers (body frame) of the selected views.
-    Returns (d (B, P, K, K) f32 raw depth values, in_crop (B, P, K, K) bool) in the
-    (kv, ku) order of depth_fn's direct gather (argmin ties break identically)."""
+    centers_b: (B, P, 3) model-point centers (body frame) of the selected views; image:
+    (B, H, W) uint16 depth frames.  Returns (d (B, P, K, K) f32 raw depth values, in_crop
+    (B, P, K, K) bool) in the (kv, ku) order of depth_fn's direct gather (argmin ties
+    break identically)."""
     u_min, v_min, stride, k = correspondence_windows(
         cfg, considered_distance, centers_b, poses, fu, fv, ppu, ppv)
-    return _fetch_strided_windows(u_min, v_min, stride, corner_u, corner_v,
-                                  crop, crop_size, k)
+    return _fetch_strided_windows(image, u_min, v_min, stride, corner_u, corner_v,
+                                  crop_size, k)
 
 
 def occlusion_windows(radius: float, use_depth_scaling: bool, centers_b, poses,
@@ -212,7 +188,7 @@ def occlusion_windows(radius: float, use_depth_scaling: bool, centers_b, poses,
 
 
 def presample_occlusion_windows(radius: float, use_depth_scaling: bool, centers_b,
-                                poses, crop, corner_u, corner_v, crop_size: int,
+                                poses, image, corner_u, corner_v, crop_size: int,
                                 fu: float, fv: float, ppu: float, ppv: float,
                                 width: int, height: int):
     """Fetch the strided measured-occlusion windows for a batch of bodies
@@ -220,13 +196,13 @@ def presample_occlusion_windows(radius: float, use_depth_scaling: bool, centers_
     depth_modality.cpp:736-776).
 
     centers_b: (B, P, 3) model points (body frame); poses: (B, 4, 4) body to depth
-    camera.  Returns (d (B, P, K, K) raw depth, ok (B, P, K, K) bool: the image-bounds
-    sample mask and the crop-coverage mask)."""
+    camera; image: (B, H, W) uint16 depth frames.  Returns (d (B, P, K, K) raw depth, ok
+    (B, P, K, K) bool: the image-bounds sample mask and the crop-coverage mask)."""
     k = KMAX_N_OCCLUSION_STRIDES + 1
     u_min, v_min, u_max, v_max, stride = occlusion_windows(
         radius, use_depth_scaling, centers_b, poses, fu, fv, ppu, ppv, width, height)
-    d, in_crop = _fetch_strided_windows(u_min, v_min, stride, corner_u, corner_v,
-                                        crop, crop_size, k)
+    d, in_crop = _fetch_strided_windows(image, u_min, v_min, stride, corner_u, corner_v,
+                                        crop_size, k)
     ks = torch.arange(k, dtype=torch.int32, device=u_min.device)
     u_ok = (u_min[:, :, None] + ks * stride[:, :, None]) <= u_max[:, :, None]
     v_ok = (v_min[:, :, None] + ks * stride[:, :, None]) <= v_max[:, :, None]

@@ -11,9 +11,10 @@ structure:
      flat histogram-bin indices;
   2. per correspondence iteration: closest view, line geometry, then the
      ``sample_lines`` kernel fetches per-line probability samples, reduced to
-     distributions and moments.  RGB-D: the depth image is cropped once per body, and
-     the ``sample_windows`` kernel fetches the strided correspondence-search windows
-     (and the measured-occlusion windows of either modality) from the crop.  With a
+     distributions and moments.  RGB-D: the ``sample_windows`` kernel fetches the
+     strided correspondence-search windows (and the measured-occlusion windows of
+     either modality) from the depth frame, confined to a crop around the projected
+     body origin whose corner is computed once per cycle.  With a
      scene (``scene_geom``), the focused scene is evaluated at the current pose
      first: the ``query_eval`` kernel evaluates its triangles at the pixels that the
      modeled-occlusion, region and silhouette checks sample (or, with
@@ -461,31 +462,30 @@ def _image_size(images):
 
 
 class _DepthInputs(NamedTuple):
-    """The depth side of the RGB-D cycle: images, camera and per-body crops."""
+    """The depth side of the RGB-D cycle: images, camera and per-body crop corners."""
 
     images: torch.Tensor  # (B, Hd, Wd) uint16
     intr: tuple  # (fu, fv, ppu, ppv)
     scale: float
     model: DepthModelArrays
-    crop: torch.Tensor | None  # (B, C, C) int32, with use_depth
-    corner_u: torch.Tensor | None
+    corner_u: torch.Tensor | None  # (B,) int32, with use_depth
     corner_v: torch.Tensor | None
 
 
 def _region_measured_occlusion(pcfg: PipelineConfig, depth: _DepthInputs | None,
                                points: ViewPointsCL, pose):
     """The region lines' measured-occlusion inputs (region_modality.cpp:1343-1389):
-    windows presampled from the depth crops when depth fusion is on, else gathered
-    from the full depth images."""
+    windows presampled by the sample_windows kernel when depth fusion is on, else
+    gathered from the full depth images."""
     if depth is None or not pcfg.region_measure_occlusions:
         return None
     dfu, dfv, dppu, dppv = depth.intr
     height, width = depth.images.shape[1], depth.images.shape[2]
     presampled = None
-    if depth.crop is not None:
+    if depth.corner_u is not None:
         presampled = depth_fast.presample_occlusion_windows(
             pcfg.cfg.measured_occlusion_radius, False, points.center_f_body.transpose(1, 2),
-            pose, depth.crop, depth.corner_u, depth.corner_v, pcfg.crop_size,
+            pose, depth.images, depth.corner_u, depth.corner_v, pcfg.crop_size,
             dfu, dfv, dppu, dppv, width, height)
     return MeasuredOcclusionInputs(depth.images, pose, dfu, dfv, dppu, dppv, depth.scale,
                                    presampled)
@@ -558,19 +558,19 @@ def _scene_depth_inputs(pcfg: PipelineConfig, rend, scene_geom):
 def _depth_terms(pcfg: PipelineConfig, depth: _DepthInputs, corr_iteration: int, pose,
                  handle_occlusions, modeled_occlusion=None, silhouette_check=None):
     """One depth correspondence pass for the batch (depth_modality.cpp:252-315), the
-    windows fetched from the depth crops by the sample_windows kernel."""
+    windows fetched from the depth frames by the sample_windows kernel."""
     cd, _ = pcfg.iteration_depth(corr_iteration)
     dfu, dfv, dppu, dppv = depth.intr
     height, width = depth.images.shape[1], depth.images.shape[2]
     view = _select_depth_view(depth.model, pose)
     presampled = depth_fast.presample_windows(
-        pcfg.depth_cfg, cd, view.center_f_body, pose, depth.crop, depth.corner_u,
+        pcfg.depth_cfg, cd, view.center_f_body, pose, depth.images, depth.corner_u,
         depth.corner_v, pcfg.crop_size, dfu, dfv, dppu, dppv)
     measured = None
     if pcfg.depth_measure_occlusions:
         measured = depth_fast.presample_occlusion_windows(
             pcfg.depth_cfg.measured_occlusion_radius, pcfg.depth_cfg.use_depth_scaling,
-            view.center_f_body, pose, depth.crop, depth.corner_u, depth.corner_v,
+            view.center_f_body, pose, depth.images, depth.corner_u, depth.corner_v,
             pcfg.crop_size, dfu, dfv, dppu, dppv, width, height)
     return depth_fn.calculate_correspondences(
         pcfg.depth_cfg, cd, view, pcfg.depth_cfg.n_points_max, pose, depth.images,
@@ -589,7 +589,7 @@ def _cycle_core(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
     cfg = pcfg.cfg
     fu, fv, ppu, ppv = _intrinsics(intr)
     width, height = _image_size(images)
-    use_depth = depth is not None and depth.crop is not None
+    use_depth = depth is not None and depth.corner_u is not None
     render_scene = pcfg.needs_scene_render and scene_geom is not None
     n_bodies = state.body2camera_pose.shape[0]
     dev = state.body2camera_pose.device
@@ -683,12 +683,12 @@ def tracking_cycle_rgbd(pcfg: PipelineConfig, intr, depth_intr, depth_scale, ima
     :func:`tracking_cycle`.
     """
     pose = state.body2camera_pose
-    crop = corner_u = corner_v = None
+    corner_u = corner_v = None
     if pcfg.use_depth:
-        crop, corner_u, corner_v = depth_fast.depth_crops(
+        corner_u, corner_v = depth_fast.depth_corners(
             depth_images, pose, *_intrinsics(depth_intr), pcfg.crop_size)
     depth = _DepthInputs(depth_images, _intrinsics(depth_intr), float(depth_scale),
-                         depth_model, crop, corner_u, corner_v)
+                         depth_model, corner_u, corner_v)
     return _cycle_core(pcfg, intr, images, model, state, depth=depth,
                        scene_geom=scene_geom, occluder_poses=occluder_poses,
                        handle_occlusions=handle_occlusions, pose_group=pose_group)

@@ -3,10 +3,11 @@ against the JAX package's m3t_tpu.ops.depth_fast (Pallas in interpret mode on th
 and depth_fn (under vmap).
 
 Inputs follow tests/test_depth_fast.py: random 160x120 uint16 depth images, 4 bodies of
-P=64 random points, crop 128, made with numpy from a seed and handed to both sides.
-Crops, window samples, masks and validity must match exactly; correspondences to atol
-1e-6 and gradients/Hessians to rtol 1e-5 (float32 sums taken in another order).  The
-kernel itself is held against its twin on the card by tests/test_torch_kernels.py.
+P=64 random points, crop 128, made with numpy from a seed and handed to both sides; the
+JAX side gathers its int32 crops, the port reads the frames.  Corners, window samples,
+masks and validity must match exactly; correspondences to atol 1e-6 and
+gradients/Hessians to rtol 1e-5 (float32 sums taken in another order).  The kernel
+itself is held against its twin on the card by tests/test_torch_kernels.py.
 """
 
 import jax
@@ -51,11 +52,12 @@ def inputs():
                 poses=poses)
 
 
-def _crops(inp):
-    jcrop = jdf.depth_crops(jnp.asarray(inp["depth"]), jnp.asarray(inp["poses"]),
-                            FU, FV, PPU, PPV, C)
-    tcrop = tdf.depth_crops(_t(inp["depth"]), _t(inp["poses"]), FU, FV, PPU, PPV, C)
-    return jcrop, tcrop
+def _jax_crops(depth, poses, crop=C, ppu=PPU, ppv=PPV):
+    return jdf.depth_crops(jnp.asarray(depth), jnp.asarray(poses), FU, FV, ppu, ppv, crop)
+
+
+def _corners(depth, poses, crop=C, ppu=PPU, ppv=PPV):
+    return tdf.depth_corners(_t(depth), _t(poses), FU, FV, ppu, ppv, crop)
 
 
 def _configs(use_depth_scaling):
@@ -63,75 +65,158 @@ def _configs(use_depth_scaling):
             tdn.DepthConfig(n_points_max=P, use_depth_scaling=use_depth_scaling))
 
 
-def test_depth_crops_match(inputs):
-    (cropT, cu, cv), (crop, tcu, tcv) = _crops(inputs)
-    assert crop.dtype == torch.int32 and crop.shape == (B, C, C)
-    np.testing.assert_array_equal(crop.numpy(), np.swapaxes(np.asarray(cropT), 1, 2))
+def _presampled_pair(depth, centers, poses, use_depth_scaling, occlusion, crop=C,
+                     ppu=PPU, ppv=PPV, radius=0.01, cd=CD):
+    """(JAX, port) results of presample_windows (occlusion False) or
+    presample_occlusion_windows (True) on the same frames and points."""
+    h, w = depth.shape[1:]
+    cropT, cu, cv = _jax_crops(depth, poses, crop, ppu, ppv)
+    tcu, tcv = _corners(depth, poses, crop, ppu, ppv)
+    jargs = (jnp.asarray(centers), jnp.asarray(poses), cropT, cu, cv, crop, FU, FV, ppu,
+             ppv)
+    targs = (_t(centers), _t(poses), _t(depth), tcu, tcv, crop, FU, FV, ppu, ppv)
+    if occlusion:
+        return (jdf.presample_occlusion_windows(radius, use_depth_scaling, *jargs, w, h),
+                tdf.presample_occlusion_windows(radius, use_depth_scaling, *targs, w, h))
+    jcfg, tcfg = _configs(use_depth_scaling)
+    return (jdf.presample_windows(jcfg, cd, *jargs),
+            tdf.presample_windows(tcfg, cd, *targs))
+
+
+def _assert_same(want, got):
+    (d, mask), (td, tmask) = want, got
+    assert td.dtype == torch.float32 and td.shape == d.shape
+    np.testing.assert_array_equal(tmask.numpy(), np.asarray(mask))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(d))
+
+
+def test_depth_corners_match(inputs):
+    _, cu, cv = _jax_crops(inputs["depth"], inputs["poses"])
+    tcu, tcv = _corners(inputs["depth"], inputs["poses"])
+    assert tcu.dtype == torch.int32 and tcu.shape == (B,)
     np.testing.assert_array_equal(tcu.numpy(), np.asarray(cu))
     np.testing.assert_array_equal(tcv.numpy(), np.asarray(cv))
 
 
 def test_depth_crops_pad_small_images_and_read_uint16_exactly():
-    """Values above 32767 survive the int16 gather; images smaller than the crop are
-    zero-padded."""
+    """Values above 32767 survive the int16 gather; outside a frame smaller than the
+    crop the windows read 0, as from the JAX package's zero-padded crop."""
     depth = np.full((2, 20, 30), 65535, np.uint16)
     depth[1, 3, 4] = 40000
     poses = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
     poses[:, 2, 3] = 0.5
-    crop, cu, cv = tdf.depth_crops(_t(depth), _t(poses), FU, FV, 14.5, 9.5, 32)
+    cu, cv = tdf.depth_corners(_t(depth), _t(poses), FU, FV, 14.5, 9.5, 32)
     assert (cu.tolist(), cv.tolist()) == ([0, 0], [0, 0])
-    want = np.zeros((2, 32, 32), np.int32)
-    want[:, :20, :30] = depth
-    np.testing.assert_array_equal(crop.numpy(), want)
+    u_min = torch.tensor([[0, 4, 20], [2, 26, 0]], dtype=torch.int32)
+    v_min = torch.tensor([[0, 3, 15], [1, 0, 18]], dtype=torch.int32)
+    stride = torch.tensor([[1, 3, 4], [1, 2, 5]], dtype=torch.int32)
+    got = tdf.sample_windows(_t(depth), u_min, v_min, stride, cu, cv, 32, 4).numpy()
+    padded = np.zeros((2, 32, 32), np.float32)
+    padded[:, :20, :30] = depth
+    for b in range(2):
+        for p in range(3):
+            k = np.arange(4)
+            rows = np.clip(v_min[b, p].item() + k * stride[b, p].item(), 0, 31)
+            cols = np.clip(u_min[b, p].item() + k * stride[b, p].item(), 0, 31)
+            np.testing.assert_array_equal(got[b, p], padded[b][np.ix_(rows, cols)])
+    assert got[1, 0, 2, 2] == 40000 and (got == 65535).any() and (got == 0).any()
 
 
 @pytest.mark.parametrize("use_depth_scaling", [False, True])
 def test_presample_windows_match(inputs, use_depth_scaling):
-    jcfg, tcfg = _configs(use_depth_scaling)
-    (cropT, cu, cv), (crop, tcu, tcv) = _crops(inputs)
-    d, in_crop = jdf.presample_windows(jcfg, CD, jnp.asarray(inputs["centers"]),
-                                       jnp.asarray(inputs["poses"]), cropT, cu, cv, C,
-                                       FU, FV, PPU, PPV)
-    td, tin = tdf.presample_windows(tcfg, CD, _t(inputs["centers"]), _t(inputs["poses"]),
-                                    crop, tcu, tcv, C, FU, FV, PPU, PPV)
-    assert td.dtype == torch.float32 and td.shape == d.shape
-    np.testing.assert_array_equal(tin.numpy(), np.asarray(in_crop))
-    np.testing.assert_array_equal(td.numpy(), np.asarray(d))
-    assert 0 < tin.numpy().mean() < 1, "the crop-coverage mask must be exercised"
+    want, got = _presampled_pair(inputs["depth"], inputs["centers"], inputs["poses"],
+                                 use_depth_scaling, occlusion=False)
+    _assert_same(want, got)
+    assert 0 < got[1].numpy().mean() < 1, "the crop-coverage mask must be exercised"
 
 
 @pytest.mark.parametrize("use_depth_scaling", [False, True])
 def test_presample_occlusion_windows_match(inputs, use_depth_scaling):
-    (cropT, cu, cv), (crop, tcu, tcv) = _crops(inputs)
-    d, ok = jdf.presample_occlusion_windows(
-        0.01, use_depth_scaling, jnp.asarray(inputs["centers"]),
-        jnp.asarray(inputs["poses"]), cropT, cu, cv, C, FU, FV, PPU, PPV, W, H)
-    td, tok = tdf.presample_occlusion_windows(
-        0.01, use_depth_scaling, _t(inputs["centers"]), _t(inputs["poses"]), crop, tcu,
-        tcv, C, FU, FV, PPU, PPV, W, H)
-    np.testing.assert_array_equal(tok.numpy(), np.asarray(ok))
-    np.testing.assert_array_equal(td.numpy(), np.asarray(d))
+    _assert_same(*_presampled_pair(inputs["depth"], inputs["centers"], inputs["poses"],
+                                   use_depth_scaling, occlusion=True))
 
 
 @pytest.mark.parametrize("k", [11, 6, 3])
 def test_sample_windows_plain_matches_pallas(inputs, k):
-    """The twin against the JAX kernel in Pallas interpret mode, padded lanes included,
-    on the window parameters of the correspondence search."""
-    (cropT, _, _), (crop, tcu, tcv) = _crops(inputs)
+    """The twin against the JAX window fetch (the Pallas kernel in interpret mode on the
+    int32 crops, then the slice, transpose and cast), on the window geometry of the
+    correspondence search."""
+    cropT, cu, cv = _jax_crops(inputs["depth"], inputs["poses"])
+    tcu, tcv = _corners(inputs["depth"], inputs["poses"])
     cfg = tdn.DepthConfig(n_points_max=P)
     u_min, v_min, stride, _ = tdf.correspondence_windows(
         cfg, (k - 1) * cfg.stride_length, _t(inputs["centers"]), _t(inputs["poses"]),
         FU, FV, PPU, PPV)
-    params, _ = tdf.window_params(u_min, v_min, stride, tcu, tcv, k)
-    kp = tdf.round_up(k, 8)
-    want = np.asarray(jdf.sample_windows(jnp.asarray(params.numpy()), cropT, kp=kp))
-    got = tdf.sample_windows_plain(params, crop, kp)
-    assert got.dtype == torch.int32 and got.shape == want.shape
-    np.testing.assert_array_equal(got.numpy(), want)
+    want, _ = jdf._fetch_strided_windows(*(jnp.asarray(x.numpy())
+                                           for x in (u_min, v_min, stride)),
+                                         cu, cv, cropT, C, k)
+    got = tdf.sample_windows_plain(_t(inputs["depth"]), u_min, v_min, stride, tcu, tcv,
+                                   C, k)
+    assert got.dtype == torch.float32 and got.shape == (B, P, k, k)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("occlusion", [False, True])
+def test_presampled_windows_leaving_the_crop_on_every_side_match(occlusion):
+    """Points on a ring around the body centre whose windows cross all four edges of the
+    128-pixel crop inside a 300x300 frame: values and masks equal the JAX package's."""
+    rng = np.random.default_rng(8)
+    depth = rng.integers(300, 60000, size=(2, 300, 300)).astype(np.uint16)
+    angle = rng.uniform(0, 2 * np.pi, (2, 48))
+    radius = rng.uniform(0.17, 0.25, (2, 48))
+    centers = np.stack([radius * np.cos(angle), radius * np.sin(angle),
+                        rng.normal(scale=0.01, size=(2, 48))], -1).astype(np.float32)
+    poses = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+    poses[:, :2, 3] = [[0.01, -0.02], [-0.03, 0.015]]
+    poses[:, 2, 3] = 0.5
+    want, got = _presampled_pair(depth, centers, poses, False, occlusion, ppu=149.5,
+                                 ppv=149.5, radius=0.03)
+    _assert_same(want, got)
+    cu, cv = _corners(depth, poses, C, 149.5, 149.5)
+    _, mask = got
+    # Every side of the crop cuts some window: its first or last row or column.
+    assert not mask[:, :, :, 0].all() and not mask[:, :, :, -1].all()
+    assert not mask[:, :, 0, :].all() and not mask[:, :, -1, :].all()
+    assert mask.any() and (cu > 0).all() and (cv > 0).all()
+
+
+@pytest.mark.parametrize("use_depth_scaling", [False, True])
+def test_presampled_windows_on_a_frame_smaller_than_the_crop_match(use_depth_scaling):
+    """A 100x90 frame under the 128-pixel crop: the correspondence and measured-occlusion
+    windows read 0 beyond the frame, as from the JAX package's zero-padded crop, and
+    some leave the crop."""
+    rng = np.random.default_rng(9)
+    depth = rng.integers(32000, 65535, size=(3, 90, 100)).astype(np.uint16)
+    centers = rng.normal(scale=0.05, size=(3, 24, 3)).astype(np.float32)
+    centers[:, :8, 0] = [[0.3, -0.3, 0.15, -0.15, 0.0, 0.0, 0.3, 0.15]] * 3
+    centers[:, :8, 1] = [[0.0, 0.0, 0.1, -0.1, 0.3, -0.3, 0.3, 0.15]] * 3
+    poses = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+    poses[:, 2, 3] = 0.5
+    for occlusion in (False, True):
+        want, got = _presampled_pair(depth, centers, poses, use_depth_scaling, occlusion,
+                                     ppu=49.5, ppv=44.5)
+        _assert_same(want, got)
+        d, mask = got
+        assert (d == 0).any() and (d[mask] > 0).any() and not mask.all()
+
+
+def test_sample_windows_expanded_frame_matches_materialised(inputs):
+    """One frame shared by the batch as an expanded view (batch stride 0) gives what
+    its materialised copy gives."""
+    frame = _t(inputs["depth"][1])
+    shared = frame.expand(B, H, W)
+    assert shared.stride(0) == 0
+    cu, cv = tdf.depth_corners(shared, _t(inputs["poses"]), FU, FV, PPU, PPV, C)
+    u_min, v_min, stride, k = tdf.correspondence_windows(
+        tdn.DepthConfig(n_points_max=P), 0.05, _t(inputs["centers"]), _t(inputs["poses"]),
+        FU, FV, PPU, PPV)
+    args = (u_min, v_min, stride, cu, cv, C, k)
+    assert torch.equal(tdf.sample_windows(shared, *args),
+                       tdf.sample_windows(shared.contiguous(), *args))
 
 
 def _jax_correspondences(inp, jcfg, measure, presampled):
-    (cropT, cu, cv), _ = _crops(inp)
+    cropT, cu, cv = _jax_crops(inp["depth"], inp["poses"])
     pre = mpre = None
     if presampled:
         pre = jdf.presample_windows(jcfg, CD, jnp.asarray(inp["centers"]),
@@ -152,19 +237,19 @@ def _jax_correspondences(inp, jcfg, measure, presampled):
 
 
 def _torch_correspondences(inp, tcfg, measure, presampled):
-    _, (crop, cu, cv) = _crops(inp)
-    centers, poses = _t(inp["centers"]), _t(inp["poses"])
+    cu, cv = _corners(inp["depth"], inp["poses"])
+    centers, poses, depth = _t(inp["centers"]), _t(inp["poses"]), _t(inp["depth"])
     pre = mpre = None
     if presampled:
-        pre = tdf.presample_windows(tcfg, CD, centers, poses, crop, cu, cv, C,
+        pre = tdf.presample_windows(tcfg, CD, centers, poses, depth, cu, cv, C,
                                     FU, FV, PPU, PPV)
         mpre = tdf.presample_occlusion_windows(
-            tcfg.measured_occlusion_radius, tcfg.use_depth_scaling, centers, poses, crop,
+            tcfg.measured_occlusion_radius, tcfg.use_depth_scaling, centers, poses, depth,
             cu, cv, C, FU, FV, PPU, PPV, W, H)
     points = tdn.DepthViewPoints(centers, _t(inp["normals"]), _t(inp["offsets"]),
                                  _t(inp["offsets"]))
     return tdn.calculate_correspondences(
-        tcfg, CD, points, P - 3, poses, _t(inp["depth"]), FU, FV, PPU, PPV, W, H,
+        tcfg, CD, points, P - 3, poses, depth, FU, FV, PPU, PPV, W, H,
         DEPTH_SCALE, torch.ones(B, dtype=torch.bool), measure_occlusions=measure,
         presampled=pre, measured_presampled=mpre)
 

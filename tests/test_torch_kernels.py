@@ -108,10 +108,12 @@ def _query_inputs(device, n_tri=None, n_bodies=4, n_query=3000):
 
 
 def _window_inputs(device, considered_distance):
-    """(params, crop, kp) of the correspondence windows (considered_distance > 0) or of
-    the depth measured-occlusion windows (considered_distance None)."""
+    """sample_windows arguments (image, u_min, v_min, stride, corner_u, corner_v,
+    crop_size, k) of the correspondence windows (considered_distance > 0) or of the
+    depth measured-occlusion windows (considered_distance None) on the depth scene's
+    frame (an expanded view of one frame)."""
     pcfg, intr, _, _, poses, depth_model, depth = _depth_scene(device)
-    crop, cu, cv = df.depth_crops(depth, poses, *intr, pcfg.crop_size)
+    cu, cv = df.depth_corners(depth, poses, *intr, pcfg.crop_size)
     centers = pipeline._select_depth_view(depth_model, poses).center_f_body
     if considered_distance is None:
         u_min, v_min, _, _, stride = df.occlusion_windows(
@@ -121,8 +123,7 @@ def _window_inputs(device, considered_distance):
     else:
         u_min, v_min, stride, k = df.correspondence_windows(
             pcfg.depth_cfg, considered_distance, centers, poses, *intr)
-    params, _ = df.window_params(u_min, v_min, stride, cu, cv, k)
-    return params, crop, rf.round_up(k, 8)
+    return depth, u_min, v_min, stride, cu, cv, pcfg.crop_size, k
 
 
 def _kernel_inputs(device, scale, n_bins=16):
@@ -162,17 +163,21 @@ def test_plain_sample_lines_matches_scalar_staircase(scale):
 @pytest.mark.parametrize("considered_distance", [0.05, None])
 def test_plain_sample_windows_matches_scalar_formula(considered_distance):
     """The plain twin against a scalar numpy evaluation of the window formula."""
-    params, crop, kp = _window_inputs("cpu", considered_distance)
-    got = df.sample_windows(params, crop, kp).numpy()
-    p, cr = params.numpy(), crop.numpy()
-    c = cr.shape[-1]
-    f32 = np.float32
-    for lane in range(0, p.shape[-1], 37):
-        u0, row, stride = p[1, :3, lane]
-        r = int(np.clip(row, 0, c - 1))
-        for k in range(kp):
-            col = int(np.clip(np.trunc(f32(u0 + f32(stride * f32(k)))), 0, c - 1))
-            assert got[1, k, lane] == cr[1, r, col], (lane, k)
+    args = _window_inputs("cpu", considered_distance)
+    got = df.sample_windows(*args).numpy()
+    image, u_min, v_min, stride, cu, cv, c, k = (
+        a.numpy() if isinstance(a, torch.Tensor) else a for a in args)
+    h, w = image.shape[1:]
+    assert got.shape == u_min.shape + (k, k)
+    for b in (0, 3):
+        for p in range(0, u_min.shape[1], 13):
+            for kv in range(k):
+                row = cv[b] + min(max(v_min[b, p] - cv[b] + kv * stride[b, p], 0), c - 1)
+                for ku in range(k):
+                    col = cu[b] + min(max(u_min[b, p] - cu[b] + ku * stride[b, p], 0),
+                                      c - 1)
+                    want = image[b, row, col] if row < h and col < w else 0
+                    assert got[b, p, kv, ku] == want, (b, p, kv, ku)
 
 
 @pytest.mark.parametrize("n_tri", [None, 600])
@@ -213,13 +218,15 @@ def test_wrappers_reject_bad_inputs():
         rf.sample_lines(params, crop, table, 8, output="probabilities")
     with pytest.raises(ValueError):
         rf.bin_counts(torch.zeros((2, 10), dtype=torch.int32), torch.ones((2, 10)))
-    window_params = torch.zeros((2, 4, 128))
-    with pytest.raises(ValueError):
-        df.sample_windows(params, crop, 8)
-    with pytest.raises(ValueError):
-        df.sample_windows(window_params, crop.long(), 8)
-    with pytest.raises(ValueError):
-        df.sample_windows(window_params, crop[:1], 8)
+    image = torch.zeros((2, 16, 20), dtype=torch.uint16)
+    geometry = torch.zeros((2, 5), dtype=torch.int32)
+    corners = torch.zeros(2, dtype=torch.int32)
+    window_args = (image, geometry, geometry, geometry, corners, corners, 16, 3)
+    for at, bad in ((0, image.view(torch.int16)), (0, image[:1]), (1, geometry.long()),
+                    (2, geometry[:, :3]), (4, corners[:1]), (5, corners.float()),
+                    (6, 0), (7, 0)):
+        with pytest.raises(ValueError):
+            df.sample_windows(*window_args[:at], bad, *window_args[at + 1:])
     coeffs, valid = torch.zeros((2, 4, 12)), torch.ones((2, 4), dtype=torch.bool)
     sil, queries = torch.zeros((2, 4), dtype=torch.int32), torch.zeros((2, 6))
     with pytest.raises(ValueError):
@@ -231,7 +238,7 @@ def test_wrappers_reject_bad_inputs():
     rf.sample_lines(params, crop, table, 8)
     rf.bin_counts(torch.zeros((2, 10), dtype=torch.int32),
                   torch.ones((2, 10), dtype=torch.bool))
-    df.sample_windows(window_params, crop, 8)
+    df.sample_windows(*window_args)
     oc.query_eval(coeffs, valid, sil, queries, queries)
     assert [fn.launches for fn in counters] == before, \
         "the CPU twins must not count as kernel launches"
@@ -321,15 +328,64 @@ def test_cycle_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("considered_distance", [0.05, 0.02, 0.01, None])
-def test_sample_windows_kernel_matches_plain(cuda_device, considered_distance):
-    """Correspondence windows (K = 11, 5, 3) and measured-occlusion windows (K = 6)."""
-    params, crop, kp = _window_inputs(cuda_device, considered_distance)
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("considered_distance", [0.05, 0.02, 0.01, None, 0.03, 0.015])
+def test_sample_windows_kernel_matches_plain(cuda_device, considered_distance, shared):
+    """Every instantiation of the kernel: the correspondence windows (K = 11, 5, 3) and
+    measured-occlusion windows (K = 6) of the pipeline, and the runtime K (7, 4), on the
+    shared frame (an expanded view, batch stride 0) and on its materialised copy."""
+    args = _window_inputs(cuda_device, considered_distance)
+    if not shared:
+        args = (args[0].contiguous(),) + args[1:]
+    assert args[-1] == {0.05: 11, 0.02: 5, 0.01: 3, None: 6, 0.03: 7,
+                        0.015: 4}[considered_distance]
     launches = df.sample_windows.launches
-    got = df.sample_windows(params, crop, kp)
+    got = df.sample_windows(*args)
     torch.cuda.synchronize()
     assert df.sample_windows.launches == launches + 1
-    assert torch.equal(got, df.sample_windows_plain(params, crop, kp))
+    assert torch.equal(got, df.sample_windows_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", ["materialised", "distinct", "small", "ragged",
+                                    "ragged distinct"])
+def test_sample_windows_kernel_frames(cuda_device, frames):
+    """K=11 windows on the scene's frame materialised per body and on a different frame
+    per body, on a 100x90 frame under
+    the 128-pixel crop (0 beyond it), and with P=37 on the shared and on distinct frames
+    (a body's output starts off a 16-byte boundary: ragged heads and tails)."""
+    image, *geometry = _window_inputs(cuda_device, 0.05)
+    if frames == "materialised":
+        image = image.contiguous()
+    elif "distinct" in frames:
+        planes = image.contiguous().view(torch.int16)
+        image = torch.stack([planes[b].roll((3 * b, -5 * b), (0, 1))
+                             for b in range(image.shape[0])]).view(torch.uint16)
+    if frames == "small":
+        # The frame's 100x90 centre, the windows moved with it, crops at the origin.
+        image = image[0, 60:150, 110:210].contiguous().expand(image.shape[0], -1, -1)
+        u_min, v_min, stride, cu, _, c, k = geometry
+        geometry = [u_min - 110, v_min - 60, stride, torch.zeros_like(cu),
+                    torch.zeros_like(cu), c, k]
+    elif frames.startswith("ragged"):
+        geometry[:3] = [g[:, :37].contiguous() for g in geometry[:3]]
+    got = df.sample_windows(image, *geometry)
+    want = df.sample_windows_plain(image, *geometry)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if frames == "small":
+        assert (want == 0).any() and (want > 0).any()
+
+
+@pytest.mark.cuda
+def test_sample_windows_refuses_what_the_kernel_does_not_take(cuda_device):
+    image, *geometry = _window_inputs(cuda_device, 0.01)
+    with pytest.raises(ValueError):
+        df.sample_windows(image.contiguous()[:, :, ::2], *geometry)
+    with pytest.raises(ValueError):
+        df.sample_windows(image, geometry[0][:, ::2], *geometry[1:])
+    with pytest.raises(ValueError):
+        df.sample_windows(image, *geometry[:4], geometry[4].cpu(), *geometry[5:])
 
 
 @pytest.mark.cuda

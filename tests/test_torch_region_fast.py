@@ -116,12 +116,13 @@ def test_line_geometry_measured_occlusion_matches(scene, presampled, handle, min
             jcfg.measured_occlusion_radius, False,
             jnp.swapaxes(s["jpoints"].center_f_body, 1, 2), pose_j, cropT, dcu, dcv, crop,
             fu, fv, ppu, ppv, intr.width, intr.height)
-        dcrop, tdcu, tdcv = tdf.depth_crops(_t(depth[None]), pose_t, float(fu),
-                                            float(fv), float(ppu), float(ppv), crop)
+        tdcu, tdcv = tdf.depth_corners(_t(depth[None]), pose_t, float(fu), float(fv),
+                                       float(ppu), float(ppv), crop)
         tpre = tdf.presample_occlusion_windows(
             tcfg.measured_occlusion_radius, False,
-            s["tpoints"].center_f_body.transpose(1, 2), pose_t, dcrop, tdcu, tdcv, crop,
-            float(fu), float(fv), float(ppu), float(ppv), intr.width, intr.height)
+            s["tpoints"].center_f_body.transpose(1, 2), pose_t, _t(depth[None]), tdcu,
+            tdcv, crop, float(fu), float(fv), float(ppu), float(ppv), intr.width,
+            intr.height)
 
     def bc(x):
         return jnp.full((1,), x, jnp.float32)
