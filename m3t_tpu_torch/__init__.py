@@ -1,8 +1,10 @@
-"""PyTorch/CUDA port of m3t_tpu's fused region tracking cycle (Hopper kernels in csrc/).
+"""PyTorch/CUDA port of m3t_tpu's fused tracking cycles (Hopper kernels in csrc/).
 
 The JAX package ``m3t_tpu`` is the reference; this package imports neither it nor JAX.
-Entry points: :func:`m3t_tpu_torch.pipeline.initialize_histograms` and
-:func:`m3t_tpu_torch.pipeline.tracking_cycle`.  Tensors live on the card unless the
+Entry points: :func:`m3t_tpu_torch.pipeline.initialize_histograms` with
+:func:`m3t_tpu_torch.pipeline.tracking_cycle` or ``tracking_cycle_rgbd`` for rigid
+bodies, and ``initialize_kinematic_histograms`` with ``tracking_cycle_kinematic`` for
+articulated structures (``ops/kinematics.py``).  Tensors live on the card unless the
 caller asks for the CPU, where every kernel runs as its plain PyTorch twin.
 """
 

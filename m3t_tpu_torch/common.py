@@ -1,4 +1,4 @@
-"""Core pose math (port of m3t_tpu/common.py:28-115).
+"""Core pose math (port of m3t_tpu/common.py:28-155).
 
 Poses are ``(..., 4, 4)`` float32 tensors; twists are ``[w_x, w_y, w_z, t_x, t_y, t_z]``
 (rotation first), and a pose variation is ``Trans(t) @ Rot(exp(skew(w)))``.
@@ -59,6 +59,37 @@ def so3_exp(w):
     return eye + s[..., None, None] * skew(w) + c[..., None, None] * k2
 
 
+def so3_log(rot):
+    """Rotation vector of (..., 3, 3) rotation matrices. Safe near identity; not at
+    theta == pi, where the axis is lost (as in the JAX package)."""
+    trace = rot[..., 0, 0] + rot[..., 1, 1] + rot[..., 2, 2]
+    cos_theta = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    theta = torch.arccos(cos_theta)
+    axis_unnorm = torch.stack(
+        [
+            rot[..., 2, 1] - rot[..., 1, 2],
+            rot[..., 0, 2] - rot[..., 2, 0],
+            rot[..., 1, 0] - rot[..., 0, 1],
+        ],
+        dim=-1,
+    )
+    small = theta < 1e-6
+    # axis_unnorm = 2 sin(theta) * axis ; w = theta * axis
+    factor = torch.where(
+        small,
+        0.5 + theta * theta / 12.0,
+        theta / (2.0 * torch.sin(torch.where(small, torch.ones_like(theta), theta))),
+    )
+    return factor[..., None] * axis_unnorm
+
+
+def xcotx(x):
+    """x * cot(x), Taylor-stabilized near 0."""
+    small = torch.abs(x) < 1e-4
+    safe = torch.where(small, torch.ones_like(x), x)
+    return torch.where(small, 1.0 - x * x / 3.0, safe * torch.cos(safe) / torch.sin(safe))
+
+
 def pose_from_rt(rotation, translation):
     batch = torch.broadcast_shapes(rotation.shape[:-2], translation.shape[:-1])
     pose = torch.zeros(batch + (4, 4), dtype=torch.float32, device=rotation.device)
@@ -71,3 +102,17 @@ def pose_from_rt(rotation, translation):
 def pose_variation(theta6):
     """Local pose variation ``Trans(t) @ Rot(exp(w))`` for (..., 6) twists."""
     return pose_from_rt(so3_exp(theta6[..., :3]), theta6[..., 3:])
+
+
+def pose_inverse(pose):
+    rot_t = pose[..., :3, :3].transpose(-1, -2)
+    return pose_from_rt(rot_t, -(rot_t @ pose[..., :3, 3:4])[..., 0])
+
+
+def adjoint(pose):
+    """(..., 6, 6) adjoints mapping twists between frames: with theta = [w, t],
+    Ad = [[R, 0], [skew(p) R, R]]."""
+    rot = pose[..., :3, :3]
+    top = torch.cat([rot, torch.zeros_like(rot)], dim=-1)
+    bottom = torch.cat([skew(pose[..., :3, 3]) @ rot, rot], dim=-1)
+    return torch.cat([top, bottom], dim=-2)

@@ -1,11 +1,13 @@
 """Fused batched tracking cycles on PyTorch/CUDA (port of m3t_tpu/pipeline.py: the
-region cycle and the region+depth (ICG) cycle, with measured occlusions and with the
-focused scene's modeled occlusions, region checking and silhouette check).
+region cycle and the region+depth (ICG) cycle, with measured occlusions, with the
+focused scene's modeled occlusions, region checking and silhouette check, and with
+texture terms; and the articulated cycle over kinematic structures).
 
 One :func:`tracking_cycle` (or :func:`tracking_cycle_rgbd`) call runs every
 correspondence x update iteration plus the histogram adaptation for a batch of
-independent bodies, eagerly (the JAX package jits the same function).  Hot-path
-structure:
+independent bodies, eagerly (the JAX package jits the same function).
+:func:`tracking_cycle_kinematic` runs the same loop over the links of S structures,
+its Newton step the batched KKT solve of ops/kinematics.py.  Hot-path structure:
 
   1. per body: crop the image once around the projected body origin and convert it to
      flat histogram-bin indices;
@@ -19,8 +21,9 @@ structure:
      first: the ``query_eval`` kernel evaluates its triangles at the pixels that the
      modeled-occlusion, region and silhouette checks sample (or, with
      ``occlusion_queries=False``, the scene is rasterized into focused crops);
-  3. per update iteration: gradient/Hessian (region + depth terms) and a batched
-     Tikhonov 6x6 LDLT Newton step;
+  3. per update iteration: gradient/Hessian (region, depth and texture terms) and a
+     batched Tikhonov 6x6 LDLT Newton step (articulated: the KKT step of every
+     structure, the link poses recomputed from the joint state before each);
   4. histogram adaptation: ``sample_lines`` in bins mode walks the fg/bg color lines and
      the ``bin_counts`` kernel counts the bins.
 
@@ -30,17 +33,19 @@ Reference mapping: one call == Tracker::ExecuteTrackingStep + CalculateResults
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from m3t_tpu_torch.common import pose_variation, resolve_device
-from m3t_tpu_torch.ops import depth_fast, depth_fn, occlusion
+from m3t_tpu_torch.ops import depth_fast, depth_fn, occlusion, texture_fn
 from m3t_tpu_torch.ops import histogram as hist_ops
+from m3t_tpu_torch.ops import kinematics as kin_ops
 from m3t_tpu_torch.ops import region_fast
 from m3t_tpu_torch.ops.depth_fn import DepthConfig, DepthViewPoints
 from m3t_tpu_torch.ops.region_fast import ViewPointsCL
+from m3t_tpu_torch.ops.texture_fn import TexturePoints
 from m3t_tpu_torch.ops.region_fn import (MeasuredOcclusionInputs, ModeledOcclusionInputs,
                                           ModeledOcclusionQueryInputs, RegionCheckInputs,
                                           RegionCheckQueryInputs, RegionConfig)
@@ -195,8 +200,8 @@ class TrackingState(NamedTuple):
 
 
 class PipelineConfig(NamedTuple):
-    """The fields of m3t_tpu.pipeline.PipelineConfig that the port implements: the
-    region cycle, depth fusion, measured occlusions and the focused scene's checks."""
+    """m3t_tpu.pipeline.PipelineConfig: the region cycle, depth fusion, texture terms,
+    measured occlusions and the focused scene's checks."""
 
     cfg: RegionConfig = RegionConfig()
     scales: tuple = (6, 4, 2, 1)
@@ -213,6 +218,11 @@ class PipelineConfig(NamedTuple):
     depth_cfg: DepthConfig = DepthConfig()
     considered_distances: tuple = (0.05, 0.02, 0.01)
     depth_standard_deviations: tuple = (0.05, 0.03, 0.02)
+    # ICG+ texture fusion: Tukey-weighted reprojection terms of host feature matches
+    # (the cycles' texture_points input).
+    use_texture: bool = False
+    texture_standard_deviations: tuple = (15.0, 5.0)
+    tukey_norm_constant: float = 20.0
     # Occlusion handling and region checking.  The measured occlusions read the depth
     # images (tracking_cycle_rgbd only); the modeled occlusions, region checking and the
     # depth silhouette check read the focused scene (a SceneGeometry input), evaluated
@@ -255,6 +265,10 @@ class PipelineConfig(NamedTuple):
         std = self.depth_standard_deviations[
             min(corr_iteration, len(self.depth_standard_deviations) - 1)]
         return float(cd), float(std)
+
+    def iteration_texture_std(self, corr_iteration: int) -> float:
+        stds = self.texture_standard_deviations
+        return float(stds[min(corr_iteration, len(stds) - 1)])
 
     @property
     def lp(self) -> int:
@@ -556,9 +570,11 @@ def _scene_depth_inputs(pcfg: PipelineConfig, rend, scene_geom):
 
 
 def _depth_terms(pcfg: PipelineConfig, depth: _DepthInputs, corr_iteration: int, pose,
-                 handle_occlusions, modeled_occlusion=None, silhouette_check=None):
+                 handle_occlusions, modeled_occlusion=None, silhouette_check=None,
+                 n_points=None):
     """One depth correspondence pass for the batch (depth_modality.cpp:252-315), the
-    windows fetched from the depth frames by the sample_windows kernel."""
+    windows fetched from the depth frames by the sample_windows kernel.  n_points: the
+    (B,) per-body point budget, None for depth_cfg.n_points_max."""
     cd, _ = pcfg.iteration_depth(corr_iteration)
     dfu, dfv, dppu, dppv = depth.intr
     height, width = depth.images.shape[1], depth.images.shape[2]
@@ -573,46 +589,58 @@ def _depth_terms(pcfg: PipelineConfig, depth: _DepthInputs, corr_iteration: int,
             view.center_f_body, pose, depth.images, depth.corner_u, depth.corner_v,
             pcfg.crop_size, dfu, dfv, dppu, dppv, width, height)
     return depth_fn.calculate_correspondences(
-        pcfg.depth_cfg, cd, view, pcfg.depth_cfg.n_points_max, pose, depth.images,
+        pcfg.depth_cfg, cd, view,
+        pcfg.depth_cfg.n_points_max if n_points is None else n_points, pose, depth.images,
         dfu, dfv, dppu, dppv, width, height, depth.scale, handle_occlusions,
         measure_occlusions=pcfg.depth_measure_occlusions,
         modeled_occlusion=modeled_occlusion, silhouette_check=silhouette_check,
         presampled=presampled, measured_presampled=measured)
 
 
-def _cycle_core(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
-                state: TrackingState, depth: _DepthInputs | None = None, scene_geom=None,
-                occluder_poses=None, handle_occlusions=None,
-                pose_group=None) -> TrackingState:
-    """Full tracking cycle for a batch (the JAX package's _cycle_core, :519-662, without
-    texture).  handle_occlusions: a bool or a (B,) bool; None means True."""
+class _Poses(NamedTuple):
+    """How a cycle's degrees of freedom become body poses, and how a Newton step
+    moves them: rigid bodies carry their (B, 4, 4) poses, articulated structures their
+    (S, NL, 4, 4) joint poses."""
+
+    flat: Callable  # dof -> (B, 4, 4) body2camera poses
+    scene: Callable  # (B, 4, 4) poses -> (B, NO, 4, 4) poses of each scene's bodies
+    step: Callable  # (dof, gradient (B, 6), hessian (B, 6, 6)) -> dof
+
+
+def _cycle_core(pcfg: PipelineConfig, intr, images, model: RegionModelArrays, dof,
+                hist_f, hist_b, poses: _Poses, depth: _DepthInputs | None = None,
+                scene_geom=None, handle_occlusions=None, texture_points=None,
+                depth_n_points=None):
+    """Full tracking cycle for a batch (the JAX package's _cycle_core, :519-662, and the
+    loop of its tracking_cycle_kinematic, :1384-1468).  The body poses are recomputed
+    from the degrees of freedom before every correspondence and update iteration and
+    before the histogram walk.  handle_occlusions: a bool or a (B,) bool; None means
+    True.  Returns (dof, hist_f, hist_b)."""
     cfg = pcfg.cfg
     fu, fv, ppu, ppv = _intrinsics(intr)
     width, height = _image_size(images)
     use_depth = depth is not None and depth.corner_u is not None
+    use_texture = pcfg.use_texture and texture_points is not None
     render_scene = pcfg.needs_scene_render and scene_geom is not None
-    n_bodies = state.body2camera_pose.shape[0]
-    dev = state.body2camera_pose.device
+    pose = poses.flat(dof)
+    n_bodies = pose.shape[0]
     if handle_occlusions is None:
         handle_occlusions = True
+    dev = pose.device
     handle_occlusions = torch.as_tensor(handle_occlusions, device=dev).expand(n_bodies)
+    if depth_n_points is not None:
+        depth_n_points = torch.as_tensor(depth_n_points, device=dev).expand(n_bodies)
 
-    def scene_render(pose):
-        # Correspondence renderers StartRendering (tracker.cpp:448-451): the full scene
-        # (tracked body in slot 0, then the occluders) at the current pose estimate.
-        scene_poses = pose[:, None]
-        if occluder_poses is not None:
-            scene_poses = torch.cat([scene_poses, occluder_poses], dim=1)
-        return _render_scene_for(pcfg, scene_geom, scene_poses, intr, width, height)
-
-    pose = state.body2camera_pose
-    hist_f, hist_b = state.histogram_f, state.histogram_b
     bin_crop, corner_u, corner_v = _prepare_crops(pcfg, intr, images, pose)
     rtab = region_fast.ratio_table(hist_f, hist_b)
 
     for corr_iteration in range(pcfg.n_corr_iterations):
         scale, std = pcfg.iteration_scale(corr_iteration)
-        rend = scene_render(pose) if render_scene else None
+        pose = poses.flat(dof)
+        # Correspondence renderers StartRendering (tracker.cpp:448-451): the full scene
+        # at the current pose estimate.
+        rend = (_render_scene_for(pcfg, scene_geom, poses.scene(pose), intr, width, height)
+                if render_scene else None)
         points = _select_view_cl(model, pose)
         n_lines = _adaptive_n_lines(pcfg, model, pose)
         region_check, modeled = _scene_region_inputs(pcfg, rend, scene_geom)
@@ -625,9 +653,13 @@ def _cycle_core(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
         if use_depth:
             d_modeled, d_sil = _scene_depth_inputs(pcfg, rend, scene_geom)
             depth_points = _depth_terms(pcfg, depth, corr_iteration, pose,
-                                        handle_occlusions, d_modeled, d_sil)
+                                        handle_occlusions, d_modeled, d_sil,
+                                        depth_n_points)
             depth_std = pcfg.iteration_depth(corr_iteration)[1]
+        if use_texture:
+            texture_std = pcfg.iteration_texture_std(corr_iteration)
         for update_iteration in range(pcfg.n_update_iterations):
+            pose = poses.flat(dof)
             gradient, hessian = region_fast.gradient_hessian_cl(
                 cfg, lines, pose, fu, fv, ppu, ppv, std,
                 update_iteration < cfg.n_global_iterations)
@@ -636,21 +668,48 @@ def _cycle_core(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
                                                                  depth_std)
                 gradient = gradient + dg
                 hessian = hessian + dh
-            pose = _solve_and_update(pcfg, gradient, hessian, pose, group=pose_group)
+            if use_texture:
+                tg, th = texture_fn.calculate_gradient_and_hessian(
+                    texture_points, pose, fu, fv, ppu, ppv, texture_std,
+                    pcfg.tukey_norm_constant)
+                gradient = gradient + tg
+                hessian = hessian + th
+            dof = poses.step(dof, gradient, hessian)
 
     # CalculateResults: online histogram adaptation (tracker.cpp:503-517).
+    pose = poses.flat(dof)
     points = _select_view_cl(model, pose)
     n_lines = _adaptive_n_lines(pcfg, model, pose)
     mem_f, mem_b = _histogram_memories(pcfg, intr, points, pose, n_lines,
                                        bin_crop, corner_u, corner_v, width, height)
     hist_f = hist_ops.calculate_histogram(hist_f, mem_f, pcfg.learning_rate_f)
     hist_b = hist_ops.calculate_histogram(hist_b, mem_b, pcfg.learning_rate_b)
-    return TrackingState(pose, hist_f, hist_b)
+    return dof, hist_f, hist_b
+
+
+def _rigid_cycle(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
+                 state: TrackingState, occluder_poses=None, pose_group=None,
+                 **kwargs) -> TrackingState:
+    """_cycle_core for independent rigid bodies, each a pose of its own (or of its
+    pose_group)."""
+    def scene(pose):
+        # The tracked body in slot 0, then the occluders.
+        if occluder_poses is None:
+            return pose[:, None]
+        return torch.cat([pose[:, None], occluder_poses], dim=1)
+
+    def step(pose, gradient, hessian):
+        return _solve_and_update(pcfg, gradient, hessian, pose, group=pose_group)
+
+    return TrackingState(*_cycle_core(
+        pcfg, intr, images, model, state.body2camera_pose, state.histogram_f,
+        state.histogram_b, _Poses(lambda pose: pose, scene, step), **kwargs))
 
 
 def tracking_cycle(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
                    state: TrackingState, scene_geom=None, occluder_poses=None,
-                   handle_occlusions=None, pose_group=None) -> TrackingState:
+                   handle_occlusions=None, texture_points: TexturePoints | None = None,
+                   pose_group=None) -> TrackingState:
     """One full region tracking cycle for a batch of bodies.
 
     intr: (fu, fv, ppu, ppv); images: (B, H, W, 3) or planar (B, 3, H, W) uint8 on the
@@ -658,19 +717,21 @@ def tracking_cycle(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
     (B, NO-1, 4, 4) enable the modeled occlusions and region checking that the
     PipelineConfig flags ask for; handle_occlusions (a bool or a (B,) bool, None means
     True) is False for the first iterations after StartModality
-    (region_modality.h:442).  pose_group (B,) ties batch slots to one shared pose (see
-    _solve_and_update).
+    (region_modality.h:442).  texture_points (ops.texture_fn.TexturePoints, leading B)
+    adds the texture terms when ``pcfg.use_texture``.  pose_group (B,) ties batch slots
+    to one shared pose (see _solve_and_update).
     """
-    return _cycle_core(pcfg, intr, images, model, state, scene_geom=scene_geom,
-                       occluder_poses=occluder_poses, handle_occlusions=handle_occlusions,
-                       pose_group=pose_group)
+    return _rigid_cycle(pcfg, intr, images, model, state, occluder_poses=occluder_poses,
+                        pose_group=pose_group, scene_geom=scene_geom,
+                        handle_occlusions=handle_occlusions, texture_points=texture_points)
 
 
 def tracking_cycle_rgbd(pcfg: PipelineConfig, intr, depth_intr, depth_scale, images,
                         depth_images, model: RegionModelArrays,
                         depth_model: DepthModelArrays, state: TrackingState,
                         scene_geom=None, occluder_poses=None, handle_occlusions=None,
-                        pose_group=None) -> TrackingState:
+                        texture_points: TexturePoints | None = None, pose_group=None,
+                        depth_n_points=None) -> TrackingState:
     """ICG-style region+depth fused cycle for a batch of bodies.
 
     depth_images: (B, Hd, Wd) uint16 with shared depth intrinsics ``depth_intr``
@@ -679,7 +740,9 @@ def tracking_cycle_rgbd(pcfg: PipelineConfig, intr, depth_intr, depth_scale, ima
     fused when ``pcfg.use_depth``; measured occlusions on either modality follow
     ``pcfg.region_measure_occlusions`` and ``pcfg.depth_measure_occlusions``; the
     focused scene's checks of both modalities follow the other occlusion flags.
-    scene_geom, occluder_poses, handle_occlusions and pose_group as in
+    depth_n_points (B,) int sets the per-slot depth point budget (0 drops the depth terms
+    of the non-primary slots of a pose_group, which all duplicate one DepthModality).
+    scene_geom, occluder_poses, handle_occlusions, texture_points and pose_group as in
     :func:`tracking_cycle`.
     """
     pose = state.body2camera_pose
@@ -689,9 +752,10 @@ def tracking_cycle_rgbd(pcfg: PipelineConfig, intr, depth_intr, depth_scale, ima
             depth_images, pose, *_intrinsics(depth_intr), pcfg.crop_size)
     depth = _DepthInputs(depth_images, _intrinsics(depth_intr), float(depth_scale),
                          depth_model, corner_u, corner_v)
-    return _cycle_core(pcfg, intr, images, model, state, depth=depth,
-                       scene_geom=scene_geom, occluder_poses=occluder_poses,
-                       handle_occlusions=handle_occlusions, pose_group=pose_group)
+    return _rigid_cycle(pcfg, intr, images, model, state, occluder_poses=occluder_poses,
+                        pose_group=pose_group, depth=depth, scene_geom=scene_geom,
+                        handle_occlusions=handle_occlusions, texture_points=texture_points,
+                        depth_n_points=depth_n_points)
 
 
 def initialize_histograms(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
@@ -711,3 +775,130 @@ def initialize_histograms(pcfg: PipelineConfig, intr, images, model: RegionModel
     hist_f = hist_ops.calculate_histogram(uniform, mem_f, 1.0)
     hist_b = hist_ops.calculate_histogram(uniform, mem_b, 1.0)
     return TrackingState(poses, hist_f, hist_b)
+
+
+def texture_points_from_modalities(modalities, k_max: int, device="cuda") -> TexturePoints:
+    """Pack host TextureModality correspondences into a fixed-shape TexturePoints.
+
+    Call each modality's CalculateCorrespondences first (feature detection and keyframe
+    matching run on the host); this pads or truncates each modality's matched 3D-2D
+    pairs (``data_points_3d``, ``data_points_2d``) to ``k_max``."""
+    dev = resolve_device(device)
+    b = len(modalities)
+    p3 = np.zeros((b, k_max, 3), np.float32)
+    p2 = np.zeros((b, k_max, 2), np.float32)
+    valid = np.zeros((b, k_max), bool)
+    for i, m in enumerate(modalities):
+        n = min(len(m.data_points_3d), k_max)
+        p3[i, :n] = m.data_points_3d[:n]
+        p2[i, :n] = m.data_points_2d[:n]
+        valid[i, :n] = True
+    return TexturePoints(*(torch.as_tensor(a, device=dev) for a in (p3, p2, valid)))
+
+
+# ----------------------------------------------------------------------------------------
+# Articulated structures: kinematic trees in the fused cycle
+# ----------------------------------------------------------------------------------------
+
+
+class KinematicTrackingState(NamedTuple):
+    """Per-structure tracking state: joint poses and per-link histograms.
+
+    ``joint2parent`` follows ops/kinematics.py's convention (the root link's parent
+    frame is the camera frame); bodies are flattened link-major, body b == s * NL + l
+    for structure s, link l."""
+
+    joint2parent: torch.Tensor  # (S, NL, 4, 4)
+    histogram_f: torch.Tensor  # (S, NL, n_bins^3)
+    histogram_b: torch.Tensor  # (S, NL, n_bins^3)
+
+
+def _kinematic_flat_poses(kin: kin_ops.KinematicModel, joint2parent):
+    """Link poses (S, NL, 4, 4) and the same flattened to bodies (S * NL, 4, 4)."""
+    b2c = kin_ops.forward_kinematics(kin, joint2parent)
+    return b2c, b2c.reshape((-1, 4, 4))
+
+
+def _repeat_links(x, n_links: int):
+    """Per-structure frames (S, ...) repeated for each of the structure's links,
+    (S * NL, ...): a view when the frames are one frame expanded over S."""
+    return x[:, None].expand((x.shape[0], n_links) + x.shape[1:]).reshape(
+        (-1,) + x.shape[1:])
+
+
+def tracking_cycle_kinematic(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
+                             kin: kin_ops.KinematicModel, state: KinematicTrackingState,
+                             scene_geom=None, extra_occluder_poses=None,
+                             handle_occlusions=None, depth_intr=None, depth_scale=None,
+                             depth_images=None, depth_model: DepthModelArrays | None = None,
+                             texture_points: TexturePoints | None = None
+                             ) -> KinematicTrackingState:
+    """One tracking cycle for S articulated structures of NL links each (Tracker::
+    ExecuteTrackingStep over kinematic structures, tracker.cpp:344-364 with
+    optimizer.cpp:144-167): per-link region (and depth and texture) terms feed the
+    batched KKT solve of ops/kinematics.py, with the structures' hard and soft
+    constraints, every update iteration.
+
+    images: (S, H, W, 3) or planar (S, 3, H, W) uint8, one camera per structure.
+    model: RegionModelArrays with B == S * NL link-major bodies (any model pads a missing
+    link; kin.link_valid masks its terms).  scene_geom: SceneGeometry with B scenes
+    whose body slots 0..NL-1 are the structure's links and slots NL.. static occluders
+    posed by extra_occluder_poses (S, NE, 4, 4): the links occlude one another.
+    depth_intr, depth_scale, depth_images (S, Hd, Wd) uint16 and depth_model (B bodies)
+    add per-link depth terms when ``pcfg.use_depth`` (the Mb-ICG/RTB configuration,
+    link.cpp:184-193), always with depth_cfg.n_points_max points.  texture_points
+    (leading B) add texture terms when ``pcfg.use_texture``.  As in the reference, the
+    region lines take no measured occlusions here.
+    """
+    s, nl = kin.parent.shape
+    n_hist = state.histogram_f.shape[-1]
+    depth = None
+    if pcfg.use_depth and depth_images is not None:
+        depth_flat = _repeat_links(depth_images, nl)
+        _, pose_flat = _kinematic_flat_poses(kin, state.joint2parent)
+        corner_u, corner_v = depth_fast.depth_corners(
+            depth_flat, pose_flat, *_intrinsics(depth_intr), pcfg.crop_size)
+        depth = _DepthInputs(depth_flat, _intrinsics(depth_intr), float(depth_scale),
+                             depth_model, corner_u, corner_v)
+
+    def scene(pose):
+        # Every link's scene holds the whole structure (and the extra occluders).
+        scene_poses = pose.reshape(s, 1, nl, 4, 4).expand(s, nl, nl, 4, 4)
+        if extra_occluder_poses is not None:
+            ne = extra_occluder_poses.shape[1]
+            scene_poses = torch.cat(
+                [scene_poses, extra_occluder_poses[:, None].expand(s, nl, ne, 4, 4)], dim=2)
+        return scene_poses.reshape(s * nl, -1, 4, 4)
+
+    def step(joint2parent, gradient, hessian):
+        return kin_ops.update_structures(
+            kin, joint2parent, gradient.reshape(s, nl, 6), hessian.reshape(s, nl, 6, 6),
+            pcfg.tikhonov_rotation, pcfg.tikhonov_translation)
+
+    jp, hist_f, hist_b = _cycle_core(
+        pcfg._replace(region_measure_occlusions=False), intr, _repeat_links(images, nl),
+        model, state.joint2parent, state.histogram_f.reshape(s * nl, n_hist),
+        state.histogram_b.reshape(s * nl, n_hist),
+        _Poses(lambda joint2parent: _kinematic_flat_poses(kin, joint2parent)[1], scene,
+               step),
+        depth=depth, scene_geom=scene_geom, handle_occlusions=handle_occlusions,
+        texture_points=texture_points)
+    return KinematicTrackingState(jp, hist_f.reshape(s, nl, n_hist),
+                                  hist_b.reshape(s, nl, n_hist))
+
+
+def initialize_kinematic_histograms(pcfg: PipelineConfig, intr, images,
+                                    model: RegionModelArrays, kin: kin_ops.KinematicModel,
+                                    joint2parent) -> KinematicTrackingState:
+    """StartModality for articulated structures: histograms at the initial joint poses
+    (S, NL, 4, 4); images (S, ...) as in :func:`tracking_cycle_kinematic`."""
+    s, nl = joint2parent.shape[:2]
+    _, pose_flat = _kinematic_flat_poses(kin, joint2parent)
+    st = initialize_histograms(pcfg, intr, _repeat_links(images, nl), model, pose_flat)
+    return KinematicTrackingState(joint2parent, st.histogram_f.reshape(s, nl, -1),
+                                  st.histogram_b.reshape(s, nl, -1))
+
+
+def kinematic_body_poses(kin: kin_ops.KinematicModel, state: KinematicTrackingState):
+    """Per-link body2camera poses (S, NL, 4, 4) of the joint state."""
+    return _kinematic_flat_poses(kin, state.joint2parent)[0]

@@ -17,6 +17,7 @@ import torch
 from m3t_tpu_torch import pipeline
 from m3t_tpu_torch.common import Intrinsics
 from m3t_tpu_torch.ops import depth_fast as df
+from m3t_tpu_torch.ops import kinematics
 from m3t_tpu_torch.ops import occlusion as oc
 from m3t_tpu_torch.ops import raster
 from m3t_tpu_torch.ops import region_fast as rf
@@ -25,6 +26,7 @@ from m3t_tpu_torch.utils import procedural
 
 NPZ = Path(pipeline.__file__).parent / "data" / "bench_sphere_region_model.npz"
 DEPTH_NPZ = Path(pipeline.__file__).parent / "data" / "bench_sphere_depth_model.npz"
+KIN_NPZ = Path(pipeline.__file__).parent / "data" / "bench_kinematic_model.npz"
 
 
 def _scene(device, n_bodies=4, n_bins=16):
@@ -325,6 +327,32 @@ def test_cycle_on_card_matches_cpu(cuda_device):
         states[str(dev)] = [a.cpu().numpy() for a in state]
     for got, want in zip(states["cuda"], states["cpu"]):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widened", [False, True])
+def test_kinematic_step_on_card_matches_cpu(cuda_device, widened):
+    """The batched KKT step (torch.linalg.solve_ex) on the card against the CPU, for 64
+    copies of the committed bench structure: as committed its KKT system is singular and
+    the step must be zeroed on the card too; with the child free in all six directions
+    the system is regular and the step moves the structure."""
+    with np.load(KIN_NPZ) as f:
+        arrays = {k: f[k] for k in f.files}
+    if widened:
+        arrays["free"] = np.ones_like(arrays["free"])
+    s = 64
+    rng = np.random.default_rng(3)
+    jp = np.tile(arrays.pop("joint2parent"), (s, 1, 1, 1))
+    g = rng.normal(size=(s, 2, 6)).astype(np.float32)
+    h = np.broadcast_to(-100.0 * np.eye(6, dtype=np.float32), (s, 2, 6, 6)).copy()
+    steps = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        kin = kinematics.KinematicModel.from_numpy(arrays, dev).expand(s)
+        steps[dev.type] = kinematics.update_structures(
+            kin, *(torch.as_tensor(a, device=dev) for a in (jp, g, h)), 1000.0,
+            30000.0).cpu().numpy()
+    np.testing.assert_allclose(steps["cuda"], steps["cpu"], rtol=0, atol=1e-5)
+    assert np.array_equal(steps["cuda"], jp) != widened
 
 
 @pytest.mark.cuda

@@ -347,7 +347,8 @@ def test_port_imports_neither_jax_nor_reference():
         "import m3t_tpu_torch.ops.region_fast, m3t_tpu_torch.ops.region_fn\n"
         "import m3t_tpu_torch.ops.histogram, m3t_tpu_torch.ops.raster\n"
         "import m3t_tpu_torch.ops.depth_fn, m3t_tpu_torch.ops.depth_fast\n"
-        "import m3t_tpu_torch.ops.occlusion\n"
+        "import m3t_tpu_torch.ops.occlusion, m3t_tpu_torch.ops.kinematics\n"
+        "import m3t_tpu_torch.ops.texture_fn\n"
         "import m3t_tpu_torch.ops._cuda, m3t_tpu_torch.utils.procedural\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'm3t_tpu'))\n"
         "assert not bad, bad\n"
