@@ -7,6 +7,11 @@ Run from the repository root on a machine with one CUDA device:
 
 Phases (any failure exits non-zero; no phase catches its own failure):
   1. the card: name and power limit from nvidia-smi;
+  0m. model generation on the host: bench.py's region and depth models of the sphere,
+     all 162 views, built by the port (Body, RegionModel/DepthModel.SetUp(), the g++
+     host library's rasterizer and contour tracer) with no cache file, timed, and held
+     equal to the committed m3t_tpu_torch/data npz (every array and the checksum); the
+     phases below stack them with from_models, not from the npz;
   2. build the Hopper kernels from m3t_tpu_torch/csrc and hold each against its plain
      PyTorch twin at the flagship shapes, on inputs the flagship paths produce
      (sample_lines ratio mode at kp 136/120/80/40/24, the scales of every path driven
@@ -30,7 +35,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      its inputs ask for (query_work);
   3. the flagship region cycle, bench.py's default workload: B=512 bodies, 640x512
      frames, 200 lines, scales {6,4,2,1}, 5 correspondence x 2 update iterations,
-     histogram adaptation, the committed sphere model, run eagerly through
+     histogram adaptation, the sphere model of phase 0m, run eagerly through
      initialize_histograms and tracking_cycle;
   4. the flagship RGB-D (ICG) cycle, bench.py --rgbd: phase 3 plus 200 depth points per
      body on a depth frame rendered at the initial pose (depth scale 1 mm, depth
@@ -191,8 +196,49 @@ def texture_matches(rng, n_bodies: int, pose0, intr_t, k: int = 128, radius: flo
     return points, uv.astype(np.float32), rng.random((n_bodies, k)) > 0.3
 
 
-def flagship_inputs(device, n_bodies: int):
-    """bench.py's flagship frames, models, configs and jittered initial poses."""
+def generate_models():
+    """Phase 0m: bench.py's region and depth models (bench.py:124-127, 205-206: the
+    sphere of radius 0.06 m, n_subdiv 2, n_divides 2 (162 views), 200 points,
+    image_size 800), generated by the port on this machine's CPU with no cache file
+    present, each asserted equal to the committed npz in m3t_tpu_torch/data, every
+    array and the checksum.  Returns the two set-up models and the seconds of each."""
+    from m3t_tpu_torch import pipeline
+    from m3t_tpu_torch.depth_model import DepthModel
+    from m3t_tpu_torch.region_model import RegionModel
+    from m3t_tpu_torch.utils import procedural
+
+    data = Path(pipeline.__file__).parent / "data"
+    out_dir = Path(pipeline.__file__).parent / "_build" / "generated"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    body = procedural.sphere_body("bench_sphere", radius=0.06, n_subdiv=2)
+    models, seconds = [], {}
+    for cls, name, file in ((RegionModel, "bench_model", "bench_sphere_region_model.npz"),
+                            (DepthModel, "bench_depth_model", "bench_sphere_depth_model.npz")):
+        path = out_dir / file
+        path.unlink(missing_ok=True)
+        model = cls(name, body, str(path), n_divides=2, n_points=N_POINTS, image_size=800)
+        begin = time.perf_counter()
+        if not model.SetUp():
+            raise AssertionError(f"{name} failed to set up")
+        seconds[name] = time.perf_counter() - begin
+        with np.load(path) as got, np.load(data / file) as want:
+            if sorted(got.files) != sorted(want.files):
+                raise AssertionError(f"{file}: arrays {got.files} against {want.files}")
+            differ = [k for k in want.files
+                      if got[k].dtype != want[k].dtype or not np.array_equal(got[k], want[k])]
+        if differ:
+            raise AssertionError(f"generated {file} differs from the committed one in "
+                                 f"{differ}")
+        log(f"phase 0m: {name} generated in {seconds[name]:.1f} s, "
+            f"{model.orientations.shape[0]} views, equal to the committed {file}")
+        models.append(model)
+    return models, seconds
+
+
+def flagship_inputs(device, n_bodies: int, models=None):
+    """bench.py's flagship frames, models, configs and jittered initial poses.  models:
+    set-up (RegionModel, DepthModel) of the bench sphere, stacked with from_models;
+    without them, the committed npz."""
     from m3t_tpu_torch import pipeline
     from m3t_tpu_torch.common import Intrinsics
     from m3t_tpu_torch.ops import occlusion
@@ -227,11 +273,16 @@ def flagship_inputs(device, n_bodies: int):
     poses = np.tile(pose0, (n_bodies, 1, 1))
     poses[:, 0, 3] += rng.uniform(-0.004, 0.004, n_bodies).astype(np.float32)
     poses[:, 1, 3] += rng.uniform(-0.004, 0.004, n_bodies).astype(np.float32)
-    data = Path(pipeline.__file__).parent / "data"
-    model = pipeline.RegionModelArrays.from_npz(
-        str(data / "bench_sphere_region_model.npz"), N_LINES, device=device)
-    depth_model = pipeline.DepthModelArrays.from_npz(
-        str(data / "bench_sphere_depth_model.npz"), N_POINTS, device=device)
+    if models is None:
+        data = Path(pipeline.__file__).parent / "data"
+        model = pipeline.RegionModelArrays.from_npz(
+            str(data / "bench_sphere_region_model.npz"), N_LINES, device=device)
+        depth_model = pipeline.DepthModelArrays.from_npz(
+            str(data / "bench_sphere_depth_model.npz"), N_POINTS, device=device)
+    else:
+        model = pipeline.RegionModelArrays.from_models(models[:1], N_LINES, device=device)
+        depth_model = pipeline.DepthModelArrays.from_models(models[1:], N_POINTS,
+                                                            device=device)
     return dict(kind=RIGID, pcfg=pcfg, rgbd_pcfg=rgbd_pcfg, ycb_pcfg=ycb_pcfg,
                 occ_pcfg=occ_pcfg, intr=intr, intr_t=intr_t, pose0=pose0, poses=poses,
                 model=model,
@@ -265,7 +316,7 @@ def occluded(inp):
     tris = np.concatenate([sphere_cam, cube_v[cube_t] + cube_pose[:3, 3]])
     ids = np.repeat([1, 2], [len(sphere_cam), len(cube_t)])
     depth, id_img = rasterize_np(tris, ids, intr_t.fu, intr_t.fv, intr_t.ppu, intr_t.ppv,
-                                 WIDTH, HEIGHT, cull_backfaces=True)
+                                 WIDTH, HEIGHT, cull_backfaces=True, use_native=False)
     cube_px = id_img == 2
     planar = inp["images"].cpu().numpy().copy()
     noise = np.random.default_rng(1).integers(-8, 9, size=(3, int(cube_px.sum())))
@@ -315,7 +366,8 @@ def kinematic(inp):
     green = procedural.render_synthetic_color_frame(child, intr_t, eye, fg_color=(60, 170, 60),
                                                     noise_rng=np.random.default_rng(10))
     _, ids = rasterize_np(child, np.ones(len(child)), intr_t.fu, intr_t.fv, intr_t.ppu,
-                          intr_t.ppv, intr_t.width, intr_t.height, cull_backfaces=True)
+                          intr_t.ppv, intr_t.width, intr_t.height, cull_backfaces=True,
+                          use_native=False)
     frame[ids == 1] = green[ids == 1]
     depth_frame = procedural.render_synthetic_depth_frame(both, intr_t, eye, DEPTH_SCALE)
     jitter = np.random.default_rng(9).uniform(-0.004, 0.004, (N_BODIES // 2, 2))
@@ -1187,7 +1239,8 @@ def main() -> int:
                                         "error")):
             log(f"ptxas: {line.strip()}")
 
-    inp = flagship_inputs("cuda", N_BODIES)
+    models, generation_s = generate_models()
+    inp = flagship_inputs("cuda", N_BODIES, models)
     kin = kinematic(inp)
     shapes = check_kernels(inp, kin)
     region_launches = {"sample_lines": 6, "bin_counts": 2, "sample_windows": 0,
@@ -1265,7 +1318,8 @@ def main() -> int:
         raise AssertionError(f"card and CPU disagree beyond atol {PHASE7_ATOL}: {disagree}")
 
     print(json.dumps({"kernel_shapes": shapes}))
-    print(json.dumps({"paths": paths, "card_vs_cpu": card_vs_cpu, "card": card}))
+    print(json.dumps({"paths": paths, "card_vs_cpu": card_vs_cpu, "card": card,
+                      "model_generation_s": generation_s}))
     print(card)
     print(json.dumps({"kernels": kernel_line(shapes, paths)}))
     print(json.dumps({"ok": True, "device": {

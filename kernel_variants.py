@@ -98,11 +98,11 @@ __global__ void __launch_bounds__(1024, 1)
                           const int32_t* __restrict__ stride,
                           const int32_t* __restrict__ corner_u,
                           const int32_t* __restrict__ corner_v, float* __restrict__ out,
-                          int p, int k_runtime, int c) {
+                          int p, int k_runtime, int c, int b0) {
   extern __shared__ uint16_t crop[];
   const int k = K > 0 ? K : k_runtime;
   const int kk = k * k;
-  const int b = blockIdx.x;
+  const int b = b0 + blockIdx.x;
   const uint16_t* plane = image + static_cast<size_t>(b) * static_cast<size_t>(batch_stride);
   const int cu = __ldg(corner_u + b), cv = __ldg(corner_v + b);
   for (int i = threadIdx.x; i < c * c; i += blockDim.x) {
@@ -125,12 +125,12 @@ __global__ void __launch_bounds__(1024, 1)
 }
 
 """ + K3_ARGS
-K3_LAUNCH = "  sample_windows_kernel<K><<<grid, kThreads, 0, stream>>>(\n"
+K3_LAUNCH = "    sample_windows_kernel<K><<<grid, kThreads, 0, stream>>>(\n"
 K3_STAGED_LAUNCH = """\
-  const int smem = a.c * a.c * static_cast<int>(sizeof(uint16_t));
-  cudaFuncSetAttribute(sample_windows_staged<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem);
-  sample_windows_staged<K><<<a.b, 1024, smem, stream>>>(
+    const int smem = a.c * a.c * static_cast<int>(sizeof(uint16_t));
+    cudaFuncSetAttribute(sample_windows_staged<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    sample_windows_staged<K><<<grid.y, 1024, smem, stream>>>(
 """
 VARIANTS = {
     "sample_lines": {

@@ -5,7 +5,11 @@ Entry points: :func:`m3t_tpu_torch.pipeline.initialize_histograms` with
 :func:`m3t_tpu_torch.pipeline.tracking_cycle` or ``tracking_cycle_rgbd`` for rigid
 bodies, and ``initialize_kinematic_histograms`` with ``tracking_cycle_kinematic`` for
 articulated structures (``ops/kinematics.py``).  Tensors live on the card unless the
-caller asks for the CPU, where every kernel runs as its plain PyTorch twin.
+caller asks for the CPU, where every kernel runs as its plain PyTorch twin.  Models are
+generated on the host (``body.Body``, ``region_model.RegionModel`` and
+``depth_model.DepthModel``, whose ``SetUp()`` renders and samples every view with the
+g++-built library in ``native/``) and stacked with ``pipeline.RegionModelArrays`` /
+``DepthModelArrays.from_models``.
 """
 
 import torch

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -116,3 +117,12 @@ def adjoint(pose):
     top = torch.cat([rot, torch.zeros_like(rot)], dim=-1)
     bottom = torch.cat([skew(pose[..., :3, 3]) @ rot, rot], dim=-1)
     return torch.cat([top, bottom], dim=-2)
+
+
+def np_pose_inverse(pose: np.ndarray) -> np.ndarray:
+    """Inverse of a (4, 4) rigid pose on the host, float32 (m3t_tpu/common.py:194)."""
+    pose = np.asarray(pose, np.float32)
+    out = np.eye(4, dtype=np.float32)
+    out[:3, :3] = pose[:3, :3].T
+    out[:3, 3] = -pose[:3, :3].T @ pose[:3, 3]
+    return out

@@ -60,6 +60,7 @@ constexpr int kThreads = 256;
 // Left to itself nvcc takes 39-40, 6 blocks fit, and an RGB-D cycle's calls take 6-9 %
 // longer on an H100.
 constexpr int kBlocksPerSM = 2048 / kThreads;
+constexpr int kMaxGridY = 65535;  // the largest grid y of a launch
 
 // a + k * s in int32 with two's-complement wrapping (the twin's int32 tensor arithmetic).
 __device__ __forceinline__ int wrap_madd(int a, int k, int s) {
@@ -122,10 +123,10 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
                           const int32_t* __restrict__ stride,
                           const int32_t* __restrict__ corner_u,
                           const int32_t* __restrict__ corner_v, float* __restrict__ out,
-                          int p, int k_runtime, int c) {
+                          int p, int k_runtime, int c, int b0) {
   const int k = K > 0 ? K : k_runtime;
   const int kk = k * k;
-  const int b = blockIdx.y;
+  const int b = b0 + blockIdx.y;
   const int n = p * kk;                                   // this body's outputs
   const size_t first = static_cast<size_t>(b) * n;        // ... from here in `out`
   // Groups are aligned to kElemsPerThread outputs of the whole output, so a body whose
@@ -196,10 +197,14 @@ template <int K>
 int launch(const Args& a, cudaStream_t stream) {
   const long long n_groups =
       (static_cast<long long>(a.p) * a.k * a.k + 2 * kElemsPerThread - 1) / kElemsPerThread;
-  const dim3 grid(static_cast<unsigned>((n_groups + kThreads - 1) / kThreads), a.b);
-  sample_windows_kernel<K><<<grid, kThreads, 0, stream>>>(
-      a.image, a.batch_stride, a.h, a.w, a.u_min, a.v_min, a.stride, a.corner_u,
-      a.corner_v, a.out, a.p, a.k, a.c);
+  // The batch is grid y, which holds at most kMaxGridY bodies: one launch per slice.
+  for (int b0 = 0; b0 < a.b; b0 += kMaxGridY) {
+    const dim3 grid(static_cast<unsigned>((n_groups + kThreads - 1) / kThreads),
+                    a.b - b0 < kMaxGridY ? a.b - b0 : kMaxGridY);
+    sample_windows_kernel<K><<<grid, kThreads, 0, stream>>>(
+        a.image, a.batch_stride, a.h, a.w, a.u_min, a.v_min, a.stride, a.corner_u,
+        a.corner_v, a.out, a.p, a.k, a.c, b0);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -81,6 +81,7 @@ constexpr int kWarp = 32;
 constexpr int kBoxLanes = 16;  // queries per cull box: two boxes per warp
 constexpr int kBoxes = kWarp / kBoxLanes;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxGridY = 65535;  // the largest grid y of a launch
 
 __device__ __forceinline__ float plane(float a, float b, float c, float u, float v) {
   return __fadd_rn(__fadd_rn(__fmul_rn(a, u), __fmul_rn(b, v)), c);
@@ -159,12 +160,12 @@ __global__ void __launch_bounds__(kQueriesPerTile, kMinBlocksPerSM)
 query_points_kernel(const float* __restrict__ coeffs, const bool* __restrict__ tri_valid,
                     const int32_t* __restrict__ sil_id, const Query* __restrict__ u_in,
                     const Query* __restrict__ v_in, float* __restrict__ inv_out,
-                    int32_t* __restrict__ id_out, int n_tri, int n_query) {
+                    int32_t* __restrict__ id_out, int n_tri, int n_query, int b0) {
   __shared__ __align__(16) float s_coeff[kTileTriangles * kNCoeff];
   __shared__ int32_t s_sil[kTileTriangles];
   __shared__ int s_warp_bound[kQueriesPerTile / kWarp];
 
-  const int b = blockIdx.y;
+  const int b = b0 + blockIdx.y;
   const int lane = threadIdx.x % kWarp;
   const float* scene_coeffs = coeffs + static_cast<size_t>(b) * n_tri * kNCoeff;
   const bool* scene_valid = tri_valid + static_cast<size_t>(b) * n_tri;
@@ -270,12 +271,16 @@ void launch(const void* coeffs, const void* tri_valid, const void* sil_id, const
             const void* v, void* inv_out, void* id_out, int b, int n_tri, int n_query,
             cudaStream_t stream) {
   const int per_block = kQueriesPerTile * kTilesPerBlock;
-  const dim3 grid((n_query + per_block - 1) / per_block, b);
-  query_points_kernel<Query, kCull><<<grid, kQueriesPerTile, 0, stream>>>(
-      static_cast<const float*>(coeffs), static_cast<const bool*>(tri_valid),
-      static_cast<const int32_t*>(sil_id), static_cast<const Query*>(u),
-      static_cast<const Query*>(v), static_cast<float*>(inv_out),
-      static_cast<int32_t*>(id_out), n_tri, n_query);
+  // The batch is grid y, which holds at most kMaxGridY scenes: one launch per slice.
+  for (int b0 = 0; b0 < b; b0 += kMaxGridY) {
+    const dim3 grid((n_query + per_block - 1) / per_block,
+                    b - b0 < kMaxGridY ? b - b0 : kMaxGridY);
+    query_points_kernel<Query, kCull><<<grid, kQueriesPerTile, 0, stream>>>(
+        static_cast<const float*>(coeffs), static_cast<const bool*>(tri_valid),
+        static_cast<const int32_t*>(sil_id), static_cast<const Query*>(u),
+        static_cast<const Query*>(v), static_cast<float*>(inv_out),
+        static_cast<int32_t*>(id_out), n_tri, n_query, b0);
+  }
 }
 
 }  // namespace

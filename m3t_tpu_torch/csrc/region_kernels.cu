@@ -70,6 +70,7 @@ constexpr int kUnroll = 2;  // consecutive steps per thread, gathered together
 constexpr int kBlocksPerSM = 4;  // 2048 threads: at most 32 registers each
 constexpr int kCountThreads = 512;
 constexpr int kStaticSharedLimit = 48 * 1024;
+constexpr int kMaxGridY = 65535;  // the largest grid y of a launch
 
 // Clamp to [0, hi] in float (NaN -> 0: fmaxf returns the non-NaN operand), then truncate.
 __device__ __forceinline__ int clamp_to_index(float x, int hi) {
@@ -97,10 +98,10 @@ template <bool kRatio>
 __global__ void __launch_bounds__(kLinesPerBlock * kStepRowsPerBlock, kBlocksPerSM)
 sample_lines_kernel(const float* __restrict__ params, const int32_t* __restrict__ crop,
                     const float* __restrict__ table, void* __restrict__ out, int lp, int kp,
-                    int c, int n_table) {
+                    int c, int n_table, int b0) {
   extern __shared__ __align__(16) float s_table[];
   __shared__ __align__(8) uint64_t s_table_ready;
-  const int b = blockIdx.y;
+  const int b = b0 + blockIdx.y;
   const uint32_t ready = shared_address(&s_table_ready);
   if (kRatio) {
     const bool issuer = threadIdx.x == 0 && threadIdx.y == 0;
@@ -199,19 +200,25 @@ extern "C" {
 int m3t_sample_lines(const void* params, const void* crop, const void* table, void* out,
                      int b, int lp, int kp, int c, int n_table, int ratio, void* stream) {
   const dim3 block(kLinesPerBlock, kStepRowsPerBlock);
-  const dim3 grid((lp + kLinesPerBlock - 1) / kLinesPerBlock, b);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = ratio ? static_cast<size_t>(n_table) * sizeof(float) : 0;
   if (ratio) {
-    const size_t smem = static_cast<size_t>(n_table) * sizeof(float);
     cudaError_t err = allow_shared(sample_lines_kernel<true>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    sample_lines_kernel<true><<<grid, block, smem, s>>>(
-        static_cast<const float*>(params), static_cast<const int32_t*>(crop),
-        static_cast<const float*>(table), out, lp, kp, c, n_table);
-  } else {
-    sample_lines_kernel<false><<<grid, block, 0, s>>>(
-        static_cast<const float*>(params), static_cast<const int32_t*>(crop), nullptr, out,
-        lp, kp, c, 0);
+  }
+  // The batch is grid y, which holds at most kMaxGridY bodies: one launch per slice.
+  for (int b0 = 0; b0 < b; b0 += kMaxGridY) {
+    const dim3 grid((lp + kLinesPerBlock - 1) / kLinesPerBlock,
+                    b - b0 < kMaxGridY ? b - b0 : kMaxGridY);
+    if (ratio) {
+      sample_lines_kernel<true><<<grid, block, smem, s>>>(
+          static_cast<const float*>(params), static_cast<const int32_t*>(crop),
+          static_cast<const float*>(table), out, lp, kp, c, n_table, b0);
+    } else {
+      sample_lines_kernel<false><<<grid, block, 0, s>>>(
+          static_cast<const float*>(params), static_cast<const int32_t*>(crop), nullptr,
+          out, lp, kp, c, 0, b0);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

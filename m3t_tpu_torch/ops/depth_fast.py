@@ -94,8 +94,8 @@ def sample_windows(image, u_min, v_min, stride, corner_u, corner_v, crop_size: i
     _require(image.device.type == "cuda", f"unsupported device {image.device}")
     b, h, w = image.shape
     p = u_min.shape[1]
-    _require(0 < b <= 65535 and p > 0 and h > 0 and w > 0,
-             "sample_windows: need 0 < B <= 65535, P > 0 and a non-empty frame")
+    _require(b > 0 and p > 0 and h > 0 and w > 0,
+             "sample_windows: need B > 0, P > 0 and a non-empty frame")
     _require(p * k * k < 2 ** 31, "sample_windows: P * K * K must fit in int32")
     _require(image.stride(2) == 1 and image.stride(1) == w and image.stride(0) >= 0,
              "sample_windows: each (H, W) plane of the image must be contiguous")

@@ -400,7 +400,7 @@ def query_eval(coeffs, tri_valid, sil_id, u, v, cull: bool = True):
     _check_query_inputs(coeffs, tri_valid, sil_id, u, v)
     _require(coeffs.device.type == "cuda", f"unsupported device {coeffs.device}")
     b, n_tri, _ = coeffs.shape
-    _require(0 < b <= 65535 and n_tri > 0, "query_eval: need 0 < B <= 65535 and T > 0")
+    _require(b > 0 and n_tri > 0, "query_eval: need B > 0 and T > 0")
     shape = u.shape
     int_queries = u.dtype == torch.int32 and v.dtype == torch.int32
     qtype = torch.int32 if int_queries else torch.float32

@@ -7,8 +7,9 @@ Three parts:
     ``(a*u + b*v) + c`` per plane.  The scene-occlusion queries
     (ops/occlusion.py) evaluate the same planes at single pixels; :func:`rasterize`
     evaluates them over a whole (H, W) image (the image mode).
-  * :func:`rasterize_np`, the host-side numpy z-buffer (numpy path of the JAX
-    module's ``rasterize_np``), which renders the synthetic frames.
+  * :func:`rasterize_np`, the host-side z-buffer of the JAX module's ``rasterize_np``,
+    which renders the model views and the synthetic frames: the C++ rasterizer of
+    ``native/``, or its numpy version on request.
   * :func:`decimate_mesh`, a numpy copy of the JAX module's vertex clustering.
 
 Conventions: pixel (iu, iv) samples the projected point (u, v) = (iu, iv); camera frame
@@ -20,11 +21,13 @@ port's paths renders them).
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from m3t_tpu_torch import native
 from m3t_tpu_torch.ops.depth_fn import rdiv
 
 
@@ -143,7 +146,7 @@ def rasterize(soup: TriangleSoup, width: int, height: int, chunk: int = 64):
 
 
 # --------------------------------------------------------------------------------------
-# Host-side numpy rasterizer (synthetic frames)
+# Host-side rasterizer (model generation and synthetic frames)
 # --------------------------------------------------------------------------------------
 
 
@@ -159,12 +162,20 @@ def rasterize_np(
     cull_backfaces=False,
     z_min: float = 1e-3,
     with_normals: bool = False,
+    use_native: bool = True,
 ):
-    """Scanline/bbox z-buffer rasterizer on the host.
+    """Scanline/bbox z-buffer rasterizer on the host (m3t_tpu/ops/raster.py:196-280).
 
     tri_verts_cam: (T, 3, 3) camera-frame triangle vertices; ids: (T,).  Returns
     (depth (H, W) f32, id_image (H, W) int32[, normal_image (H, W, 3) f32]).
+    Runs the C++ rasterizer (``native/rasterizer.cpp``, which projects in float32
+    before it divides in double), as the JAX package does for its models; a failed
+    build raises.  ``use_native=False`` runs the numpy version, float64 throughout: the
+    two need not agree to the last pixel.
     """
+    if use_native:
+        return _rasterize_native(tri_verts_cam, ids, fu, fv, ppu, ppv, width, height,
+                                 cull_backfaces, z_min, with_normals)
     v = np.asarray(tri_verts_cam, np.float64)
     ids = np.asarray(ids)
     n_tri = v.shape[0]
@@ -224,6 +235,30 @@ def rasterize_np(
         if with_normals:
             normal_img[vmin : vmax + 1, umin : umax + 1][closer] = nrm[t]
 
+    if with_normals:
+        return depth, id_img, normal_img
+    return depth, id_img
+
+
+def _rasterize_native(tri_verts_cam, ids, fu, fv, ppu, ppv, width, height,
+                      cull_backfaces, z_min, with_normals):
+    """rasterize_np through the host library (m3t_tpu/ops/raster.py:287-316)."""
+    tri = np.ascontiguousarray(tri_verts_cam, np.float32).reshape(-1, 9)
+    n_tri = len(tri)
+    ids_arr = np.ascontiguousarray(np.asarray(ids, np.int32))
+    culls = np.ascontiguousarray(
+        np.broadcast_to(np.asarray(cull_backfaces, bool), (n_tri,)).astype(np.uint8))
+    depth = np.full((height, width), np.inf, np.float32)
+    id_img = np.zeros((height, width), np.int32)
+    normal_img = np.zeros((height, width, 3), np.float32) if with_normals else None
+    native.library().rasterize_soup(
+        tri.ctypes.data_as(ctypes.c_void_p), ids_arr.ctypes.data_as(ctypes.c_void_p),
+        culls.ctypes.data_as(ctypes.c_void_p), n_tri,
+        np.float32(fu), np.float32(fv), np.float32(ppu), np.float32(ppv),
+        width, height, np.float32(z_min),
+        depth.ctypes.data_as(ctypes.c_void_p), id_img.ctypes.data_as(ctypes.c_void_p),
+        normal_img.ctypes.data_as(ctypes.c_void_p) if with_normals else None,
+    )
     if with_normals:
         return depth, id_img, normal_img
     return depth, id_img

@@ -157,7 +157,7 @@ def sample_lines(params, bin_crop, table, kp: int, output: str = "ratio"):
     _require(all(t.is_contiguous() for t in tensors), "sample_lines inputs must be contiguous")
     b, _, lp = params.shape
     c = bin_crop.shape[-1]
-    _require(0 < b <= 65535 and kp > 0, "sample_lines: need 0 < B <= 65535 and kp > 0")
+    _require(b > 0 and kp > 0, "sample_lines: need B > 0 and kp > 0")
     n_table = table.shape[1] if ratio else 0
     _require(n_table * 4 <= 227 * 1024, "ratio table exceeds a block's shared memory")
     # The kernel brings each body's table in with one bulk copy: 16-byte units.

@@ -66,6 +66,18 @@ def _load_npz_models(paths: str | Sequence[str]) -> list[dict]:
     return models
 
 
+_REGION_FIELDS = ("orientations", "centers", "normals", "foreground_distances",
+                  "background_distances", "depth_offsets", "contour_lengths")
+_DEPTH_FIELDS = ("orientations", "centers", "normals", "depth_offsets")
+
+
+def _model_arrays(models, fields) -> list[dict]:
+    """The arrays of set-up model objects, as _load_npz_models gives a cache file's."""
+    if any(not m.set_up for m in models):
+        raise ValueError("from_models needs set-up models (call SetUp() first)")
+    return [{k: getattr(m, k) for k in fields} for m in models]
+
+
 def _stack_views(models: list[dict], fn, device) -> torch.Tensor:
     """Stack fn(model) over bodies as float32, views zero-padded to the largest V."""
     v_max = max(m["orientations"].shape[0] for m in models)
@@ -105,11 +117,21 @@ class RegionModelArrays(NamedTuple):
     @staticmethod
     def from_npz(paths: str | Sequence[str], n_lines: int,
                  device="cuda") -> "RegionModelArrays":
-        """Stack region-model cache files (the npz that m3t_tpu.region_model.RegionModel
-        writes) into a batch, one body per file: the first n_lines points of every view,
-        (V, L, 3) -> (V, 3, L), views zero-padded to the largest V."""
+        """Stack region-model cache files (the npz that ``region_model.RegionModel`` of
+        either package writes) into a batch, one body per file: the first n_lines points
+        of every view, (V, L, 3) -> (V, 3, L), views zero-padded to the largest V."""
+        return RegionModelArrays._stack(_load_npz_models(paths), n_lines, device)
+
+    @staticmethod
+    def from_models(models, n_lines: int, device="cuda") -> "RegionModelArrays":
+        """Stack set-up :class:`m3t_tpu_torch.region_model.RegionModel` objects into a
+        batch, as from_npz stacks their cache files (m3t_tpu/pipeline.py:71)."""
+        return RegionModelArrays._stack(_model_arrays(models, _REGION_FIELDS), n_lines,
+                                        device)
+
+    @staticmethod
+    def _stack(models: list[dict], n_lines: int, device) -> "RegionModelArrays":
         dev = resolve_device(device)
-        models = _load_npz_models(paths)
 
         def stack(fn):
             return _stack_views(models, fn, dev)
@@ -159,11 +181,21 @@ class DepthModelArrays(NamedTuple):
     @staticmethod
     def from_npz(paths: str | Sequence[str], n_points: int,
                  device="cuda") -> "DepthModelArrays":
-        """Stack depth-model cache files (the npz that m3t_tpu.depth_model.DepthModel
-        writes) into a batch, one body per file: the first n_points points of every
-        view, views zero-padded to the largest V."""
+        """Stack depth-model cache files (the npz that ``depth_model.DepthModel`` of
+        either package writes) into a batch, one body per file: the first n_points
+        points of every view, views zero-padded to the largest V."""
+        return DepthModelArrays._stack(_load_npz_models(paths), n_points, device)
+
+    @staticmethod
+    def from_models(models, n_points: int, device="cuda") -> "DepthModelArrays":
+        """Stack set-up :class:`m3t_tpu_torch.depth_model.DepthModel` objects into a
+        batch, as from_npz stacks their cache files (m3t_tpu/pipeline.py:115)."""
+        return DepthModelArrays._stack(_model_arrays(models, _DEPTH_FIELDS), n_points,
+                                       device)
+
+    @staticmethod
+    def _stack(models: list[dict], n_points: int, device) -> "DepthModelArrays":
         dev = resolve_device(device)
-        models = _load_npz_models(paths)
 
         def stack(fn):
             return _stack_views(models, fn, dev)

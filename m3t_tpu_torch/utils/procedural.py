@@ -1,11 +1,16 @@
 """Procedural meshes + synthetic frame rendering on the host (port of
-m3t_tpu/utils/procedural.py:15-79, 96-146), working on triangle-vertex arrays instead of
-Body objects so that no JAX or OpenCV is needed."""
+m3t_tpu/utils/procedural.py).  The renderers take (T, 3, 3) triangle-vertex arrays and
+rasterize with the numpy path of ``rasterize_np`` (float64 throughout), on whose frames
+the port's tests and chip_smoke.py's checks are set; the C++ path, which model
+generation uses, gives a few edge pixels of a frame another id or depth.
+:func:`sphere_body` and :func:`cube_body` make set-up :class:`Body` objects for model
+generation."""
 
 from __future__ import annotations
 
 import numpy as np
 
+from m3t_tpu_torch.body import Body
 from m3t_tpu_torch.common import Intrinsics
 from m3t_tpu_torch.ops.raster import rasterize_np
 
@@ -76,6 +81,24 @@ def cube(half: float = 0.05):
     return v, f
 
 
+def sphere_body(name: str = "sphere", radius: float = 0.05, n_subdiv: int = 2) -> Body:
+    """An icosphere Body, set up (m3t_tpu/utils/procedural.py:82)."""
+    verts, tris = icosphere(n_subdiv, radius)
+    body = Body(name, vertices=verts, triangles=tris)
+    if not body.SetUp():
+        raise RuntimeError(f"Body {name} failed to set up")
+    return body
+
+
+def cube_body(name: str = "cube", half: float = 0.05) -> Body:
+    """A cube Body, set up (m3t_tpu/utils/procedural.py:89)."""
+    verts, tris = cube(half)
+    body = Body(name, vertices=verts, triangles=tris)
+    if not body.SetUp():
+        raise RuntimeError(f"Body {name} failed to set up")
+    return body
+
+
 def sphere_triangles(radius: float = 0.05, n_subdiv: int = 2) -> np.ndarray:
     """(T, 3, 3) body-frame triangle vertices of an icosphere."""
     verts, tris = icosphere(n_subdiv, radius)
@@ -97,7 +120,7 @@ def render_synthetic_color_frame(
     _, id_img, normal = rasterize_np(
         tri_cam, np.full(len(triangles_f_body), 1), intrinsics.fu, intrinsics.fv,
         intrinsics.ppu, intrinsics.ppv, intrinsics.width, intrinsics.height,
-        cull_backfaces=True, with_normals=True,
+        cull_backfaces=True, with_normals=True, use_native=False,
     )
     image = np.empty((intrinsics.height, intrinsics.width, 3), np.uint8)
     image[:] = np.asarray(bg_color, np.uint8)
@@ -126,7 +149,7 @@ def render_synthetic_depth_frame(
     depth, _ = rasterize_np(
         tri_cam, np.full(len(triangles_f_body), 1), intrinsics.fu, intrinsics.fv,
         intrinsics.ppu, intrinsics.ppv, intrinsics.width, intrinsics.height,
-        cull_backfaces=True,
+        cull_backfaces=True, use_native=False,
     )
     metric = np.where(np.isfinite(depth), depth, background_depth)
     return np.round(metric / depth_scale).astype(np.uint16)

@@ -476,6 +476,57 @@ def test_query_eval_kernel_adversarial(cuda_device, cull):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["sample_lines ratio", "sample_lines bins",
+                                    "sample_windows", "query_eval"])
+def test_kernels_take_more_bodies_than_one_grid_y(cuda_device, kernel):
+    """B = 65536 + 3 bodies, more than one launch's grid y holds (65535): the launcher
+    slices the batch, and every body, the last three too, equals the plain twin."""
+    b = 65536 + 3
+    gen = torch.Generator(cuda_device).manual_seed(3)
+
+    def ints(high, *shape, low=0):
+        return torch.randint(low, high, shape, generator=gen, device=cuda_device,
+                             dtype=torch.int32)
+
+    def uniform(low, high, *shape):
+        return low + (high - low) * torch.rand(shape, generator=gen, device=cuda_device)
+
+    launches = {"sample_lines": rf.sample_lines, "sample_windows": df.sample_windows,
+                "query_eval": oc.query_eval}[kernel.split()[0]]
+    before = launches.launches
+    if kernel.startswith("sample_lines"):
+        c, lp, kp, n_table = 32, 128, 24, 512
+        params = torch.zeros((b, 8, lp), device=cuda_device)
+        params[:, 0], params[:, 1] = uniform(0, c, b, lp), uniform(0, c, b, lp)
+        params[:, 2], params[:, 3] = uniform(-1, 1, b, lp), ints(2, b, lp).float()
+        params[:, 4] = ints(2, b, lp).float() * 2 - 1
+        crop = ints(n_table, b, c, c)
+        output = kernel.split()[1]
+        table = uniform(0, 1, b, n_table) if output == "ratio" else None
+        got = rf.sample_lines(params, crop, table, kp, output)
+        want = rf.sample_lines_plain(params, crop, table, kp, output)
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    elif kernel == "sample_windows":
+        h, w, p, c = 20, 24, 4, 16
+        image = ints(1 << 16, b, h, w).to(torch.uint16)
+        corner_u, corner_v = ints(w, b, low=-8), ints(h, b, low=-8)
+        u_min = corner_u[:, None] + ints(c, b, p, low=-2)
+        v_min = corner_v[:, None] + ints(c, b, p, low=-2)
+        args = (image, u_min, v_min, ints(4, b, p, low=1), corner_u, corner_v, c, 3)
+        got, want = df.sample_windows(*args), df.sample_windows_plain(*args)
+    else:
+        coeffs, valid, sil, u, v = _query_inputs(cuda_device, 8, b, 64)
+        got = torch.stack([x.view(torch.int32) for x in
+                           oc.query_eval(coeffs, valid, sil, u, v)], 1)
+        want = torch.stack([x.view(torch.int32) for x in
+                            oc.query_eval_plain(coeffs, valid, sil, u, v)], 1)
+    torch.cuda.synchronize()
+    assert launches.launches == before + 1
+    assert got.shape[0] == b and torch.equal(got, want)
+    assert want[-1].any(), "the last body's output is all zeros: nothing was checked"
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rgbd", [False, True])
 def test_scene_cycles_on_card_match_cpu(cuda_device, rgbd):
     """The region cycle with both region scene checks and the RGB-D cycle with all four,
