@@ -84,12 +84,40 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      number (check_card_against_cpu).  Phase 7 runs every case before it fails on any.
      The card's masks must drop region lines and depth points against the same
      correspondences without the wall's measured occlusions, and without the cube's
-     scene checks.
+     scene checks;
+  8. the scale-out paths (m3t_tpu_torch.parallel and the multi-camera cycles), every
+     batch entry with colour and depth frames of its own, made on the card:
+     8s. the sequence scans: B=512 sequences of 6 frames of the flagship sphere moving
+         1 mm along x per frame (3.0 GB of colour and 2.0 GB of depth frames), frame 0
+         starting the histograms, track_sequences_scan and track_sequences_scan_rgbd
+         over the other 5, once to warm up and once per timed window (3); ms per step,
+         and every pose of every step within 5 mm of the sphere in that frame;
+     8c. the multi-camera rigid RGB-D cycle with all four scene checks: phase 7's
+         sphere and cube seen by the reference camera and by a camera 20 degrees to the
+         side of the sphere and 5 degrees off its axis, B=512 bodies x 2 cameras (1.0 GB
+         and 0.67 GB of frames), through initialize_multicamera_histograms and
+         make_sharded_cycle(mesh=None, with_depth=True, with_scene=True);
+     8k. the multi-camera articulated RGB-D cycle: phase 6k's S=256 structures seen by
+         two cameras (the second 20 degrees to the side of the structure), per-link
+         scenes in each camera, through make_sharded_kinematic_cycle;
+     8c and 8k run as phases 3-6k do (launch counts asserted, every body or link within
+     5 mm, peak memory); phase 2's table gains sample_lines (its first ratio-mode call,
+     kp=120) and sample_windows (its first call, K=11) timed on the inputs of one 8s step
+     and of one 8c cycle, a frame of their own per batch entry;
+     8x. in phase 7's loop, card against CPU at B=8 (S=4) and C=2: one step of the RGB-D
+         scan, the multi-camera rigid cycle with texture terms per camera, and the
+         multi-camera articulated cycle (which may part at one named structure per
+         camera: it has twice the link views of the one-camera case);
+     8d. python -m m3t_tpu_torch.parallel.dryrun --processes 2 --device cuda --backend
+         gloo: two processes of a (1, 2) mesh on the one card (two NCCL ranks cannot share
+         a card), held against one process; its exit code decides.
 The last two lines are the kernels JSON and {"ok": true, "device": {...}}.  With
---profile, one window each of region, RGB-D, occlusion-path, kinematic and kinematic
-RGB-D cycles is also traced with torch.profiler: the device busy share is logged and the
-tables of device time by operation are written to TABLE_FILE and to TABLE_FILE with
-"_rgbd", "_occlusion", "_kinematic" or "_kinematic_rgbd" before its suffix.
+--profile, one window each of region, RGB-D, occlusion-path, kinematic, kinematic RGB-D,
+RGB-D scan step, multi-camera and multi-camera kinematic cycles is also traced with
+torch.profiler: the device busy share is logged and the tables of device time by
+operation are written to TABLE_FILE and to TABLE_FILE with "_rgbd", "_occlusion",
+"_kinematic", "_kinematic_rgbd", "_scan_rgbd", "_multicamera" or
+"_kinematic_multicamera" before its suffix.
 """
 
 from __future__ import annotations
@@ -97,6 +125,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -335,6 +365,31 @@ def occluded(inp):
                 occluder_poses=torch.as_tensor(cube_pose[None, None], device=device))
 
 
+def structure_frames(intr_t, link_poses, seeds=(8, 10)):
+    """Colour (H, W, 3) uint8 and depth (H, W) uint16 frames of the bench structure's two
+    links (spheres) at link_poses (2, 4, 4) in the camera's frame, the parent shaded red,
+    the child green, with the noise of np.random.default_rng(seed) for each colour."""
+    from m3t_tpu_torch.ops.raster import rasterize_np
+    from m3t_tpu_torch.utils import procedural
+
+    sphere = procedural.sphere_triangles(0.06, 2)
+    parent, child = (sphere @ p[:3, :3].T + p[:3, 3] for p in link_poses)
+    both = np.concatenate([parent, child])
+    eye = np.eye(4, dtype=np.float32)
+    # The child in green (the links do not overlap in the image): in the parent's colour
+    # it would sit in the background side of the parent's lines 9 px away, and the
+    # reverse, which biases both links by a few mm.
+    frame = procedural.render_synthetic_color_frame(both, intr_t, eye,
+                                                    noise_rng=np.random.default_rng(seeds[0]))
+    green = procedural.render_synthetic_color_frame(
+        child, intr_t, eye, fg_color=(60, 170, 60), noise_rng=np.random.default_rng(seeds[1]))
+    _, ids = rasterize_np(child, np.ones(len(child)), intr_t.fu, intr_t.fv, intr_t.ppu,
+                          intr_t.ppv, intr_t.width, intr_t.height, cull_backfaces=True,
+                          use_native=False)
+    frame[ids == 1] = green[ids == 1]
+    return frame, procedural.render_synthetic_depth_frame(both, intr_t, eye, DEPTH_SCALE)
+
+
 def kinematic(inp):
     """inp for the articulated paths (bench.py --kinematic and --kinematic-rgbd, see
     phase 6k): configs with link-on-link scenes, the committed bench structure with its
@@ -343,8 +398,6 @@ def kinematic(inp):
     initial joint poses of N_BODIES // 2 structures."""
     from m3t_tpu_torch import pipeline
     from m3t_tpu_torch.ops import kinematics, occlusion
-    from m3t_tpu_torch.ops.raster import rasterize_np
-    from m3t_tpu_torch.utils import procedural
 
     intr_t, device = inp["intr_t"], inp["images"].device
     with np.load(Path(pipeline.__file__).parent / "data" / "bench_kinematic_model.npz") as f:
@@ -354,22 +407,7 @@ def kinematic(inp):
     link_poses = kinematics.forward_kinematics(
         kinematics.KinematicModel.from_numpy(arrays, device="cpu"),
         torch.as_tensor(jp0))[0].numpy()
-    sphere = procedural.sphere_triangles(0.06, 2)
-    parent, child = (sphere @ p[:3, :3].T + p[:3, 3] for p in link_poses)
-    both = np.concatenate([parent, child])
-    eye = np.eye(4, dtype=np.float32)
-    # The child in green (the links do not overlap in the image): in the parent's colour
-    # it would sit in the background side of the parent's lines 9 px away, and the
-    # reverse, which biases both links by a few mm.
-    frame = procedural.render_synthetic_color_frame(both, intr_t, eye,
-                                                    noise_rng=np.random.default_rng(8))
-    green = procedural.render_synthetic_color_frame(child, intr_t, eye, fg_color=(60, 170, 60),
-                                                    noise_rng=np.random.default_rng(10))
-    _, ids = rasterize_np(child, np.ones(len(child)), intr_t.fu, intr_t.fv, intr_t.ppu,
-                          intr_t.ppv, intr_t.width, intr_t.height, cull_backfaces=True,
-                          use_native=False)
-    frame[ids == 1] = green[ids == 1]
-    depth_frame = procedural.render_synthetic_depth_frame(both, intr_t, eye, DEPTH_SCALE)
+    frame, depth_frame = structure_frames(intr_t, link_poses)
     jitter = np.random.default_rng(9).uniform(-0.004, 0.004, (N_BODIES // 2, 2))
     joint2parent = np.tile(jp0, (N_BODIES // 2, 1, 1, 1))
     joint2parent[:, 0, :2, 3] += jitter.astype(np.float32)
@@ -739,6 +777,61 @@ def depth_frame_reads(inp, cycle, tensors) -> int:
     return count.n
 
 
+def sample_lines_row(name, params, bin_crop, table, kp, output, per_cycle):
+    """sample_lines on these inputs against its twin (exactly), timed, with its bound."""
+    from m3t_tpu_torch.ops import region_fast as rf
+
+    b, c = params.shape[0], bin_crop.shape[-1]
+    got = rf.sample_lines(params, bin_crop, table, kp, output)
+    want = rf.sample_lines_plain(params, bin_crop, table, kp, output)
+    torch.cuda.synchronize()
+    err = (got.double() - want.double()).abs().max().item()
+    if not torch.equal(got, want):
+        raise AssertionError(f"sample_lines {name}: kernel != plain (max diff {err})")
+    touched = torch.unique(rf.staircase_index(params, c, kp)).numel()
+    n_bytes = (b * SAMPLE_LINES_PARAM_ROWS * params.shape[-1] * 4 + touched * 4
+               + got.numel() * 4 + (table.numel() * 4 if output == "ratio" else 0))
+    return dict(kernel="sample_lines", case=name, per_cycle=per_cycle, max_abs_err=err,
+                **kernel_times(lambda: rf.sample_lines(params, bin_crop, table, kp, output)),
+                plain_ms=time_ms(
+                    lambda: rf.sample_lines_plain(params, bin_crop, table, kp, output), 3),
+                library_ms=None, **bound(n_bytes, SAMPLE_LINES_OPS * got.numel()))
+
+
+def sample_windows_row(name, args, per_cycle):
+    """sample_windows on args = (image, u_min, v_min, stride, corner_u, corner_v,
+    crop_size, k) against its twin (exactly), timed, with its bound and the torch.take
+    yardstick."""
+    from m3t_tpu_torch.ops import depth_fast as df
+
+    image, u_min, k = args[0], args[1], args[-1]
+    b = image.shape[0]
+    got = df.sample_windows(*args)
+    want = df.sample_windows_plain(*args)
+    torch.cuda.synchronize()
+    err = (got.double() - want.double()).abs().max().item()
+    if not torch.equal(got, want):
+        raise AssertionError(f"sample_windows {name}: kernel != plain (max diff {err})")
+    reads = window_reads(*args)
+    # The same work whatever implements it: the f32 output, the (B, P) geometry and
+    # the corners read once, 2 bytes per distinct (frame, pixel) the windows touch.
+    # The bound of the crop-based kernel this one replaced counted that kernel's own
+    # I/O instead: its padded (B, kp, LP) int32 output, its (B, 4, LP) f32 params
+    # rows and the int32 crop words.
+    n_bytes = got.numel() * 4 + 3 * u_min.numel() * 4 + 2 * b * 4 + 2 * reads["touched"]
+    return dict(kernel="sample_windows", case=f"{name} K={k} P={u_min.shape[1]}",
+                per_cycle=per_cycle, max_abs_err=err,
+                frame_bytes=image[0].numel() * 2 * (1 if image.stride(0) == 0 else b),
+                touched_pixels=reads["touched"],
+                outside_frame_samples=reads["outside"],
+                **kernel_times(lambda: df.sample_windows(*args)),
+                plain_ms=time_ms(lambda: df.sample_windows_plain(*args), 5),
+                library_ms=time_ms(lambda: torch.take(reads["padded"], reads["index"]),
+                                   20, graph=True),
+                library_timing="graph",
+                **bound(n_bytes, SAMPLE_WINDOWS_OPS * got.numel()))
+
+
 def check_kernels(inp, kin):
     """Phase 2: every kernel against its plain twin at the flagship shapes (kin: the
     articulated paths' inputs).  Each row's ``per_cycle`` is its number of calls in one
@@ -762,21 +855,7 @@ def check_kernels(inp, kin):
     b = N_BODIES
 
     def k1_case(name, params, table, kp, output, per_cycle):
-        got = rf.sample_lines(params, bin_crop, table, kp, output)
-        want = rf.sample_lines_plain(params, bin_crop, table, kp, output)
-        torch.cuda.synchronize()
-        err = (got.double() - want.double()).abs().max().item()
-        if not torch.equal(got, want):
-            raise AssertionError(f"sample_lines {name}: kernel != plain (max diff {err})")
-        touched = torch.unique(rf.staircase_index(params, c, kp)).numel()
-        n_bytes = (b * SAMPLE_LINES_PARAM_ROWS * params.shape[-1] * 4 + touched * 4
-                   + got.numel() * 4 + (table.numel() * 4 if output == "ratio" else 0))
-        return dict(kernel="sample_lines", case=name, per_cycle=per_cycle, max_abs_err=err,
-                    **kernel_times(lambda: rf.sample_lines(params, bin_crop, table, kp,
-                                                           output)),
-                    plain_ms=time_ms(
-                        lambda: rf.sample_lines_plain(params, bin_crop, table, kp, output), 3),
-                    library_ms=None, **bound(n_bytes, SAMPLE_LINES_OPS * got.numel()))
+        return sample_lines_row(name, params, bin_crop, table, kp, output, per_cycle)
 
     shapes = []
     # One region cycle runs scales 6, 4, 2, 1, 1 in ratio mode, then one bins-mode walk;
@@ -834,31 +913,8 @@ def check_kernels(inp, kin):
     centers = pipeline._select_depth_view(bt["depth_model"], poses).center_f_body
 
     def k3_case(name, image, u_min, v_min, stride, corner_u, corner_v, k, per_cycle):
-        args = (image, u_min, v_min, stride, corner_u, corner_v, c, k)
-        got = df.sample_windows(*args)
-        want = df.sample_windows_plain(*args)
-        torch.cuda.synchronize()
-        err = (got.double() - want.double()).abs().max().item()
-        if not torch.equal(got, want):
-            raise AssertionError(f"sample_windows {name}: kernel != plain (max diff {err})")
-        reads = window_reads(*args)
-        # The same work whatever implements it: the f32 output, the (B, P) geometry and
-        # the corners read once, 2 bytes per distinct (frame, pixel) the windows touch.
-        # The bound of the crop-based kernel this one replaced counted that kernel's own
-        # I/O instead: its padded (B, kp, LP) int32 output, its (B, 4, LP) f32 params
-        # rows and the int32 crop words.
-        n_bytes = got.numel() * 4 + 3 * u_min.numel() * 4 + 2 * b * 4 + 2 * reads["touched"]
-        return dict(kernel="sample_windows", case=f"{name} K={k} P={u_min.shape[1]}",
-                    per_cycle=per_cycle, max_abs_err=err,
-                    frame_bytes=image[0].numel() * 2 * (1 if image.stride(0) == 0 else b),
-                    touched_pixels=reads["touched"],
-                    outside_frame_samples=reads["outside"],
-                    **kernel_times(lambda: df.sample_windows(*args)),
-                    plain_ms=time_ms(lambda: df.sample_windows_plain(*args), 5),
-                    library_ms=time_ms(lambda: torch.take(reads["padded"], reads["index"]),
-                                       20, graph=True),
-                    library_timing="graph",
-                    **bound(n_bytes, SAMPLE_WINDOWS_OPS * got.numel()))
+        return sample_windows_row(name, (image, u_min, v_min, stride, corner_u, corner_v, c,
+                                         k), per_cycle)
 
     for cd in sorted(set(rgbd.considered_distances) | set(ycb.considered_distances),
                      reverse=True):
@@ -976,8 +1032,8 @@ def check_kernels(inp, kin):
 
 def run_path(label, inp, cycle, want_per_cycle, want_at_init, n_windows=3,
              cycles_per_window=5, n_warmup=2):
-    """Phases 3-6k: StartModality and the path's cycles at B=512, with every kernel
-    launch counted from 0, and the steady cycles timed."""
+    """Phases 3-6k, 8c and 8k: StartModality and the path's cycles at B=512, with every
+    kernel launch counted from 0, and the steady cycles timed."""
     dev = torch.device("cuda")
     bt = inp["kind"].batch(inp, N_BODIES, dev)
     counters = launch_counters()
@@ -1010,13 +1066,20 @@ def run_path(label, inp, cycle, want_per_cycle, want_at_init, n_windows=3,
     if not np.all(err < 0.005):
         raise AssertionError(f"{label}: translation error up to {err.max()} m (limit 5 mm)")
     ms_cycle = statistics.median(window_s) / cycles_per_window * 1e3
-    result = dict(path=label, bodies=N_BODIES, cycles=n_cycles, ms_per_cycle=ms_cycle,
+    result = dict(path=label, bodies=N_BODIES,
+                  cameras=bt["cam2ref"].shape[0] if "cam2ref" in bt else 1,
+                  cycles=n_cycles, ms_per_cycle=ms_cycle,
                   body_frames_per_s=N_BODIES / ms_cycle * 1e3,
                   window_ms_per_cycle=[w / cycles_per_window * 1e3 for w in window_s],
                   max_translation_error_m=float(err.max()), launches=launches,
                   peak_memory_bytes=torch.cuda.max_memory_allocated())
     log(f"{label} cycle: {json.dumps(result)}")
     return result, (bt, state)
+
+
+def profile_file(table_file: Path, suffix: str) -> Path:
+    """--profile's TABLE_FILE with a path's suffix before its own."""
+    return table_file.with_name(f"{table_file.stem}{suffix}{table_file.suffix}")
 
 
 def profile_cycles(label, inp, cycle, tensors, table_file: Path, ms_per_cycle: float,
@@ -1184,6 +1247,339 @@ def check_card_against_cpu(label, inp, cycle, n_bodies: int = 8, n_cycles: int =
                 twin_mismatches=mismatches)
 
 
+# ----------------------------------------------------------------------------------------
+# Phase 8: the scale-out paths, with a frame per (body, camera) and per (sequence, step)
+# ----------------------------------------------------------------------------------------
+
+SIDE_CAMERA_DEG = (20.0, 5.0)  # camera 1: degrees to the side of the target, and off its axis
+SCAN_FRAMES = 6                # phase 8s: frame 0 starts the histograms, 5 are tracked
+SCAN_STEP_M = 0.001            # phase 8s: the sphere's motion along x per frame
+
+
+def side_cameras(center):
+    """(2, 4, 4) camera-to-reference poses: the reference camera, and a camera that sees
+    ``center`` from SIDE_CAMERA_DEG[0] degrees to the side, SIDE_CAMERA_DEG[1] degrees off
+    its optical axis."""
+    from m3t_tpu_torch.utils import procedural
+
+    return np.stack([np.eye(4, dtype=np.float32),
+                     procedural.orbit_camera(center, *SIDE_CAMERA_DEG)])
+
+
+def own_frames(colour, depth, n: int, device, seed: int, time_major: bool = False):
+    """Frames with storage of their own for n batch entries, from frames rendered once
+    per camera (or time step): colour (K, 3, H, W) uint8 -> (n, K, 3, H, W), each frame
+    with its own noise of +-4 on top of the rendered noise, and depth (K, H, W) uint16 ->
+    (n, K, H, W) copies; (K, n, ...) when time_major.  Made on the card from a seeded
+    generator, then moved to device, so that the CPU's batch of phase 8x equals the
+    card's."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    base = torch.as_tensor(colour, device="cuda").to(torch.int16)
+    k = base.shape[0]
+    lead = (k, n) if time_major else (n, k)
+    out = torch.empty(lead + base.shape[1:], dtype=torch.uint8, device="cuda")
+    for i in range(0, n, 32):
+        m = min(32, n - i)
+        shape = ((k, m) if time_major else (m, k)) + base.shape[1:]
+        noise = torch.randint(-4, 5, shape, generator=gen, device="cuda", dtype=torch.int16)
+        block = (base[:, None] if time_major else base[None]) + noise
+        if time_major:
+            out[:, i:i + m] = block.clamp_(0, 255).to(torch.uint8)
+        else:
+            out[i:i + m] = block.clamp_(0, 255).to(torch.uint8)
+    depth = torch.as_tensor(depth, device="cuda")
+    depth = (depth[:, None] if time_major else depth[None]).expand(lead + depth.shape[1:])
+    return out.to(device), depth.contiguous().to(device)
+
+
+def sphere_cube_view(inp, ref2cam, seed: int):
+    """Planar colour (3, H, W) uint8 and depth (H, W) uint16 of the flagship sphere at
+    pose0 and phase 7's cube (green) in the camera whose reference-to-camera pose is
+    ref2cam, with the noise of np.random.default_rng(seed)."""
+    from m3t_tpu_torch.ops.raster import rasterize_np
+    from m3t_tpu_torch.utils import procedural
+
+    intr_t = inp["intr_t"]
+    sphere_pose = ref2cam @ inp["pose0"]
+    cube_pose = np.eye(4, dtype=np.float32)
+    cube_pose[:3, 3] = CUBE_POSITION
+    cube_pose = ref2cam @ cube_pose
+    sphere = procedural.sphere_triangles(0.06, 2)
+    cube_v, cube_t = procedural.cube(CUBE_HALF)
+    frame = procedural.render_synthetic_color_frame(sphere, intr_t, sphere_pose)
+    tris = np.concatenate([sphere @ sphere_pose[:3, :3].T + sphere_pose[:3, 3],
+                           cube_v[cube_t] @ cube_pose[:3, :3].T + cube_pose[:3, 3]])
+    ids = np.repeat([1, 2], [len(sphere), len(cube_t)])
+    depth, id_img = rasterize_np(tris, ids, intr_t.fu, intr_t.fv, intr_t.ppu, intr_t.ppv,
+                                 WIDTH, HEIGHT, cull_backfaces=True, use_native=False)
+    frame[id_img == 2] = (60, 170, 60)
+    noise = np.random.default_rng(seed).integers(-8, 9, frame.shape)
+    frame = np.clip(frame.astype(np.int16) + noise, 0, 255).astype(np.uint8)
+    depth_u16 = np.round(np.where(np.isfinite(depth), depth, 2.0) / DEPTH_SCALE)
+    return np.ascontiguousarray(np.moveaxis(frame, -1, 0)), depth_u16.astype(np.uint16)
+
+
+def sequences(inp):
+    """inp for phase 8s: SCAN_FRAMES frames of the flagship sphere moving SCAN_STEP_M
+    along x per frame (colour (T, 3, H, W), depth (T, H, W)) and the sphere's position
+    in each."""
+    from m3t_tpu_torch.utils import procedural
+
+    sphere = procedural.sphere_triangles(0.06, 2)
+    colour, depth, targets = [], [], []
+    for t in range(SCAN_FRAMES):
+        pose = inp["pose0"].copy()
+        pose[0, 3] += SCAN_STEP_M * t
+        frame = procedural.render_synthetic_color_frame(sphere, inp["intr_t"], pose,
+                                                        noise_rng=np.random.default_rng(30 + t))
+        colour.append(np.moveaxis(frame, -1, 0))
+        depth.append(procedural.render_synthetic_depth_frame(sphere, inp["intr_t"], pose,
+                                                             DEPTH_SCALE))
+        targets.append(pose[:3, 3])
+    return dict(inp, kind=SEQUENCES, scan_colour=np.stack(colour), scan_depth=np.stack(depth),
+                scan_targets=np.stack(targets))
+
+
+def sequences_batch(inp, n_bodies: int, device):
+    """n_bodies sequences: frames (T, B, 3, H, W) and depth frames (T, B, H, W) of their
+    own, the flagship models and initial poses; targets: the position in frame 1."""
+    bt = rigid_batch(inp, n_bodies, device)
+    frames, depth = own_frames(inp["scan_colour"], inp["scan_depth"], n_bodies, device, 85,
+                               time_major=True)
+    return dict(bt, frames=frames, depth_frames=depth,
+                targets=np.broadcast_to(inp["scan_targets"][1], (n_bodies, 3)))
+
+
+def sequences_start(inp, bt):
+    from m3t_tpu_torch import pipeline
+
+    return pipeline.initialize_histograms(inp["pcfg"], inp["intr"], bt["frames"][0],
+                                          bt["model"], bt["poses"])
+
+
+def scan_step_cycle(inp, bt, state):
+    """One step of the RGB-D sequence scan (frame 1)."""
+    from m3t_tpu_torch import parallel
+
+    return parallel.track_sequences_scan_rgbd(
+        inp["rgbd_pcfg"], inp["intr"], inp["intr"], DEPTH_SCALE, bt["frames"][1:2],
+        bt["depth_frames"][1:2], bt["model"], bt["depth_model"], state)[0]
+
+
+def multicamera(inp):
+    """inp for phase 8c: phase 7's scene (the sphere, the cube between it and the
+    reference camera, all four scene checks) seen by two cameras, the second 20 degrees
+    to the side of the sphere and off its axis; a colour and a depth frame per camera,
+    texture matches per camera (camera_texture, (B, C, ...)) and texture_pcfg, the RGB-D
+    config with texture terms."""
+    scene = occluded(inp)
+    cam2ref = side_cameras(inp["pose0"][:3, 3])
+    views = [sphere_cube_view(inp, np.linalg.inv(c), 20 + i) for i, c in enumerate(cam2ref)]
+    rng = np.random.default_rng(21)
+    texture = [texture_matches(rng, N_BODIES, np.linalg.inv(c) @ inp["pose0"], inp["intr_t"])
+               for c in cam2ref]
+    return dict(scene, kind=MULTICAMERA, cam2ref=cam2ref,
+                camera_colour=np.stack([v[0] for v in views]),
+                camera_depth=np.stack([v[1] for v in views]),
+                camera_texture=tuple(np.stack([t[i] for t in texture], 1) for i in range(3)),
+                texture_pcfg=scene["rgbd_pcfg"]._replace(use_texture=True))
+
+
+def multicamera_batch(inp, n_bodies: int, device):
+    """phase 8c's batch: rigid_batch with a colour and a depth frame of their own per
+    (body, camera), (B, C, 3, H, W) and (B, C, H, W), the cameras and the texture matches
+    per (body, camera)."""
+    from m3t_tpu_torch.ops.texture_fn import TexturePoints
+
+    bt = rigid_batch(inp, n_bodies, device)
+    images, depth = own_frames(inp["camera_colour"], inp["camera_depth"], n_bodies, device, 81)
+    return dict(bt, images=images, depth_images=depth,
+                cam2ref=torch.as_tensor(inp["cam2ref"], device=device),
+                texture_points=TexturePoints(*(torch.as_tensor(a[:n_bodies], device=device)
+                                               for a in inp["camera_texture"])))
+
+
+def multicamera_start(inp, bt):
+    from m3t_tpu_torch import pipeline
+
+    return pipeline.initialize_multicamera_histograms(inp["pcfg"], inp["intr"], bt["images"],
+                                                      bt["cam2ref"], bt["model"], bt["poses"])
+
+
+def multicamera_cycle(pcfg_key, with_texture: bool = False):
+    def cycle(inp, bt, state):
+        from m3t_tpu_torch import pipeline
+
+        extra = [bt["depth_images"], DEPTH_SCALE, bt["depth_model"],
+                 bt["scene"]["scene_geom"], bt["scene"]["occluder_poses"]]
+        if with_texture:
+            extra.append(bt["texture_points"])
+        return pipeline.make_sharded_cycle(
+            inp[pcfg_key], None, inp["intr"], inp["intr"], with_depth=True, with_scene=True,
+            with_texture=with_texture)(bt["images"], bt["cam2ref"], bt["model"], state, *extra)
+    return cycle
+
+
+def kinematic_multicamera(kin):
+    """inp for phase 8k: phase 6k's structures seen by two cameras, the second 20
+    degrees to the side of the structure's centre and off its axis; a colour and a depth
+    frame of both links per camera."""
+    cam2ref = side_cameras(kin["link_poses"][:, :3, 3].mean(0))
+    views = [structure_frames(kin["intr_t"], np.linalg.inv(c) @ kin["link_poses"],
+                              seeds=(8 + 10 * i, 10 + 10 * i)) for i, c in enumerate(cam2ref)]
+    return dict(kin, kind=MULTICAMERA_ARTICULATED, cam2ref=cam2ref,
+                camera_colour=np.stack([np.moveaxis(v[0], -1, 0) for v in views]),
+                camera_depth=np.stack([v[1] for v in views]))
+
+
+def kinematic_multicamera_batch(inp, n_bodies: int, device):
+    """phase 8k's batch: articulated_batch with a colour and a depth frame of their own
+    per (structure, camera) and the cameras."""
+    bt = articulated_batch(inp, n_bodies, device)
+    images, depth = own_frames(inp["camera_colour"], inp["camera_depth"], n_bodies // 2,
+                               device, 83)
+    return dict(bt, images=images, depth_images=depth,
+                cam2ref=torch.as_tensor(inp["cam2ref"], device=device))
+
+
+def kinematic_multicamera_start(inp, bt):
+    """Histograms per (structure, link, camera) at the initial joint poses: the links as
+    the bodies of the rigid multi-camera StartModality."""
+    from m3t_tpu_torch import pipeline
+
+    joint2parent = bt["joint2parent"]
+    s, nl = joint2parent.shape[:2]
+    links = pipeline._kinematic_flat_poses(bt["kin"], joint2parent)[1]
+    start = pipeline.initialize_multicamera_histograms(
+        inp["pcfg"], inp["intr"], pipeline._repeat_each(bt["images"], nl), bt["cam2ref"],
+        bt["model"], links)
+    return pipeline.KinematicMultiCameraState(
+        joint2parent, *(h.reshape((s, nl) + h.shape[1:]) for h in start[1:]))
+
+
+def kinematic_multicamera_cycle(pcfg_key):
+    def cycle(inp, bt, state):
+        from m3t_tpu_torch import pipeline
+
+        pcfg = inp[pcfg_key]
+        depth = ([bt["depth_images"], DEPTH_SCALE, bt["depth_model"]] if pcfg.use_depth
+                 else [])
+        return pipeline.make_sharded_kinematic_cycle(
+            pcfg, None, inp["intr"], inp["intr"], with_depth=pcfg.use_depth,
+            with_scene=True)(bt["images"], bt["cam2ref"], bt["model"], bt["kin"], state,
+                             *depth, bt["scene"]["scene_geom"], None)
+    return cycle
+
+
+SEQUENCES = PathKind(sequences_batch, sequences_start,
+                     lambda bt, state: state.body2camera_pose)
+MULTICAMERA = PathKind(multicamera_batch, multicamera_start,
+                       lambda bt, state: state.body2reference_pose)
+MULTICAMERA_ARTICULATED = PathKind(kinematic_multicamera_batch, kinematic_multicamera_start,
+                                   articulated_body_poses)
+
+
+def run_scan(label, inp, rgbd: bool, want_per_step, want_at_init, n_windows: int = 3):
+    """Phase 8s: StartModality on frame 0, then track_sequences_scan (or _rgbd) over
+    the other frames of N_BODIES sequences, once to warm up and once per timed window,
+    every kernel launch counted from 0; every pose of every step within 5 mm of the
+    sphere in that frame."""
+    from m3t_tpu_torch import parallel
+
+    bt = sequences_batch(inp, N_BODIES, torch.device("cuda"))
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    start = sequences_start(inp, bt)
+
+    def scan():
+        if rgbd:
+            return parallel.track_sequences_scan_rgbd(
+                inp["rgbd_pcfg"], inp["intr"], inp["intr"], DEPTH_SCALE, bt["frames"][1:],
+                bt["depth_frames"][1:], bt["model"], bt["depth_model"], start)
+        return parallel.track_sequences_scan(inp["pcfg"], inp["intr"], bt["frames"][1:],
+                                             bt["model"], start)
+
+    scan()
+    torch.cuda.synchronize()
+    window_s = []
+    for _ in range(n_windows):
+        begin = time.perf_counter()
+        final, poses = scan()
+        torch.cuda.synchronize()
+        window_s.append(time.perf_counter() - begin)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    n_steps = (SCAN_FRAMES - 1) * (1 + n_windows)
+    want = {name: want_at_init.get(name, 0) + n * n_steps for name, n in want_per_step.items()}
+    if launches != want:
+        raise AssertionError(f"{label}: kernel launches {launches}, expected {want}")
+    poses = poses.cpu().numpy()
+    if not np.all(np.isfinite(poses)) or not torch.isfinite(final.histogram_f).all():
+        raise AssertionError(f"{label}: non-finite tracking state")
+    err = np.linalg.norm(poses[..., :3, 3] - inp["scan_targets"][1:, None], axis=-1)
+    if not np.all(err < 0.005):
+        raise AssertionError(f"{label}: translation error up to {err.max()} m (limit 5 mm) "
+                             f"at steps {sorted(set(np.nonzero(err >= 0.005)[0] + 1))}")
+    ms_step = statistics.median(window_s) / (SCAN_FRAMES - 1) * 1e3
+    result = dict(path=label, sequences=N_BODIES, steps=SCAN_FRAMES - 1,
+                  steps_run=n_steps, ms_per_step=ms_step,
+                  body_frames_per_s=N_BODIES / ms_step * 1e3,
+                  window_ms_per_step=[w / (SCAN_FRAMES - 1) * 1e3 for w in window_s],
+                  max_translation_error_m=float(err.max()),
+                  max_translation_error_m_by_step=[float(e) for e in err.max(1)],
+                  launches=launches, frame_bytes=bt["frames"].numel()
+                  + bt["depth_frames"].numel() * 2,
+                  peak_memory_bytes=torch.cuda.max_memory_allocated())
+    log(f"{label}: {json.dumps(result)}")
+    return result, (bt, start)
+
+
+def distinct_frame_rows(label, call):
+    """Timed rows (per_cycle 0) of sample_lines and sample_windows on the inputs that one
+    call of a phase 8 path gives them, a frame of its own per batch entry: its first
+    ratio-mode sample_lines call (scale 6) and its first sample_windows call (K=11)."""
+    with recorded_launches() as calls:
+        call()
+    torch.cuda.synchronize()
+    k1 = next(args for name, args, kwargs, _ in calls
+              if name == "sample_lines" and len(args) == 4 and "output" not in kwargs)
+    k3 = next(args for name, args, _, _ in calls if name == "sample_windows")
+    del calls
+    params, bin_crop, table, kp = k1
+    return [sample_lines_row(f"{label} ratio kp={kp} LP={params.shape[-1]} "
+                             f"B={params.shape[0]}", params, bin_crop, table, kp, "ratio", 0),
+            sample_windows_row(f"{label} B={k3[0].shape[0]}", k3, 0)]
+
+
+def run_dryrun(timeout: float = 420.0) -> dict:
+    """Phase 8d: the dry run over two processes on the card with gloo (two NCCL ranks
+    cannot share one card); its exit code decides.  Every process it starts is in its
+    own session, stopped with it on a timeout."""
+    cmd = [sys.executable, "-m", "m3t_tpu_torch.parallel.dryrun", "--processes", "2",
+           "--device", "cuda", "--backend", "gloo"]
+    begin = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"dry run: no end within {timeout} s: {out[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    for line in out.splitlines():
+        if line.startswith("[dryrun]") or line.startswith('{"dryrun"'):
+            log(f"phase 8d: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"dry run exited {proc.returncode}: {out[-3000:]}")
+    result = json.loads(next(x for x in out.splitlines() if x.startswith('{"dryrun"')))
+    return dict(result["dryrun"], seconds=time.perf_counter() - begin)
+
+
 def kernel_line(shapes, paths):
     """The kernels JSON entries: times and bounds per flagship cycle of the kernel's
     path (the sum over the cycle's calls), launches from that path's counted run."""
@@ -1214,11 +1610,10 @@ def kernel_line(shapes, paths):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", type=Path, metavar="TABLE_FILE",
-                        help="also trace a window of region, RGB-D, occlusion-path, "
-                             "kinematic and kinematic RGB-D cycles with torch.profiler "
-                             "and write their tables to TABLE_FILE and TABLE_FILE with "
-                             "'_rgbd', '_occlusion', '_kinematic' or '_kinematic_rgbd' "
-                             "before its suffix")
+                        help="also trace a window of each path's cycles with "
+                             "torch.profiler and write their tables to TABLE_FILE and "
+                             "TABLE_FILE with the path's suffix before its own (see the "
+                             "module's docstring)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1291,9 +1686,43 @@ def main() -> int:
                 ("kinematic", kin, kinematic_cycle("pcfg"), "_kinematic"),
                 ("kinematic_rgbd", kin, kinematic_cycle("rgbd_pcfg"), "_kinematic_rgbd")):
             profile_cycles(label, path_inp, cycle, tensors[label],
-                           args.profile.with_name(f"{args.profile.stem}{suffix}"
-                                                  f"{args.profile.suffix}"),
-                           paths[label]["ms_per_cycle"])
+                           profile_file(args.profile, suffix), paths[label]["ms_per_cycle"])
+    del tensors
+    # Phase 8: the scale-out paths, a frame of its own per (sequence, step) and per
+    # (body, camera); each path's tensors go before the next path runs, so that its peak
+    # memory is its own.  8s: the sequence scans, one tracking cycle per step.
+    seq, mc, kmc = sequences(inp), multicamera(inp), kinematic_multicamera(kin)
+    paths["scan"] = run_scan("scan", seq, False, region_launches, at_init)[0]
+    paths["scan_rgbd"], phase8 = run_scan(
+        "scan_rgbd", seq, True, dict(region_launches, sample_windows=5), at_init)
+    shapes += distinct_frame_rows("scan step", lambda: scan_step_cycle(seq, *phase8))
+    if args.profile:
+        profile_cycles("scan_rgbd", seq, scan_step_cycle, phase8,
+                       profile_file(args.profile, "_scan_rgbd"),
+                       paths["scan_rgbd"]["ms_per_step"])
+    del phase8
+    # 8c: two cameras over B bodies, all four scene checks: three scene evaluations per
+    # correspondence iteration (region checks and modeled occlusions, depth modeled
+    # occlusions, silhouette check) over the B x C flat batch.
+    paths["multicamera"], phase8 = run_path(
+        "multicamera", mc, multicamera_cycle("rgbd_pcfg"),
+        dict(region_launches, sample_windows=5, query_eval=15), at_init)
+    shapes += distinct_frame_rows("multicamera cycle", lambda: multicamera_cycle("rgbd_pcfg")(
+        mc, *phase8))
+    if args.profile:
+        profile_cycles("multicamera", mc, multicamera_cycle("rgbd_pcfg"), phase8,
+                       profile_file(args.profile, "_multicamera"),
+                       paths["multicamera"]["ms_per_cycle"])
+    del phase8
+    # 8k: two cameras over S structures, per-link scenes in each camera.
+    paths["kinematic_multicamera"], phase8 = run_path(
+        "kinematic_multicamera", kmc, kinematic_multicamera_cycle("rgbd_pcfg"),
+        dict(region_launches, sample_windows=5, query_eval=5), at_init)
+    if args.profile:
+        profile_cycles("kinematic_multicamera", kmc, kinematic_multicamera_cycle("rgbd_pcfg"),
+                       phase8, profile_file(args.profile, "_kinematic_multicamera"),
+                       paths["kinematic_multicamera"]["ms_per_cycle"])
+    del phase8
     card_vs_cpu = {"region": check_card_against_cpu("region", inp, region_cycle)}
     occlusions = walled(dict(inp, rgbd_pcfg=inp["rgbd_pcfg"]._replace(
         region_measure_occlusions=True, depth_measure_occlusions=True)))
@@ -1309,17 +1738,25 @@ def main() -> int:
             ("rgbd with scene checks", scene, rgbd_cycle("rgbd_pcfg"), 0),
             ("ycb with texture", inp, rgbd_cycle("ycb_pcfg"), 1),
             ("kinematic with scenes", kin, kinematic_cycle("pcfg"), 1),
-            ("kinematic rgbd", kin, kinematic_cycle("rgbd_pcfg"), 1)):
+            ("kinematic rgbd", kin, kinematic_cycle("rgbd_pcfg"), 1),
+            # Phase 8x: the scale-out paths at B=8 (S=4) and C=2.  The articulated case
+            # carries twice the link views of "kinematic rgbd" and may part, as it does,
+            # at one named structure per camera.
+            ("scan rgbd step", seq, scan_step_cycle, 0),
+            ("multicamera with texture", mc, multicamera_cycle("texture_pcfg", True), 0),
+            ("kinematic multicamera", kmc, kinematic_multicamera_cycle("rgbd_pcfg"),
+             len(kmc["cam2ref"]))):
         card_vs_cpu[label] = check_card_against_cpu(label, path_inp, cycle,
                                                     parted_allowed=parted_allowed)
     disagree = {label: case for label, case in card_vs_cpu.items()
                 if len(case["parted"]) > case["parted_allowed"] or case["twin_mismatches"]}
     if disagree:
         raise AssertionError(f"card and CPU disagree beyond atol {PHASE7_ATOL}: {disagree}")
+    dryrun = run_dryrun()
 
     print(json.dumps({"kernel_shapes": shapes}))
-    print(json.dumps({"paths": paths, "card_vs_cpu": card_vs_cpu, "card": card,
-                      "model_generation_s": generation_s}))
+    print(json.dumps({"paths": paths, "card_vs_cpu": card_vs_cpu, "dryrun": dryrun,
+                      "card": card, "model_generation_s": generation_s}))
     print(card)
     print(json.dumps({"kernels": kernel_line(shapes, paths)}))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,17 @@
 """Fused batched tracking cycles on PyTorch/CUDA (port of m3t_tpu/pipeline.py: the
 region cycle and the region+depth (ICG) cycle, with measured occlusions, with the
 focused scene's modeled occlusions, region checking and silhouette check, and with
-texture terms; and the articulated cycle over kinematic structures).
+texture terms; the articulated cycle over kinematic structures; and the multi-camera
+cycles of both over a mesh of processes).
 
 One :func:`tracking_cycle` (or :func:`tracking_cycle_rgbd`) call runs every
 correspondence x update iteration plus the histogram adaptation for a batch of
 independent bodies, eagerly (the JAX package jits the same function).
 :func:`tracking_cycle_kinematic` runs the same loop over the links of S structures,
-its Newton step the batched KKT solve of ops/kinematics.py.  Hot-path structure:
+its Newton step the batched KKT solve of ops/kinematics.py.  The cycles of
+:func:`make_sharded_cycle` and :func:`make_sharded_kinematic_cycle` run it over every
+(body, camera), their step summing each body's camera terms first.  Hot-path
+structure:
 
   1. per body: crop the image once around the projected body origin and convert it to
      flat histogram-bin indices;
@@ -37,6 +41,7 @@ from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
+import torch.distributed
 
 from m3t_tpu_torch.common import pose_variation, resolve_device
 from m3t_tpu_torch.ops import depth_fast, depth_fn, occlusion, texture_fn
@@ -316,22 +321,30 @@ def _view_index(orientations, pose):
     return torch.argmax((orientations @ orientation)[:, :, 0], dim=-1)
 
 
-def _adaptive_n_lines(pcfg: PipelineConfig, model: RegionModelArrays, poses):
+def _closest_view(orientations, pose, body):
+    """(model row, closest view) of every batch entry: body (B,) int64 names the model
+    row, None the entry's own row."""
+    if body is None:
+        return torch.arange(pose.shape[0], device=pose.device), _view_index(orientations, pose)
+    return body, _view_index(orientations[body], pose)
+
+
+def _adaptive_n_lines(pcfg: PipelineConfig, model: RegionModelArrays, poses, body=None):
     """Per-body traced line count, scaled by the closest view's contour length when
     adaptive coverage is on (region_modality.cpp:417-429: int truncation of
-    n_lines_max * ratio, clamped to the available model points).
+    n_lines_max * ratio, clamped to the available model points).  body: the model row
+    of every batch entry (see _select_view_cl).
 
     Returns a Python int when adaptive coverage is off, else a (B,) int32 tensor."""
     cfg = pcfg.cfg
     if not pcfg.use_adaptive_coverage:
         return int(cfg.n_lines_max)
-    idx = _view_index(model.orientations, poses)
-    body = torch.arange(poses.shape[0], device=poses.device)
+    body, idx = _closest_view(model.orientations, poses, body)
     contour_length = model.contour_lengths[body, idx]
     if pcfg.reference_contour_length > 0.0:
         ratio = torch.clamp(contour_length / pcfg.reference_contour_length, max=1.0)
     else:
-        mcl = model.max_contour_length
+        mcl = model.max_contour_length[body]
         ratio = torch.where(mcl > 0,
                             contour_length / torch.where(mcl > 0, mcl, torch.ones_like(mcl)),
                             torch.ones_like(mcl))
@@ -339,10 +352,11 @@ def _adaptive_n_lines(pcfg: PipelineConfig, model: RegionModelArrays, poses):
     return torch.clamp(n, max=model.centers.shape[-1])
 
 
-def _select_view_cl(model: RegionModelArrays, pose) -> ViewPointsCL:
-    """GetClosestView per body: index + gather."""
-    idx = _view_index(model.orientations, pose)
-    body = torch.arange(pose.shape[0], device=pose.device)
+def _select_view_cl(model: RegionModelArrays, pose, body=None) -> ViewPointsCL:
+    """GetClosestView per body: index + gather.  body (B,) int64 names the model row of
+    every batch entry (the multi-camera cycles read one model row for each of a body's
+    cameras, without copying the model per camera); None: entry b reads row b."""
+    body, idx = _closest_view(model.orientations, pose, body)
     return ViewPointsCL(
         center_f_body=model.centers[body, idx],
         normal_f_body=model.normals[body, idx],
@@ -353,10 +367,10 @@ def _select_view_cl(model: RegionModelArrays, pose) -> ViewPointsCL:
     )
 
 
-def _select_depth_view(model: DepthModelArrays, pose) -> DepthViewPoints:
-    """GetClosestView of the depth model per body: index + gather."""
-    idx = _view_index(model.orientations, pose)
-    body = torch.arange(pose.shape[0], device=pose.device)
+def _select_depth_view(model: DepthModelArrays, pose, body=None) -> DepthViewPoints:
+    """GetClosestView of the depth model per body: index + gather (body as in
+    _select_view_cl)."""
+    body, idx = _closest_view(model.orientations, pose, body)
     return DepthViewPoints(
         center_f_body=model.centers[body, idx],
         normal_f_body=model.normals[body, idx],
@@ -603,14 +617,15 @@ def _scene_depth_inputs(pcfg: PipelineConfig, rend, scene_geom):
 
 def _depth_terms(pcfg: PipelineConfig, depth: _DepthInputs, corr_iteration: int, pose,
                  handle_occlusions, modeled_occlusion=None, silhouette_check=None,
-                 n_points=None):
+                 n_points=None, body=None):
     """One depth correspondence pass for the batch (depth_modality.cpp:252-315), the
     windows fetched from the depth frames by the sample_windows kernel.  n_points: the
-    (B,) per-body point budget, None for depth_cfg.n_points_max."""
+    (B,) per-body point budget, None for depth_cfg.n_points_max; body: the depth model
+    row of every batch entry (see _select_view_cl)."""
     cd, _ = pcfg.iteration_depth(corr_iteration)
     dfu, dfv, dppu, dppv = depth.intr
     height, width = depth.images.shape[1], depth.images.shape[2]
-    view = _select_depth_view(depth.model, pose)
+    view = _select_depth_view(depth.model, pose, body)
     presampled = depth_fast.presample_windows(
         pcfg.depth_cfg, cd, view.center_f_body, pose, depth.images, depth.corner_u,
         depth.corner_v, pcfg.crop_size, dfu, dfv, dppu, dppv)
@@ -642,12 +657,14 @@ class _Poses(NamedTuple):
 def _cycle_core(pcfg: PipelineConfig, intr, images, model: RegionModelArrays, dof,
                 hist_f, hist_b, poses: _Poses, depth: _DepthInputs | None = None,
                 scene_geom=None, handle_occlusions=None, texture_points=None,
-                depth_n_points=None):
-    """Full tracking cycle for a batch (the JAX package's _cycle_core, :519-662, and the
-    loop of its tracking_cycle_kinematic, :1384-1468).  The body poses are recomputed
-    from the degrees of freedom before every correspondence and update iteration and
-    before the histogram walk.  handle_occlusions: a bool or a (B,) bool; None means
-    True.  Returns (dof, hist_f, hist_b)."""
+                depth_n_points=None, model_index=None):
+    """Full tracking cycle for a batch (the JAX package's _cycle_core, :519-662, the
+    loop of its tracking_cycle_kinematic, :1384-1468, and that of its two sharded
+    multi-camera cycles, :756-1288).  The body poses are recomputed from the degrees of
+    freedom before every correspondence and update iteration and before the histogram
+    walk.  handle_occlusions: a bool or a (B,) bool; None means True.  model_index (B,)
+    int64: the row of the region and depth models that each batch entry reads (None:
+    its own).  Returns (dof, hist_f, hist_b)."""
     cfg = pcfg.cfg
     fu, fv, ppu, ppv = _intrinsics(intr)
     width, height = _image_size(images)
@@ -673,8 +690,8 @@ def _cycle_core(pcfg: PipelineConfig, intr, images, model: RegionModelArrays, do
         # at the current pose estimate.
         rend = (_render_scene_for(pcfg, scene_geom, poses.scene(pose), intr, width, height)
                 if render_scene else None)
-        points = _select_view_cl(model, pose)
-        n_lines = _adaptive_n_lines(pcfg, model, pose)
+        points = _select_view_cl(model, pose, model_index)
+        n_lines = _adaptive_n_lines(pcfg, model, pose, model_index)
         region_check, modeled = _scene_region_inputs(pcfg, rend, scene_geom)
         measured = _region_measured_occlusion(pcfg, depth, points, pose)
         lines = _region_terms(pcfg, intr, scale, points, pose, n_lines,
@@ -686,7 +703,7 @@ def _cycle_core(pcfg: PipelineConfig, intr, images, model: RegionModelArrays, do
             d_modeled, d_sil = _scene_depth_inputs(pcfg, rend, scene_geom)
             depth_points = _depth_terms(pcfg, depth, corr_iteration, pose,
                                         handle_occlusions, d_modeled, d_sil,
-                                        depth_n_points)
+                                        depth_n_points, model_index)
             depth_std = pcfg.iteration_depth(corr_iteration)[1]
         if use_texture:
             texture_std = pcfg.iteration_texture_std(corr_iteration)
@@ -710,8 +727,8 @@ def _cycle_core(pcfg: PipelineConfig, intr, images, model: RegionModelArrays, do
 
     # CalculateResults: online histogram adaptation (tracker.cpp:503-517).
     pose = poses.flat(dof)
-    points = _select_view_cl(model, pose)
-    n_lines = _adaptive_n_lines(pcfg, model, pose)
+    points = _select_view_cl(model, pose, model_index)
+    n_lines = _adaptive_n_lines(pcfg, model, pose, model_index)
     mem_f, mem_b = _histogram_memories(pcfg, intr, points, pose, n_lines,
                                        bin_crop, corner_u, corner_v, width, height)
     hist_f = hist_ops.calculate_histogram(hist_f, mem_f, pcfg.learning_rate_f)
@@ -793,15 +810,22 @@ def tracking_cycle_rgbd(pcfg: PipelineConfig, intr, depth_intr, depth_scale, ima
 def initialize_histograms(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
                           poses) -> TrackingState:
     """StartModality for the batch: build histograms at the initial poses (lr == 1)."""
+    return _start_histograms(pcfg, intr, images, model, poses)
+
+
+def _start_histograms(pcfg: PipelineConfig, intr, images, model: RegionModelArrays, poses,
+                      model_index=None) -> TrackingState:
+    """initialize_histograms, each batch entry reading model row model_index (see
+    _cycle_core)."""
     cfg = pcfg.cfg
     width, height = _image_size(images)
     n = cfg.n_histogram_bins ** 3
     b = poses.shape[0]
 
     bin_crop, corner_u, corner_v = _prepare_crops(pcfg, intr, images, poses)
-    points = _select_view_cl(model, poses)
+    points = _select_view_cl(model, poses, model_index)
     mem_f, mem_b = _histogram_memories(pcfg, intr, points, poses,
-                                       _adaptive_n_lines(pcfg, model, poses),
+                                       _adaptive_n_lines(pcfg, model, poses, model_index),
                                        bin_crop, corner_u, corner_v, width, height)
     uniform = torch.full((b, n), 1.0 / n, dtype=torch.float32, device=poses.device)
     hist_f = hist_ops.calculate_histogram(uniform, mem_f, 1.0)
@@ -851,11 +875,11 @@ def _kinematic_flat_poses(kin: kin_ops.KinematicModel, joint2parent):
     return b2c, b2c.reshape((-1, 4, 4))
 
 
-def _repeat_links(x, n_links: int):
-    """Per-structure frames (S, ...) repeated for each of the structure's links,
-    (S * NL, ...): a view when the frames are one frame expanded over S."""
-    return x[:, None].expand((x.shape[0], n_links) + x.shape[1:]).reshape(
-        (-1,) + x.shape[1:])
+def _repeat_each(x, n: int):
+    """Each entry of x (S, ...) repeated n times in a row, (S * n, ...): per-structure
+    frames for each link, or per-body records for each camera.  A view when x is one
+    entry expanded over S; otherwise a copy, as jnp.repeat makes one."""
+    return x[:, None].expand((x.shape[0], n) + x.shape[1:]).reshape((-1,) + x.shape[1:])
 
 
 def tracking_cycle_kinematic(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
@@ -886,7 +910,7 @@ def tracking_cycle_kinematic(pcfg: PipelineConfig, intr, images, model: RegionMo
     n_hist = state.histogram_f.shape[-1]
     depth = None
     if pcfg.use_depth and depth_images is not None:
-        depth_flat = _repeat_links(depth_images, nl)
+        depth_flat = _repeat_each(depth_images, nl)
         _, pose_flat = _kinematic_flat_poses(kin, state.joint2parent)
         corner_u, corner_v = depth_fast.depth_corners(
             depth_flat, pose_flat, *_intrinsics(depth_intr), pcfg.crop_size)
@@ -908,7 +932,7 @@ def tracking_cycle_kinematic(pcfg: PipelineConfig, intr, images, model: RegionMo
             pcfg.tikhonov_rotation, pcfg.tikhonov_translation)
 
     jp, hist_f, hist_b = _cycle_core(
-        pcfg._replace(region_measure_occlusions=False), intr, _repeat_links(images, nl),
+        pcfg._replace(region_measure_occlusions=False), intr, _repeat_each(images, nl),
         model, state.joint2parent, state.histogram_f.reshape(s * nl, n_hist),
         state.histogram_b.reshape(s * nl, n_hist),
         _Poses(lambda joint2parent: _kinematic_flat_poses(kin, joint2parent)[1], scene,
@@ -926,7 +950,7 @@ def initialize_kinematic_histograms(pcfg: PipelineConfig, intr, images,
     (S, NL, 4, 4); images (S, ...) as in :func:`tracking_cycle_kinematic`."""
     s, nl = joint2parent.shape[:2]
     _, pose_flat = _kinematic_flat_poses(kin, joint2parent)
-    st = initialize_histograms(pcfg, intr, _repeat_links(images, nl), model, pose_flat)
+    st = initialize_histograms(pcfg, intr, _repeat_each(images, nl), model, pose_flat)
     return KinematicTrackingState(joint2parent, st.histogram_f.reshape(s, nl, -1),
                                   st.histogram_b.reshape(s, nl, -1))
 
@@ -934,3 +958,289 @@ def initialize_kinematic_histograms(pcfg: PipelineConfig, intr, images,
 def kinematic_body_poses(kin: kin_ops.KinematicModel, state: KinematicTrackingState):
     """Per-link body2camera poses (S, NL, 4, 4) of the joint state."""
     return _kinematic_flat_poses(kin, state.joint2parent)[0]
+
+
+# ----------------------------------------------------------------------------------------
+# Multi-camera fusion over a (data, camera) mesh of processes
+# ----------------------------------------------------------------------------------------
+#
+# The JAX package's make_sharded_cycle and make_sharded_kinematic_cycle
+# (m3t_tpu/pipeline.py:756-1288) shard_map one jitted function over global arrays.  A
+# torch.distributed process holds only its own shard, so the cycles below take each
+# rank's local shard: the bodies (or structures) of its data index, seen by the cameras
+# of its camera index.  With mesh=None one process holds every body and camera.  The
+# batch is flattened in the JAX package's order, (body, camera) or (structure, link,
+# camera), and runs through _cycle_core like every other cycle: a camera fan-out is one
+# more _Poses.  The models are read by row (model_index), not copied per camera.
+
+
+class MultiCameraState(NamedTuple):
+    """State of the multi-camera cycle: the pose of each body in the reference camera's
+    frame, and histograms per (body, camera), as the reference gives each
+    RegionModality its own ColorHistograms (region_modality.h:79-83)."""
+
+    body2reference_pose: torch.Tensor  # (B, 4, 4)
+    histogram_f: torch.Tensor  # (B, C, n_bins^3)
+    histogram_b: torch.Tensor  # (B, C, n_bins^3)
+
+
+class KinematicMultiCameraState(NamedTuple):
+    """State of the multi-camera articulated cycle: joint poses with the root's parent
+    frame the reference camera's, and histograms per (structure, link, camera)."""
+
+    joint2parent: torch.Tensor  # (S, NL, 4, 4)
+    histogram_f: torch.Tensor  # (S, NL, C, n_bins^3)
+    histogram_b: torch.Tensor  # (S, NL, C, n_bins^3)
+
+
+def _ref2cam(cam2ref_poses):
+    """The cameras' reference-to-camera poses (C, 4, 4), inverted in float64."""
+    return torch.linalg.inv(cam2ref_poses.to(torch.float64))
+
+
+def _in_cameras(ref2cam, poses):
+    """Reference-frame poses (N, ..., 4, 4) in each camera's frame, (N, C, ..., 4, 4):
+    the JAX cycles' einsum("cij,b...jk->bc...ik").  The products are taken in float64
+    (exact for float32 factors) and rounded once to float32, so that a pose's value
+    depends neither on the batch around it nor on the device's matmul (but for a
+    float64 sum within its own rounding error of a float32 rounding boundary).  On an
+    NVIDIA H100 this took the rigid multi-camera cycle's difference from the CPU at B=8,
+    C=2 from 8e-4 (one body parted) to 2.3e-7."""
+    extra = poses.dim() - 3
+    cams = ref2cam.reshape(ref2cam.shape[:1] + (1,) * extra + (4, 4))
+    return torch.matmul(cams, poses[:, None].to(torch.float64)).to(poses.dtype)
+
+
+def _camera_sum(mesh, gradient, hessian, lead: tuple):
+    """Body-frame terms (flat (..., camera) order, leading shape ``lead``) summed over the
+    local cameras, then over the mesh's camera group (the JAX package's psum over
+    "camera", m3t_tpu/pipeline.py:948-949): (lead[:-1] + (6,), lead[:-1] + (6, 6)).
+    Gradient and Hessian travel in one all_reduce; a group of one rank is skipped."""
+    g = gradient.reshape(lead + (6,)).sum(-2)
+    h = hessian.reshape(lead + (6, 6)).sum(-3)
+    if mesh is not None and mesh.n_camera > 1:
+        both = torch.cat([g.reshape(-1), h.reshape(-1)])
+        torch.distributed.all_reduce(both, group=mesh.camera_group)
+        g, h = both[:g.numel()].view(g.shape), both[g.numel():].view(h.shape)
+    return g, h
+
+
+def _split_extra(extra, with_depth: bool, with_scene: bool, with_texture: bool):
+    """The cycles' optional inputs in the JAX package's order (m3t_tpu/pipeline.py:
+    778-787): (depth_images, depth_scale, depth_model), (scene_geom, occluder_poses),
+    texture_points; None for each group that is off."""
+    extra = list(extra)
+    want = 3 * with_depth + 2 * with_scene + with_texture
+    if len(extra) != want:
+        raise ValueError(f"the cycle takes {want} extra inputs, got {len(extra)}")
+    depth = tuple(extra[:3]) if with_depth else (None,) * 3
+    extra = extra[3 * with_depth:]
+    scene = tuple(extra[:2]) if with_scene else (None,) * 2
+    texture = extra[2 * with_scene] if with_texture else None
+    return depth, scene, texture
+
+
+def _flat_depth(pcfg: PipelineConfig, depth_intr, depth, flat_pose):
+    """The depth side of a multi-camera cycle: depth = (frames of the flat batch (B,
+    Hd, Wd), depth_scale, depth_model) or Nones; crop corners from the flat per-camera
+    poses (the JAX cycles' depth crops, m3t_tpu/pipeline.py:850)."""
+    depth_images, depth_scale, depth_model = depth
+    if depth_images is None:
+        return None
+    corner_u, corner_v = depth_fast.depth_corners(
+        depth_images, flat_pose, *_intrinsics(depth_intr), pcfg.crop_size)
+    return _DepthInputs(depth_images, _intrinsics(depth_intr), float(depth_scale),
+                        depth_model, corner_u, corner_v)
+
+
+def _flat_texture(texture_points, n_lead: int):
+    if texture_points is None:
+        return None
+    return TexturePoints(*(a.reshape((-1,) + a.shape[n_lead:]) for a in texture_points))
+
+
+def _flat_handle(handle_occlusions, n_cameras: int, device):
+    """Per-body (or per-link) flags repeated for each camera; None means True."""
+    if handle_occlusions is None:
+        return None
+    handle = torch.as_tensor(handle_occlusions, device=device).reshape(-1)
+    return _repeat_each(handle, n_cameras)
+
+
+def make_sharded_cycle(pcfg: PipelineConfig, mesh, intr, depth_intr=None,
+                       with_depth: bool = False, with_scene: bool = False,
+                       with_texture: bool = False):
+    """The multi-camera rigid cycle (m3t_tpu/pipeline.py:756): every body is observed
+    by several cameras whose body-frame gradient and Hessian terms are summed, over the
+    local cameras and then over the mesh's camera group, before the shared Newton step
+    (one Link summing the modalities of several cameras, link.cpp:184-193).  Each
+    camera runs the full cycle: every correspondence and update iteration, its own
+    histograms, depth fusion (``with_depth``), the focused scene's checks
+    (``with_scene`` and the PipelineConfig's occlusion flags) and texture terms
+    (``with_texture``).  With one camera at cam2ref = I the result equals
+    :func:`tracking_cycle_rgbd` (or :func:`tracking_cycle`) bit for bit.
+
+    mesh: a :func:`m3t_tpu_torch.parallel.make_mesh` mesh, or None for one process.
+    The returned ``cycle(images, cam2ref_poses, model, state, *extra,
+    handle_occlusions=None) -> MultiCameraState`` takes this rank's LOCAL shard, where
+    the JAX cycle takes global arrays that shard_map slices (a torch.distributed process
+    holds only its own shard; parallel.shard_over cuts one from global tensors):
+
+      images (b, c, H, W, 3) or planar (b, c, 3, H, W) uint8 of the local bodies and
+      cameras; cam2ref_poses (c, 4, 4) camera-to-reference extrinsics of the local
+      cameras; model RegionModelArrays of the b local bodies; state MultiCameraState with
+      histograms (b, c, N); handle_occlusions (b,) bool, None for True.
+      with_depth adds (depth_images (b, c, Hd, Wd) uint16, depth_scale, depth_model
+      DepthModelArrays of b bodies): the depth terms are fused whenever with_depth is
+      set (the JAX cycle does not read pcfg.use_depth), and measured occlusions of
+      either modality follow the PipelineConfig flags (:869-882).  with_scene adds
+      (scene_geom SceneGeometry of b scenes, occluder_poses (b, NO-1, 4, 4) in the
+      REFERENCE frame, mapped into each camera once per cycle).  with_texture adds
+      texture_points (TexturePoints with leading (b, c)).
+    """
+    def cycle(images, cam2ref_poses, model: RegionModelArrays, state: MultiCameraState,
+              *extra, handle_occlusions=None) -> MultiCameraState:
+        depth, (scene_geom, occluder_poses), texture_points = _split_extra(
+            extra, with_depth, with_scene, with_texture)
+        b, c = images.shape[:2]
+        n_hist = state.histogram_f.shape[-1]
+        ref2cam = _ref2cam(cam2ref_poses)
+
+        def flat(pose):
+            # The body's pose in each camera's frame, (body, camera) order.
+            return _in_cameras(ref2cam, pose).reshape(b * c, 4, 4)
+
+        occluders = None
+        if occluder_poses is not None:
+            occluders = _in_cameras(ref2cam, occluder_poses).reshape(
+                (b * c,) + occluder_poses.shape[1:])
+
+        def scene(pose):
+            # The (body, camera) pose in slot 0, then the occluders in that camera.
+            if occluders is None:
+                return pose[:, None]
+            return torch.cat([pose[:, None], occluders], dim=1)
+
+        def step(pose, gradient, hessian):
+            g, h = _camera_sum(mesh, gradient, hessian, (b, c))
+            return _solve_and_update(pcfg, g, h, pose)
+
+        pose = state.body2reference_pose
+        model_index = torch.arange(b * c, device=pose.device) // c
+        if depth[0] is not None:
+            depth = (depth[0].reshape((b * c,) + depth[0].shape[2:]),) + depth[1:]
+        if scene_geom is not None:
+            scene_geom = type(scene_geom)(*(_repeat_each(a, c) for a in scene_geom))
+        pose, hist_f, hist_b = _cycle_core(
+            pcfg, intr, images.reshape((b * c,) + images.shape[2:]), model, pose,
+            state.histogram_f.reshape(b * c, n_hist), state.histogram_b.reshape(b * c, n_hist),
+            _Poses(flat, scene, step),
+            depth=_flat_depth(pcfg, depth_intr, depth, flat(pose)),
+            scene_geom=scene_geom,
+            handle_occlusions=_flat_handle(handle_occlusions, c, pose.device),
+            texture_points=_flat_texture(texture_points, 2), model_index=model_index)
+        return MultiCameraState(pose, hist_f.reshape(b, c, n_hist),
+                                hist_b.reshape(b, c, n_hist))
+
+    return cycle
+
+
+def initialize_multicamera_histograms(pcfg: PipelineConfig, intr, images, cam2ref_poses,
+                                      model: RegionModelArrays, poses) -> MultiCameraState:
+    """StartModality for the multi-camera cycle (m3t_tpu/pipeline.py:1004): histograms
+    per (body, camera) at the reference-frame poses (b, 4, 4); images and cam2ref_poses
+    as :func:`make_sharded_cycle` takes them (a rank's local shard)."""
+    b, c = images.shape[:2]
+    pose_cam = _in_cameras(_ref2cam(cam2ref_poses), poses)
+    st = _start_histograms(pcfg, intr, images.reshape((b * c,) + images.shape[2:]), model,
+                           pose_cam.reshape(b * c, 4, 4),
+                           torch.arange(b * c, device=poses.device) // c)
+    n = st.histogram_f.shape[-1]
+    return MultiCameraState(poses, st.histogram_f.reshape(b, c, n),
+                            st.histogram_b.reshape(b, c, n))
+
+
+def make_sharded_kinematic_cycle(pcfg: PipelineConfig, mesh, intr, depth_intr=None,
+                                 with_depth: bool = False, with_scene: bool = False,
+                                 with_texture: bool = False):
+    """The multi-camera articulated cycle (m3t_tpu/pipeline.py:1034): S structures of NL
+    links, each structure observed by several cameras whose per-link body-frame terms
+    are summed, over the local cameras and then over the mesh's camera group, before
+    the batched KKT step of ops/kinematics.py (update_structures).  As in
+    :func:`tracking_cycle_kinematic`, the region lines take no measured occlusions.
+
+    mesh: as in :func:`make_sharded_cycle`; the data axis splits S into whole
+    structures.  The returned ``cycle(images, cam2ref_poses, model, kin, state, *extra,
+    handle_occlusions=None) -> KinematicMultiCameraState`` takes this rank's LOCAL
+    shard: images (s, c, H, W, 3) or planar (s, c, 3, H, W) uint8; cam2ref_poses (c, 4,
+    4); model RegionModelArrays of the s * NL link-major link bodies; kin the s
+    structures' KinematicModel; state KinematicMultiCameraState with histograms (s, NL,
+    c, N); handle_occlusions (s, NL) bool, None for True.  with_depth adds
+    (depth_images (s, c, Hd, Wd) uint16, depth_scale, depth_model of s * NL bodies),
+    fused whenever with_depth is set; with_scene adds (scene_geom, the s * NL per-link
+    scenes of occlusion.build_kinematic_scene_geometry, extra_occluder_poses (s, NE, 4,
+    4) in the REFERENCE frame); with_texture adds texture_points with leading (s, NL,
+    c).  The frames are repeated for each link (the flat batch's frame of every
+    (structure, link, camera)): a copy unless they are one frame expanded, as the JAX
+    cycle's jnp.repeat is.
+    """
+    def cycle(images, cam2ref_poses, model: RegionModelArrays, kin: kin_ops.KinematicModel,
+              state: KinematicMultiCameraState, *extra,
+              handle_occlusions=None) -> KinematicMultiCameraState:
+        depth, (scene_geom, extra_occluder_poses), texture_points = _split_extra(
+            extra, with_depth, with_scene, with_texture)
+        s, c = images.shape[:2]
+        nl = kin.parent.shape[1]
+        n = s * nl * c
+        n_hist = state.histogram_f.shape[-1]
+        ref2cam = _ref2cam(cam2ref_poses)
+
+        def flat(joint2parent):
+            # Every link's pose in each camera's frame, (structure, link, camera) order.
+            link_poses = kin_ops.forward_kinematics(kin, joint2parent)
+            return _in_cameras(ref2cam, link_poses.reshape(s * nl, 4, 4)).reshape(n, 4, 4)
+
+        extras = None
+        if extra_occluder_poses is not None:
+            extras = _in_cameras(ref2cam, extra_occluder_poses)
+
+        def scene(pose):
+            # Each (structure, link, camera) scene: the structure's links in that camera
+            # (they occlude each other), then the extra occluders in that camera.
+            links = pose.reshape(s, nl, c, 4, 4).transpose(1, 2)     # (s, c, nl, 4, 4)
+            scene_poses = links[:, None].expand(s, nl, c, nl, 4, 4)
+            if extras is not None:
+                ne = extras.shape[2]
+                scene_poses = torch.cat(
+                    [scene_poses, extras[:, None].expand(s, nl, c, ne, 4, 4)], dim=3)
+            return scene_poses.reshape(n, -1, 4, 4)
+
+        def step(joint2parent, gradient, hessian):
+            g, h = _camera_sum(mesh, gradient, hessian, (s, nl, c))
+            return kin_ops.update_structures(kin, joint2parent, g, h, pcfg.tikhonov_rotation,
+                                             pcfg.tikhonov_translation)
+
+        jp = state.joint2parent
+        model_index = torch.arange(n, device=jp.device) // c
+
+        def per_link(frames):
+            # (s, c, ...) -> (s * nl * c, ...) in (structure, link, camera) order.
+            return frames[:, None].expand((s, nl) + frames.shape[1:]).reshape(
+                (n,) + frames.shape[2:])
+
+        if depth[0] is not None:
+            depth = (per_link(depth[0]),) + depth[1:]
+        if scene_geom is not None:
+            scene_geom = type(scene_geom)(*(_repeat_each(a, c) for a in scene_geom))
+        jp, hist_f, hist_b = _cycle_core(
+            pcfg._replace(region_measure_occlusions=False), intr, per_link(images), model,
+            jp, state.histogram_f.reshape(n, n_hist), state.histogram_b.reshape(n, n_hist),
+            _Poses(flat, scene, step),
+            depth=_flat_depth(pcfg, depth_intr, depth, flat(jp)),
+            scene_geom=scene_geom,
+            handle_occlusions=_flat_handle(handle_occlusions, c, jp.device),
+            texture_points=_flat_texture(texture_points, 3), model_index=model_index)
+        return KinematicMultiCameraState(jp, hist_f.reshape(s, nl, c, n_hist),
+                                         hist_b.reshape(s, nl, c, n_hist))
+
+    return cycle

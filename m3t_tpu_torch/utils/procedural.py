@@ -153,3 +153,26 @@ def render_synthetic_depth_frame(
     )
     metric = np.where(np.isfinite(depth), depth, background_depth)
     return np.round(metric / depth_scale).astype(np.uint16)
+
+
+def orbit_camera(center, angle_deg: float, off_axis_deg: float = 0.0) -> np.ndarray:
+    """(4, 4) float32 camera-to-reference pose of a second camera: the reference camera
+    carried ``angle_deg`` about the vertical (y) axis through ``center`` (a reference-
+    frame point), so that it sees ``center`` from that angle to the side, then turned
+    ``off_axis_deg`` about its own y axis, so that ``center`` lies off its optical
+    axis."""
+    def rot_y(deg):
+        a = np.deg2rad(deg)
+        pose = np.eye(4)
+        pose[0, 0], pose[0, 2], pose[2, 0], pose[2, 2] = np.cos(a), np.sin(a), -np.sin(a), \
+            np.cos(a)
+        return pose
+
+    def shift(t):
+        pose = np.eye(4)
+        pose[:3, 3] = t
+        return pose
+
+    center = np.asarray(center, np.float64)
+    return (shift(center) @ rot_y(angle_deg) @ shift(-center) @ rot_y(off_axis_deg)
+            ).astype(np.float32)

@@ -22,6 +22,7 @@ from m3t_tpu_torch.ops import occlusion as oc
 from m3t_tpu_torch.ops import raster
 from m3t_tpu_torch.ops import region_fast as rf
 from m3t_tpu_torch.ops.region_fn import RegionConfig
+from m3t_tpu_torch.ops.texture_fn import TexturePoints
 from m3t_tpu_torch.utils import procedural
 
 NPZ = Path(pipeline.__file__).parent / "data" / "bench_sphere_region_model.npz"
@@ -547,6 +548,79 @@ def test_scene_cycles_on_card_match_cpu(cuda_device, rgbd):
             else:
                 results[dev] = pipeline.tracking_cycle(pcfg, intr, images, model, start,
                                                        scene_geom=geom, occluder_poses=occ)
+        for got, want in zip(results["cuda"], results["cpu"]):
+            np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-4)
+        state = results["cpu"]
+
+
+def _scale_out_steps(path, inp):
+    """The scale-out path's StartModality and its one-step call on inp (a dry-run
+    problem on one device): (start, step(state, t) -> state) with t the frame."""
+    from m3t_tpu_torch.parallel import dryrun, sharding
+
+    pcfg, intr, cam2ref = inp["pcfg"], inp["intr"], inp["cam2ref"]
+    if path == "rigid":
+        pcfg = pcfg._replace(use_texture=True)
+        start = pipeline.initialize_multicamera_histograms(pcfg, intr, inp["images"], cam2ref,
+                                                           inp["model"], inp["poses"])
+        cycle = pipeline.make_sharded_cycle(pcfg, None, intr, intr, with_depth=True,
+                                            with_scene=True, with_texture=True)
+        b, c = inp["images"].shape[:2]
+        gen = torch.Generator().manual_seed(5)
+        tex = TexturePoints(0.03 * torch.randn((b, c, 16, 3), generator=gen),
+                            60 + 40 * torch.rand((b, c, 16, 2), generator=gen),
+                            torch.rand((b, c, 16), generator=gen) > 0.4)
+        tex = TexturePoints(*(a.to(cam2ref.device) for a in tex))
+        return start, lambda state, t: cycle(
+            inp["images"], cam2ref, inp["model"], state, inp["depth_images"],
+            dryrun.DEPTH_SCALE, inp["depth_model"], inp["scene_geom"], inp["occluder_poses"],
+            tex)
+    if path == "kinematic":
+        jp = inp["joint2parent"]
+        s, nl = jp.shape[:2]
+        link_poses = pipeline._kinematic_flat_poses(inp["kin"], jp)[1]
+        mc = pipeline.initialize_multicamera_histograms(
+            pcfg, intr, pipeline._repeat_each(inp["kin_images"], nl), cam2ref,
+            inp["link_model"], link_poses)
+        start = pipeline.KinematicMultiCameraState(
+            jp, *(h.reshape((s, nl) + h.shape[1:]) for h in mc[1:]))
+        cycle = pipeline.make_sharded_kinematic_cycle(pcfg, None, intr, intr, with_depth=True,
+                                                      with_scene=True)
+        return start, lambda state, t: cycle(
+            inp["kin_images"], cam2ref, inp["link_model"], inp["kin"], state,
+            inp["kin_depth"], dryrun.DEPTH_SCALE, inp["link_depth_model"], inp["kin_scene"],
+            None)
+    scan_pcfg = pcfg._replace(use_depth=path == "scan_rgbd", region_model_occlusions=False,
+                              region_checking=False, region_measure_occlusions=False,
+                              depth_model_occlusions=False, depth_silhouette_check=False,
+                              depth_measure_occlusions=False)
+    start = pipeline.initialize_histograms(scan_pcfg, intr, inp["scan_images"][0],
+                                           inp["model"], inp["poses"])
+    if path == "scan":
+        return start, lambda state, t: sharding.track_sequences_scan(
+            scan_pcfg, intr, inp["scan_images"][t:t + 1], inp["model"], state)[0]
+    return start, lambda state, t: sharding.track_sequences_scan_rgbd(
+        scan_pcfg, intr, intr, dryrun.DEPTH_SCALE, inp["scan_images"][t:t + 1],
+        inp["scan_depth"][t:t + 1], inp["model"], inp["depth_model"], state)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["rigid", "kinematic", "scan", "scan_rgbd"])
+def test_scale_out_paths_on_card_match_cpu(cuda_device, path):
+    """The multi-camera rigid cycle (depth, every scene check, measured occlusions,
+    texture), the multi-camera articulated cycle (depth, per-link scenes) and both
+    sequence scans at B=4 (S=4) and C=2, on the inputs of m3t_tpu_torch.parallel.dryrun:
+    StartModality, then two steps, each started on both devices from the CPU's state."""
+    from m3t_tpu_torch.parallel import dryrun
+
+    inputs = {dev: dryrun.problem(torch.device(dev), 2) for dev in ("cpu", "cuda")}
+    runs = {dev: _scale_out_steps(path, inp) for dev, inp in inputs.items()}
+    for got, want in zip(runs["cuda"][0], runs["cpu"][0]):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-4)
+    state = runs["cpu"][0]
+    for t in (1, 2):
+        results = {dev: step(type(state)(*(a.to(dev) for a in state)), t)
+                   for dev, (_, step) in runs.items()}
         for got, want in zip(results["cuda"], results["cpu"]):
             np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-4)
         state = results["cpu"]

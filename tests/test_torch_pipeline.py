@@ -353,6 +353,8 @@ def test_port_imports_neither_jax_nor_reference():
         "import m3t_tpu_torch.body, m3t_tpu_torch.model_base, m3t_tpu_torch.native\n"
         "import m3t_tpu_torch.region_model, m3t_tpu_torch.depth_model\n"
         "import m3t_tpu_torch.utils.contours, m3t_tpu_torch.utils.yaml_io\n"
+        "import m3t_tpu_torch.parallel, m3t_tpu_torch.parallel.sharding\n"
+        "import m3t_tpu_torch.parallel.dryrun\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'm3t_tpu'))\n"
         "assert not bad, bad\n"
         "import torch\n"
