@@ -111,6 +111,30 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      8d. python -m m3t_tpu_torch.parallel.dryrun --processes 2 --device cuda --backend
          gloo: two processes of a (1, 2) mesh on the one card (two NCCL ranks cannot share
          a card), held against one process; its exit code decides.
+  9. the reference-shaped serve path (Tracker, modalities, links, optimizers and the fused
+     serve backend), through Tracker.RunTrackerProcess(execute_detection=True,
+     start_tracking=True, max_iterations=6) with use_fused_cycle=True over phase 8s's
+     six frames (one ImageColorCamera, and an ImageDepthCamera with the same
+     extrinsics), every body a Body of the bench sphere with its own Link,
+     RegionModality (200 lines, scales {6,4,2,1}), Optimizer and StaticDetector at its
+     jittered pose, all sharing phase 0m's models; the backend must be built (no
+     "fused cycle unavailable" notice), the kernels launched per tracking step as the
+     bare cycle launches them and none in the starting step, every body within 5 mm of
+     the sphere in the last frame; then 3 timed windows of further steps on the frames
+     replayed back and forth (1 mm per frame), and one window with the backend's parts
+     timed apart (gather, frame upload, cycle, scatter):
+     9s. the region graph at B=512, 5 steps per window, beside phase 3's bare cycle;
+     9d. 9s with a DepthModality per body (200 points, the phase 0m depth model),
+         beside phase 4's bare cycle;
+     9l. both graphs at B=1, 20 steps per window: the serve latency against the 33 ms
+         of a live camera;
+     Tracker.SetUp, the backend build and the starting step are timed, and peak memory
+     read;
+     9x. in phase 7's loop, both graphs at B=8 and at B=1 (9l's kernel shapes) on the
+         card and on the CPU: 3 serve steps, each started on both devices from the CPU's
+         state
+         (fused_serve.load_tracker_state), poses and histograms body by body within
+         atol 1e-4, every kernel call of the card's steps equal to its twin.
 The last two lines are the kernels JSON and {"ok": true, "device": {...}}.  With
 --profile, one window each of region, RGB-D, occlusion-path, kinematic, kinematic RGB-D,
 RGB-D scan step, multi-camera and multi-camera kinematic cycles is also traced with
@@ -124,6 +148,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import os
 import signal
@@ -1580,6 +1605,270 @@ def run_dryrun(timeout: float = 420.0) -> dict:
     return dict(result["dryrun"], seconds=time.perf_counter() - begin)
 
 
+# ----------------------------------------------------------------------------------------
+# Phase 9: the reference-shaped serve path (Tracker, modalities, links, optimizers and
+# the fused serve backend)
+# ----------------------------------------------------------------------------------------
+
+SERVE_NOTICE = "fused cycle unavailable"
+
+
+def pingpong(i: int, n: int) -> int:
+    """Frame i of a replay that runs 0, 1, .., n-1, n-2, .., 1, 0, 1, ..: one step of
+    the motion per frame, without end."""
+    i %= 2 * (n - 1)
+    return i if i < n else 2 * (n - 1) - i
+
+
+def serve_graph(inp, seq, models, n_bodies: int, rgbd: bool, device):
+    """The reference-shaped object graph of phase 9 on device: n_bodies Body objects of
+    the bench sphere, each with its Link, RegionModality (bench.py's parameters), an
+    optional DepthModality, its Optimizer and a StaticDetector at its jittered initial
+    pose, all sharing phase 0m's models and one ImageColorCamera (and ImageDepthCamera)
+    over phase 8s's frames replayed by pingpong; a Tracker with 5x2 iterations serving
+    through the fused cycle."""
+    from m3t_tpu_torch import (camera, depth_modality, detector, link, optimizer,
+                               region_modality, tracker)
+    from m3t_tpu_torch.utils import procedural
+
+    n_frames = len(seq["scan_colour"])
+    colour = [np.ascontiguousarray(np.moveaxis(f, 0, -1)) for f in seq["scan_colour"]]
+    color_camera = camera.ImageColorCamera(
+        "serve_color", inp["intr_t"], lambda i: colour[pingpong(i, n_frames)])
+    depth_camera = camera.ImageDepthCamera(
+        "serve_depth", inp["intr_t"], lambda i: seq["scan_depth"][pingpong(i, n_frames)],
+        depth_scale=DEPTH_SCALE)
+    region_model, depth_model = models
+    srv = tracker.Tracker("serve", n_corr_iterations=5, n_update_iterations=2,
+                          use_fused_cycle=True)
+    for i in range(n_bodies):
+        body = procedural.sphere_body(f"serve_body{i}", radius=0.06, n_subdiv=2)
+        rm = region_modality.RegionModality(f"serve_region{i}", body, color_camera,
+                                            region_model, device=device)
+        rm.n_lines_max = N_LINES
+        body_link = link.Link(f"serve_link{i}", body)
+        body_link.AddModality(rm)
+        if rgbd:
+            dm = depth_modality.DepthModality(f"serve_depth{i}", body, depth_camera,
+                                              depth_model, device=device)
+            dm.n_points_max = N_POINTS
+            body_link.AddModality(dm)
+        body_optimizer = optimizer.Optimizer(f"serve_optimizer{i}", body_link)
+        srv.AddOptimizer(body_optimizer)
+        srv.AddDetector(detector.StaticDetector(f"serve_detector{i}", body_optimizer,
+                                                link2world_pose=inp["poses"][i]))
+    return srv
+
+
+def serve_poses(srv) -> np.ndarray:
+    return np.stack([o.root_link_ptr.link2world_pose for o in srv.optimizer_ptrs])
+
+
+def serve_histograms(srv):
+    rms = [o.root_link_ptr.modality_ptrs[0] for o in srv.optimizer_ptrs]
+    return [torch.stack([getattr(m.color_histograms_ptr, f"histogram_{s}") for m in rms])
+            for s in "fb"]
+
+
+@contextlib.contextmanager
+def timed_calls(owner, names, totals: dict):
+    """Add the synchronized wall seconds of every call of owner.<name> to totals[name];
+    owner's own attributes are put back as they were after the block."""
+    own = {name: vars(owner).get(name) for name in names}
+    originals = {name: getattr(owner, name) for name in names}
+
+    def wrap(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            begin = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            totals[name] = totals.get(name, 0.0) + time.perf_counter() - begin
+            return out
+        return run
+
+    for name, fn in originals.items():
+        setattr(owner, name, wrap(name, fn))
+    try:
+        yield totals
+    finally:
+        for name, attribute in own.items():
+            if attribute is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, attribute)
+
+
+def serve_steps(srv, first: int, n: int):
+    """n more iterations of RunTrackerProcess's loop for a tracker that tracks every body
+    (cameras, consistent poses, the tracking step; no sleep): their wall seconds, and
+    those of the ExecuteTrackingStep calls among them (each ends in a synchronizing read
+    of the poses)."""
+    begin = time.perf_counter()
+    tracking = 0.0
+    for i in range(first, first + n):
+        if not (srv.UpdateCameras(i) and srv.CalculateConsistentPoses()):
+            raise AssertionError(f"serve step {i} failed")
+        step_begin = time.perf_counter()
+        if not srv.ExecuteTrackingStep(i):
+            raise AssertionError(f"serve step {i} failed")
+        tracking += time.perf_counter() - step_begin
+    torch.cuda.synchronize()
+    return time.perf_counter() - begin, tracking
+
+
+def run_serve(label, inp, seq, models, n_bodies: int, rgbd: bool, want_per_step: dict,
+              steps_per_window: int, n_windows: int = 3, breakdown: bool = True,
+              device="cuda"):
+    """Phase 9s, 9d and 9l: the serve graph driven through RunTrackerProcess over the 6
+    frames of phase 8s (detection and the starting step at frame 0, a tracking step per
+    frame), the fused backend asserted built and every kernel launch counted (none in
+    the starting step), every body within 5 mm of the sphere in the last frame; then the
+    timed windows of further steps on the replayed frames, and (breakdown) one window
+    more with the backend's parts timed apart."""
+    from m3t_tpu_torch import fused_serve, pipeline
+
+    n_frames = len(seq["scan_colour"])
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    begin = time.perf_counter()
+    srv = serve_graph(inp, seq, models, n_bodies, rgbd, device)
+    graph_s = time.perf_counter() - begin
+    begin = time.perf_counter()
+    if not srv.SetUp():
+        raise AssertionError(f"{label}: Tracker.SetUp failed")
+    setup_s = time.perf_counter() - begin
+    for fn in counters.values():
+        fn.launches = 0
+    seconds, start_launches, printed = {}, {}, io.StringIO()
+
+    def launches():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    starting = srv.ExecuteStartingStep
+
+    def counted_start(iteration):
+        before = launches()
+        ok = starting(iteration)
+        for name, n in launches().items():
+            start_launches[name] = start_launches.get(name, 0) + n - before[name]
+        return ok
+
+    srv.ExecuteStartingStep = counted_start
+    with timed_calls(srv, ["ExecuteStartingStep"], seconds), \
+            timed_calls(fused_serve.FusedServeBackend, ["try_build"], seconds), \
+            contextlib.redirect_stdout(printed):
+        begin = time.perf_counter()
+        ok = srv.RunTrackerProcess(execute_detection=True, start_tracking=True,
+                                   max_iterations=n_frames)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - begin
+    del srv.ExecuteStartingStep
+    sys.stdout.write(printed.getvalue())
+    if not ok:
+        raise AssertionError(f"{label}: RunTrackerProcess failed")
+    if srv._fused_backend is None or SERVE_NOTICE in printed.getvalue():
+        raise AssertionError(f"{label}: the fused serve backend was not built: "
+                             f"{printed.getvalue()!r}")
+    got = launches()
+    want = {name: n * n_frames for name, n in want_per_step.items()}
+    if got != want or any(start_launches.values()):
+        raise AssertionError(f"{label}: kernel launches {got} (starting step "
+                             f"{start_launches}), expected {want} and none at the start")
+    pose = serve_poses(srv)
+    target = seq["scan_targets"][n_frames - 1]
+    err = np.linalg.norm(pose[:, :3, 3] - target, axis=1)
+    hist_f, _ = serve_histograms(srv)
+    if not np.all(np.isfinite(pose)) or not torch.isfinite(hist_f).all():
+        raise AssertionError(f"{label}: non-finite tracking state")
+    if not np.all(err < 0.005):
+        raise AssertionError(f"{label}: translation error up to {err.max()} m (limit 5 mm)")
+
+    step = n_frames
+    window_s, tracking_s = [], []
+    for _ in range(n_windows):
+        total, tracking = serve_steps(srv, step, steps_per_window)
+        window_s.append(total)
+        tracking_s.append(tracking)
+        step += steps_per_window
+    parts = {}
+    if breakdown:
+        cycle = "tracking_cycle_rgbd" if rgbd else "tracking_cycle"
+        backend = srv._fused_backend
+        with timed_calls(backend, ["_gather_state", "_frames", "_scatter_state"], parts), \
+                timed_calls(pipeline, [cycle], parts), \
+                timed_calls(srv, ["UpdateCameras", "CalculateConsistentPoses"], parts):
+            total, _ = serve_steps(srv, step, steps_per_window)
+        parts = {name: s / steps_per_window * 1e3 for name, s in parts.items()}
+        parts["rest"] = total / steps_per_window * 1e3 - sum(parts.values())
+    ms_step = statistics.median(window_s) / steps_per_window * 1e3
+    result = dict(
+        path=label, bodies=n_bodies, frames=n_frames, launches=got,
+        starting_step_launches=start_launches, ms_per_step=ms_step,
+        ms_per_tracking_step=statistics.median(tracking_s) / steps_per_window * 1e3,
+        body_frames_per_s=n_bodies / ms_step * 1e3,
+        window_ms_per_step=[w / steps_per_window * 1e3 for w in window_s],
+        window_ms_per_tracking_step=[w / steps_per_window * 1e3 for w in tracking_s],
+        steps_per_window=steps_per_window, step_parts_ms=parts,
+        graph_build_s=graph_s, setup_s=setup_s,
+        starting_step_s=seconds["ExecuteStartingStep"],
+        backend_build_s=seconds["try_build"], run_tracker_process_s=run_s,
+        max_translation_error_m=float(err.max()),
+        peak_memory_bytes=torch.cuda.max_memory_allocated())
+    log(f"{label}: {json.dumps(result)}")
+    return result
+
+
+def check_serve_card_against_cpu(label, inp, seq, models, rgbd: bool, n_bodies: int = 8,
+                                 n_steps: int = 3):
+    """Phase 9x: the serve graph at B=n_bodies on the card and on the CPU, detection and
+    the starting step at frame 0, then a tracking step per frame, each step started on
+    both devices from the CPU's state (fused_serve.load_tracker_state); poses and
+    histograms compared body by body after every step, and every kernel call of the
+    card's steps held against its plain twin on the same inputs."""
+    from m3t_tpu_torch import fused_serve
+
+    trackers = {}
+    for dev in ("cuda", "cpu"):
+        trackers[dev] = serve_graph(inp, seq, models, n_bodies, rgbd, dev)
+        if not trackers[dev].SetUp():
+            raise AssertionError(f"{label}: Tracker.SetUp failed on {dev}")
+        trackers[dev].ExecuteDetection(start_tracking=True)
+    worst = {"pose": 0.0, "histogram_f": 0.0, "histogram_b": 0.0}
+    parted, mismatches, n_calls = [], [], 0
+    for i in range(n_steps):
+        for dev, srv in trackers.items():
+            with (recorded_launches() if dev == "cuda" else contextlib.nullcontext([])
+                  ) as calls:
+                ok = (srv.UpdateCameras(i) and srv.CalculateConsistentPoses()
+                      and srv.ExecuteDetectingStep(i) and srv.ExecuteStartingStep(i)
+                      and srv.ExecuteTrackingStep(i))
+            if not ok or srv._fused_backend is None:
+                raise AssertionError(f"{label}: serve step {i} failed on {dev}")
+            n_calls += len(calls)
+            mismatches += [f"step {i} {name}" for name in twin_mismatches(calls)]
+        card, cpu = trackers["cuda"], trackers["cpu"]
+        diffs = {"pose": np.abs(serve_poses(card) - serve_poses(cpu)).reshape(n_bodies, -1)
+                 .max(1)}
+        for name, c, h in zip(("histogram_f", "histogram_b"), serve_histograms(card),
+                              serve_histograms(cpu)):
+            diffs[name] = (c.cpu() - h).abs().amax(1).numpy()
+        for body in range(n_bodies):
+            event = {n: float(d[body]) for n, d in diffs.items()}
+            if any(d > PHASE7_ATOL for d in event.values()):
+                parted.append((body, i))
+                log(f"{label}: body {body} parted at step {i}: max abs diff {event}")
+        worst = {n: max(worst[n], float(d.max())) for n, d in diffs.items()}
+        fused_serve.load_tracker_state(card, serve_poses(cpu),
+                                       *(h.numpy() for h in serve_histograms(cpu)))
+    log(f"{label}: card vs CPU at B={n_bodies}, {n_steps} serve steps from equal states: "
+        f"max abs diff {worst}; parted {parted}; {n_calls} kernel calls against their "
+        f"twins, {len(mismatches)} differ")
+    return dict(max_abs_diff=worst, parted=parted, parted_allowed=0, kernel_calls=n_calls,
+                twin_mismatches=mismatches)
+
+
 def kernel_line(shapes, paths):
     """The kernels JSON entries: times and bounds per flagship cycle of the kernel's
     path (the sum over the cycle's calls), launches from that path's counted run."""
@@ -1723,7 +2012,34 @@ def main() -> int:
                        phase8, profile_file(args.profile, "_kinematic_multicamera"),
                        paths["kinematic_multicamera"]["ms_per_cycle"])
     del phase8
+    # Phase 9: the reference-shaped serve path, Tracker.RunTrackerProcess through the
+    # fused serve backend: the region and RGB-D graphs at B=512 (9s, 9d) and at B=1
+    # (9l), each step beside the bare cycle of the same path (phases 3 and 4).
+    serve_launches = {"sample_lines": 6, "bin_counts": 2, "sample_windows": 0,
+                      "query_eval": 0}
+    for label, bodies, rgbd, steps, bare in (
+            ("serve", N_BODIES, False, 5, "region"),
+            ("serve_rgbd", N_BODIES, True, 5, "rgbd"),
+            ("serve_latency", 1, False, 20, None),
+            ("serve_latency_rgbd", 1, True, 20, None)):
+        paths[label] = run_serve(
+            label, inp, seq, models, bodies, rgbd,
+            dict(serve_launches, sample_windows=5 if rgbd else 0), steps)
+        if bare:
+            paths[label]["bare_cycle_ms"] = paths[bare]["ms_per_cycle"]
+        else:
+            paths[label]["live_camera_budget_ms"] = 33.0
+        log(f"{label}: {paths[label]['ms_per_tracking_step']:.3f} ms per "
+            f"ExecuteTrackingStep, {paths[label]['ms_per_step']:.3f} ms per loop iteration "
+            f"at B={bodies}" + (f", bare cycle {paths[bare]['ms_per_cycle']:.3f} ms"
+                                if bare else " (live-camera budget 33 ms)"))
     card_vs_cpu = {"region": check_card_against_cpu("region", inp, region_cycle)}
+    # 9x: the serve graphs at B=8, and at B=1, the batch at which 9l launches the kernels.
+    for n_bodies, prefix in ((8, "serve"), (1, "serve latency")):
+        for rgbd in (False, True):
+            label = f"{prefix} {'rgbd' if rgbd else 'region'}"
+            card_vs_cpu[label] = check_serve_card_against_cpu(label, inp, seq, models, rgbd,
+                                                              n_bodies=n_bodies)
     occlusions = walled(dict(inp, rgbd_pcfg=inp["rgbd_pcfg"]._replace(
         region_measure_occlusions=True, depth_measure_occlusions=True)))
     check_masks_drop("measured occlusions", occlusions)

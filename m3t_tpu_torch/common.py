@@ -126,3 +126,58 @@ def np_pose_inverse(pose: np.ndarray) -> np.ndarray:
     out[:3, :3] = pose[:3, :3].T
     out[:3, 3] = -pose[:3, :3].T @ pose[:3, 3]
     return out
+
+
+def np_pose(rotation=None, translation=None) -> np.ndarray:
+    """A (4, 4) float32 pose on the host from a rotation and a translation
+    (m3t_tpu/common.py:185)."""
+    pose = np.eye(4, dtype=np.float32)
+    if rotation is not None:
+        pose[:3, :3] = np.asarray(rotation, np.float32)
+    if translation is not None:
+        pose[:3, 3] = np.asarray(translation, np.float32)
+    return pose
+
+
+def to_numpy(x) -> np.ndarray:
+    """A tensor (on any device) or an array as a host numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+# ----------------------------------------------------------------------------------------
+# Name-keyed component registries (m3t_tpu/common.py:210-254, common.h:197-257)
+# ----------------------------------------------------------------------------------------
+
+
+def add_ptr_if_name_not_exists(ptr, ptrs: list) -> bool:
+    """Append a component if no component of the same name is in the list."""
+    if any(p.name == ptr.name for p in ptrs):
+        return False
+    ptrs.append(ptr)
+    return True
+
+
+def get_ptr_if_name_exists(name: str, ptrs: list):
+    for p in ptrs:
+        if p.name == name:
+            return p
+    return None
+
+
+def delete_ptr_if_name_exists(name: str, ptrs: list) -> bool:
+    for i, p in enumerate(ptrs):
+        if p.name == name:
+            del ptrs[i]
+            return True
+    return False
+
+
+def set_up_object_ptrs(ptrs: list) -> bool:
+    """Call SetUp() on every component, reporting the first failure."""
+    for p in ptrs:
+        if not p.SetUp():
+            print(f"Failed to set up {type(p).__name__} {p.name}")
+            return False
+    return True

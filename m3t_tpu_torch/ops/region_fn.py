@@ -1,5 +1,5 @@
-"""Region-modality configuration, occlusions and region checking (port of
-m3t_tpu/ops/region_fn.py:27-71, 102-162, 183-401).
+"""Region-modality configuration, occlusions, region checking and the host path's
+per-modality functions (port of m3t_tpu/ops/region_fn.py).
 
 The JAX functions work on one body and are ``vmap``-ed by their caller; here the batch
 of bodies is a leading dimension: per-line values are (B, L), per-body values (the crop
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from m3t_tpu_torch.ops import depth_fn, occlusion
+from m3t_tpu_torch.ops import histogram as hist_ops
 
 KN_REGION_STRIDE = 5  # region_modality.h:146
 KREGION_OFFSET = 2.0  # region_modality.h:147
@@ -298,3 +299,420 @@ def combined_scene_checks(cfg: RegionConfig, fscale: float, center_u, center_v,
         region_ok = _region_check_from_vals(region_check, id_all[..., off:off + kr],
                                             id_all[..., off + kr:off + 2 * kr], bg_inb)
     return region_ok, modeled_free
+
+
+# ----------------------------------------------------------------------------------------
+# The host path's per-modality functions (m3t_tpu/ops/region_fn.py:404-798), with the
+# bodies as a leading batch dimension: a RegionModality calls them with B = 1.
+# ----------------------------------------------------------------------------------------
+
+
+class ViewPoints(NamedTuple):
+    """Gathered model points of the closest view (RegionModel::DataPoint,
+    region_model.h:89-95)."""
+
+    center_f_body: torch.Tensor  # (B, L, 3)
+    normal_f_body: torch.Tensor  # (B, L, 3)
+    foreground_distance: torch.Tensor  # (B, L)
+    background_distance: torch.Tensor  # (B, L)
+    measured_depth_offset: torch.Tensor  # (B, L)
+    modeled_depth_offset: torch.Tensor  # (B, L)
+
+
+class DataLines(NamedTuple):
+    """Per-line correspondence state (RegionModality::DataLine)."""
+
+    center_f_body: torch.Tensor  # (B, L, 3)
+    center_u: torch.Tensor  # (B, L)
+    center_v: torch.Tensor  # (B, L)
+    normal_u: torch.Tensor  # (B, L)
+    normal_v: torch.Tensor  # (B, L)
+    delta_r: torch.Tensor  # (B, L)
+    normal_component_to_scale: torch.Tensor  # (B, L)
+    distribution: torch.Tensor  # (B, L, D)
+    mean: torch.Tensor  # (B, L)
+    measured_variance: torch.Tensor  # (B, L)
+    valid: torch.Tensor  # (B, L) bool
+
+
+def _project_lines(points: ViewPoints, body2camera_pose, fu: float, fv: float, ppu: float,
+                   ppv: float):
+    """CalculateBasicLineData (cpp:1231-1250): (z, center_u, center_v, normal_u,
+    normal_v), each (B, L)."""
+    rot = body2camera_pose[:, :3, :3]
+    center_cam = points.center_f_body @ rot.transpose(1, 2) + body2camera_pose[:, None, :3, 3]
+    z = center_cam[..., 2]
+    z_safe = torch.where(z > 0.0, z, torch.ones_like(z))
+    center_u = center_cam[..., 0] * fu / z_safe + ppu
+    center_v = center_cam[..., 1] * fv / z_safe + ppv
+    normal_xy = points.normal_f_body @ rot[:, :2].transpose(1, 2)  # body2camera_rotation_xy_
+    norm = torch.sqrt(torch.sum(normal_xy * normal_xy, dim=-1))
+    normal_xy = normal_xy / torch.where(norm > 0.0, norm, torch.ones_like(norm))[..., None]
+    return z, center_u, center_v, normal_xy[..., 0], normal_xy[..., 1]
+
+
+def _line_index_ok(n_lines, count: int, device):
+    """(B or 1, count) bool: line index < n_lines (a Python int or a (B,) tensor)."""
+    idx = torch.arange(count, device=device)[None, :]
+    if isinstance(n_lines, torch.Tensor):
+        return idx < n_lines.to(device)[:, None]
+    return idx < n_lines
+
+
+def _per_body(flag, n_bodies: int, device):
+    """A bool or a (B,) bool as a (B,) bool tensor on device."""
+    return torch.as_tensor(flag, device=device).to(torch.bool).expand(n_bodies)
+
+
+def _focused_size(inputs) -> int:
+    """The focused image side of query inputs, or of the image of image inputs."""
+    if hasattr(inputs, "image_size"):
+        return inputs.image_size
+    return inputs[0].shape[-1]
+
+
+def _image_bounds(i_cu, i_cv, width: int, height: int):
+    return (i_cu >= 0) & (i_cu <= width - 1) & (i_cv >= 0) & (i_cv <= height - 1)
+
+
+def calculate_correspondences(
+    cfg: RegionConfig,
+    scale: int,
+    points: ViewPoints,
+    n_lines,
+    body2camera_pose,
+    color_image,
+    hist_f,
+    hist_b,
+    fu: float, fv: float, ppu: float, ppv: float, width: int, height: int,
+    handle_occlusions,
+    measured_occlusion: MeasuredOcclusionInputs | None = None,
+    modeled_occlusion=None,
+    region_check=None,
+    function_lookup_f=None,
+    function_lookup_b=None,
+) -> DataLines:
+    """One correspondence pass (reference: CalculateCorrespondences, cpp:390-465).
+
+    body2camera_pose (B, 4, 4); color_image (B, H, W, 3) uint8; hist_f, hist_b (B, N);
+    handle_occlusions a bool or (B,) bool; n_lines a Python int or a (B,) tensor.
+    modeled_occlusion and region_check take the image or the query inputs."""
+    n_bodies, n_max = points.center_f_body.shape[:2]
+    s_seg = cfg.line_length_in_segments
+    d_len = cfg.distribution_length
+    f_len = cfg.function_length
+    line_length = s_seg * scale
+    fscale = float(scale)
+    ll_minus_1 = line_length - 1
+    ll_minus_1_half = (line_length - 1) * 0.5
+    ll_half_minus_1 = line_length * 0.5 - 1.0
+
+    z, center_u, center_v, normal_u, normal_v = _project_lines(
+        points, body2camera_pose, fu, fv, ppu, ppv)
+    dev = z.device
+    ones = torch.ones_like(z)
+    if function_lookup_f is None:
+        function_lookup_f, function_lookup_b = cfg.function_lookups()
+    lookup_f = torch.as_tensor(function_lookup_f, device=dev)
+    lookup_b = torch.as_tensor(function_lookup_b, device=dev)
+
+    # --- IsLineValid (cpp:1252-1291) --------------------------------------------------
+    continuous_distance = (
+        torch.minimum(points.background_distance, points.foreground_distance)
+        * fu / (torch.where(z > 0, z, ones) * fscale))
+    valid = _line_index_ok(n_lines, n_max, dev)
+    valid = valid & (continuous_distance >= cfg.min_continuous_distance)
+    valid = valid & (z > 0.0)
+    valid = valid & _image_bounds(_trunc(center_u + 0.5), _trunc(center_v + 0.5), width,
+                                  height)
+    if region_check is not None:
+        valid = valid & region_check_ok(cfg, fscale, center_u, center_v, normal_u,
+                                        normal_v, region_check, _focused_size(region_check))
+
+    occl_ok = torch.ones_like(valid)
+    if measured_occlusion is not None:
+        depth_image = measured_occlusion.depth_image
+        occl_ok = occl_ok & _measured_occlusion_free(
+            cfg, points.center_f_body, points.measured_depth_offset, measured_occlusion,
+            depth_image.shape[2], depth_image.shape[1])
+    if modeled_occlusion is not None:
+        occl_ok = occl_ok & modeled_occlusion_free(
+            cfg, center_u, center_v, z, points.modeled_depth_offset, fu, modeled_occlusion,
+            _focused_size(modeled_occlusion))
+
+    # --- CalculateSegmentProbabilities (cpp:1433-1573) --------------------------------
+    is_u_dom = torch.abs(normal_v) < torch.abs(normal_u)
+    normal_p = torch.where(is_u_dom, normal_u, normal_v)  # dominant-axis component
+    normal_s = torch.where(is_u_dom, normal_v, normal_u)
+    center_p = torch.where(is_u_dom, center_u, center_v)
+    center_s = torch.where(is_u_dom, center_v, center_u)
+    size_p = torch.where(is_u_dom, width, height)
+    size_s = torch.where(is_u_dom, height, width)
+    # Degenerate contour normals (projected to ~zero) cannot define a line direction.
+    normal_ok = torch.abs(normal_p) > 0.0
+    valid = valid & normal_ok
+    safe_normal_p = torch.where(normal_ok, normal_p, ones)
+    step = normal_s / safe_normal_p
+
+    p0 = _trunc(center_p - ll_half_minus_1)
+    p_end = p0 + ll_minus_1
+    s_f0 = center_s + step * (p0.to(torch.float32) - center_p) + 0.5
+    s_f_end = s_f0 + step * float(ll_minus_1)
+    t0, t_end = _trunc(s_f0), _trunc(s_f_end)
+    valid = valid & ((p0 >= 0) & (p_end <= size_p - 1) & (t0 >= 0) & (t0 <= size_s - 1)
+                     & (t_end >= 1) & (t_end <= size_s - 2))
+
+    k = torch.arange(line_length, dtype=torch.int32, device=dev)
+    p_k = p0[..., None] + k
+    s_k = _trunc(s_f0[..., None] + k.to(torch.float32) * step[..., None])
+    u_k = torch.clamp(torch.where(is_u_dom[..., None], p_k, s_k), 0, width - 1)
+    v_k = torch.clamp(torch.where(is_u_dom[..., None], s_k, p_k), 0, height - 1)
+    body = torch.arange(n_bodies, device=dev)[:, None, None]
+    pixels = color_image[body, v_k.long(), u_k.long()]  # (B, L, LL, 3)
+    pf, pb = hist_ops.lookup_probabilities(hist_f, hist_b, pixels, cfg.n_histogram_bins)
+
+    # Per-segment products: forward lines fill segment k // scale, reverse lines fill
+    # S - 1 - k // scale (cpp:1458-1489): computed forward, then flipped where needed.
+    seg_f = torch.prod(pf.reshape(n_bodies, n_max, s_seg, scale), dim=-1)
+    seg_b = torch.prod(pb.reshape(n_bodies, n_max, s_seg, scale), dim=-1)
+    forward = (normal_p > 0)[..., None]
+    seg_f = torch.where(forward, seg_f, seg_f.flip(-1))
+    seg_b = torch.where(forward, seg_b, seg_b.flip(-1))
+    if scale > 1:
+        total = seg_f + seg_b
+        nz = total > 0.0
+        safe = torch.where(nz, total, torch.ones_like(total))
+        half = torch.full_like(total, 0.5)
+        seg_f = torch.where(nz, seg_f / safe, half)
+        seg_b = torch.where(nz, seg_b / safe, half)
+
+    normal_component_to_scale = torch.abs(normal_p) / fscale
+    delta_r = (torch.floor(center_p - ll_minus_1_half + 0.5) + ll_minus_1_half
+               - center_p) / safe_normal_p
+
+    # --- CalculateDistribution (cpp:1600-1637) ----------------------------------------
+    # dist[d] = prod_i seg_f[d+i]*lf[i] + seg_b[d+i]*lb[i]
+    d_idx = (torch.arange(d_len, device=dev)[:, None]
+             + torch.arange(f_len, device=dev)[None, :])  # (D, F)
+    mixed = seg_f[..., d_idx] * lookup_f + seg_b[..., d_idx] * lookup_b
+    distribution = torch.prod(mixed, dim=-1)  # (B, L, D)
+    area = torch.sum(distribution, dim=-1, keepdim=True)
+    distribution = distribution / torch.where(area > 0.0, area, torch.ones_like(area))
+
+    # --- CalculateDistributionMoments (cpp:1639-1658) ---------------------------------
+    idx = torch.arange(d_len, dtype=torch.float32, device=dev)
+    mean_from_begin = torch.sum(idx * distribution, dim=-1)
+    var = torch.sum((idx - mean_from_begin[..., None]) ** 2 * distribution, dim=-1)
+    mean = mean_from_begin - (d_len - 1) / 2.0
+    measured_variance = torch.clamp(var, min=cfg.min_expected_variance)
+
+    # --- two-pass occlusion fallback (cpp:435-463) ------------------------------------
+    valid_with = valid & occl_ok
+    use_occlusions = (_per_body(handle_occlusions, n_bodies, dev)
+                      & (valid_with.sum(dim=-1) >= cfg.min_n_unoccluded_lines))
+    final_valid = torch.where(use_occlusions[:, None], valid_with, valid)
+
+    return DataLines(
+        center_f_body=points.center_f_body, center_u=center_u, center_v=center_v,
+        normal_u=normal_u, normal_v=normal_v, delta_r=delta_r,
+        normal_component_to_scale=normal_component_to_scale, distribution=distribution,
+        mean=mean, measured_variance=measured_variance, valid=final_valid)
+
+
+def calculate_gradient_and_hessian(cfg: RegionConfig, lines: DataLines, body2camera_pose,
+                                   fu: float, fv: float, ppu: float, ppv: float,
+                                   standard_deviation: float, global_iteration: bool):
+    """Newton gradient (B, 6) and Hessian (B, 6, 6) in the body frame (reference:
+    cpp:485-558).  ``global_iteration`` selects the mean/variance form over the local
+    log-likelihood finite difference."""
+    d_len = cfg.distribution_length
+    rot = body2camera_pose[:, :3, :3]
+    variance = standard_deviation ** 2
+
+    c = lines.center_f_body @ rot.transpose(1, 2) + body2camera_pose[:, None, :3, 3]
+    x, y, z = c[..., 0], c[..., 1], c[..., 2]
+    z_safe = torch.where(z != 0, z, torch.ones_like(z))
+    fu_z = depth_fn.rdiv(fu, z_safe)
+    fv_z = depth_fn.rdiv(fv, z_safe)
+    xfu_z = x * fu_z
+    yfv_z = y * fv_z
+    delta_cs = (lines.normal_u * (xfu_z + ppu - lines.center_u)
+                + lines.normal_v * (yfv_z + ppv - lines.center_v)
+                - lines.delta_r) * lines.normal_component_to_scale
+
+    if global_iteration:
+        dll = (lines.mean - delta_cs) / lines.measured_variance
+        valid = lines.valid
+    else:
+        dist_idx_upper = _trunc(delta_cs + (d_len + 1) / 2.0)
+        dist_idx_lower = dist_idx_upper - 1
+        in_range = (dist_idx_upper > 0) & (dist_idx_upper < d_len)
+        iu = torch.clamp(dist_idx_upper, 0, d_len - 1).long()
+        il = torch.clamp(dist_idx_lower, 0, d_len - 1).long()
+        p_u = torch.gather(lines.distribution, -1, iu[..., None])[..., 0]
+        p_l = torch.gather(lines.distribution, -1, il[..., None])[..., 0]
+        dll = ((torch.log(torch.clamp(p_u, min=1e-30)) - torch.log(torch.clamp(p_l, min=1e-30)))
+               * cfg.learning_rate / lines.measured_variance)
+        valid = lines.valid & in_range
+
+    nts = lines.normal_component_to_scale
+    dcenter = torch.stack([
+        nts * lines.normal_u * fu_z,
+        nts * lines.normal_v * fv_z,
+        nts * (-lines.normal_u * xfu_z - lines.normal_v * yfv_z) / z_safe,
+    ], dim=-1)  # (B, L, 3)
+    dtrans = dcenter @ rot  # row vector times the body2camera rotation (cpp:537)
+    dtheta = torch.cat([torch.linalg.cross(lines.center_f_body, dtrans, dim=-1), dtrans],
+                       dim=-1)  # (B, L, 6)
+
+    weight = depth_fn.rdiv(cfg.min_expected_variance, nts * nts * variance)
+    wmask = torch.where(valid, weight, torch.zeros_like(weight))
+    gradient = torch.sum((wmask * dll)[..., None] * dtheta, dim=1)
+    hessian = -((dtheta * (wmask / lines.measured_variance)[..., None]).transpose(1, 2)
+                @ dtheta)
+    return gradient, hessian
+
+
+def add_line_pixel_colors(
+    cfg: RegionConfig,
+    points: ViewPoints,
+    n_lines,
+    body2camera_pose,
+    color_image,
+    memory_f,
+    memory_b,
+    fu: float, fv: float, ppu: float, ppv: float, width: int, height: int,
+    handle_occlusions,
+    measured_occlusion: MeasuredOcclusionInputs | None = None,
+    modeled_occlusion=None,
+    region_check: RegionCheckInputs | None = None,
+):
+    """Foreground and background pixel colours along the contour normals added to the
+    histogram memories (B, N) (reference: AddLinePixelColorsToTempHistograms,
+    cpp:1025-1155).  Returns (memory_f, memory_b)."""
+    n_bodies, n_max = points.center_f_body.shape[:2]
+    max_steps = int(np.ceil(cfg.max_considered_line_length)) + 1
+
+    z, center_u, center_v, normal_u, normal_v = _project_lines(
+        points, body2camera_pose, fu, fv, ppu, ppv)
+    dev = z.device
+    ones = torch.ones_like(z)
+    valid = _line_index_ok(n_lines, n_max, dev) & (z > 0.0)
+    valid = valid & _image_bounds(_trunc(center_u + 0.5), _trunc(center_v + 0.5), width,
+                                  height)
+    ignore_occlusions = ~_per_body(handle_occlusions, n_bodies, dev)[:, None]
+    if measured_occlusion is not None:
+        depth_image = measured_occlusion.depth_image
+        valid = valid & (_measured_occlusion_free(
+            cfg, points.center_f_body, points.measured_depth_offset, measured_occlusion,
+            depth_image.shape[2], depth_image.shape[1]) | ignore_occlusions)
+    if modeled_occlusion is not None:
+        valid = valid & (modeled_occlusion_free(
+            cfg, center_u, center_v, z, points.modeled_depth_offset, fu, modeled_occlusion,
+            _focused_size(modeled_occlusion)) | ignore_occlusions)
+
+    length_f = torch.full_like(z, cfg.max_considered_line_length)
+    length_b = torch.full_like(z, cfg.max_considered_line_length)
+    if region_check is not None:
+        length_f, length_b = dynamic_region_distance(
+            cfg, center_u, center_v, normal_u, normal_v, region_check,
+            region_check.silhouette.shape[-1])
+
+    z_safe = torch.where(z > 0, z, ones)
+    l_f = points.foreground_distance * fu / z_safe
+    l_b = points.background_distance * fu / z_safe
+    length_f = torch.minimum(length_f, l_f - 2.0 * cfg.unconsidered_line_length)
+    length_b = torch.minimum(length_b, l_b - 2.0 * cfg.unconsidered_line_length)
+
+    abs_nu = torch.abs(normal_u)
+    abs_nv = torch.abs(normal_v)
+    u_dom = abs_nu > abs_nv
+    u_step = torch.where(u_dom, torch.sign(normal_u),
+                         normal_u / torch.where(abs_nv > 0, abs_nv, ones))
+    v_step = torch.where(u_dom, normal_v / torch.where(abs_nu > 0, abs_nu, ones),
+                         torch.sign(normal_v))
+    dom = torch.where(u_dom, abs_nu, abs_nv)
+    proj_len_f = _trunc(length_f * dom + 0.5)
+    proj_len_b = _trunc(length_b * dom + 0.5)
+
+    k = torch.arange(max_steps, dtype=torch.float32, device=dev)
+    body = torch.arange(n_bodies, device=dev)[:, None, None]
+
+    def collect(sign, proj_len):
+        u0 = center_u + sign * normal_u * cfg.unconsidered_line_length + 0.5
+        v0 = center_v + sign * normal_v * cfg.unconsidered_line_length + 0.5
+        iu = _trunc(u0[..., None] + sign * k * u_step[..., None])
+        iv = _trunc(v0[..., None] + sign * k * v_step[..., None])
+        inb = _image_bounds(iu, iv, width, height)
+        inb = torch.cumprod(inb.to(torch.int32), dim=-1).to(torch.bool)  # break on OOB
+        mask = inb & (torch.arange(max_steps, device=dev) < proj_len[..., None]) \
+            & valid[..., None]
+        iu = torch.clamp(iu, 0, width - 1).long()
+        iv = torch.clamp(iv, 0, height - 1).long()
+        return color_image[body, iv, iu], mask
+
+    fg_px, fg_mask = collect(-1.0, proj_len_f)
+    bg_px, bg_mask = collect(1.0, proj_len_b)
+    memory_f = hist_ops.add_colors(memory_f, fg_px, fg_mask, cfg.n_histogram_bins)
+    memory_b = hist_ops.add_colors(memory_b, bg_px, bg_mask, cfg.n_histogram_bins)
+    return memory_f, memory_b
+
+
+def dynamic_region_distance(cfg: RegionConfig, center_u, center_v, normal_u, normal_v,
+                            chk: RegionCheckInputs, image_size: int):
+    """DynamicRegionDistance (region_modality.cpp:1157-1229) for (B, L) lines:
+    (foreground, background) line lengths (B, L).
+
+    The reference's background search writes the foreground distance (cpp:1223, an
+    apparent copy-paste slip); like the JAX package, this limits the background
+    distance, the documented intent (PARITY.md, "Adjudicated deviations" 1)."""
+    dev = center_u.device
+    max_len = cfg.max_considered_line_length
+    stride = max_len / KN_REGION_STRIDE
+    scale = chk.scale[:, None, None]                                        # (B, 1, 1)
+    focused_stride = stride * scale
+    delta_start = depth_fn.rdiv(KREGION_OFFSET, chk.scale) - cfg.unconsidered_line_length
+    i_start = torch.clamp(_trunc(delta_start / stride + 1.0), min=0)        # (B,)
+    i_start_f = i_start.to(torch.float32)[:, None, None]
+
+    offset = cfg.unconsidered_line_length + i_start_f * stride
+    focused_offset = offset * scale
+    fcu = 0.5 + (center_u - chk.corner_u[:, None]) * chk.scale[:, None]
+    fcv = 0.5 + (center_v - chk.corner_v[:, None]) * chk.scale[:, None]
+
+    i = torch.arange(KN_REGION_STRIDE + 1, dtype=torch.float32, device=dev)
+    active = i >= i_start_f                                                 # (B, 1, K)
+    along = focused_offset + (i - i_start_f) * focused_stride               # (B, 1, K)
+    du = along * normal_u[..., None]
+    dv = along * normal_v[..., None]
+    body = torch.arange(center_u.shape[0], device=dev)[:, None, None]
+    region_id = chk.region_id[:, None, None]
+
+    def first_break(u, v, want_equal):
+        oob = (u >= image_size) | (u < 0) | (v >= image_size) | (v < 0)
+        iu = torch.clamp(_trunc(u), 0, image_size - 1).long()
+        iv = torch.clamp(_trunc(v), 0, image_size - 1).long()
+        vals = chk.silhouette[body, iv, iu]
+        hit = (vals == region_id) if want_equal else (vals != region_id)
+        stop_oob = oob & active
+        stop_hit = hit & active & ~oob
+        # The first stop of either kind; the two kinds give different distances.
+        any_stop = stop_oob | stop_hit
+        first = torch.argmax(any_stop.to(torch.int32), dim=-1)
+        stopped_oob = torch.gather(stop_oob, -1, first[..., None])[..., 0]
+        return any_stop.any(dim=-1), first, stopped_oob
+
+    full = torch.full_like(center_u, max_len)
+    # Foreground: walk inward; stop where the pixel leaves the region (or the image).
+    has_f, first_f, oob_f = first_break(fcu[..., None] - du, fcv[..., None] - dv, False)
+    stop_f = stride * first_f.to(torch.float32)
+    hit_f = torch.where(first_f == i_start[:, None], torch.zeros_like(stop_f), stop_f)
+    dist_f = torch.where(has_f, torch.where(oob_f, stop_f, hit_f), full)
+    # Background: walk outward; stop where the pixel enters the region again (or leaves
+    # the image).
+    has_b, first_b, oob_b = first_break(fcu[..., None] + du, fcv[..., None] + dv, True)
+    stop_b = stride * first_b.to(torch.float32)
+    hit_b = torch.where(first_b == i_start[:, None], torch.zeros_like(stop_b), stop_b)
+    dist_b = torch.where(has_b, torch.where(oob_b, full, hit_b), full)
+    visible = chk.body_visible[:, None]
+    return torch.where(visible, dist_f, full), torch.where(visible, dist_b, full)

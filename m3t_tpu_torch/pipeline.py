@@ -128,14 +128,17 @@ class RegionModelArrays(NamedTuple):
         return RegionModelArrays._stack(_load_npz_models(paths), n_lines, device)
 
     @staticmethod
-    def from_models(models, n_lines: int, device="cuda") -> "RegionModelArrays":
+    def from_models(models, n_lines: int, device="cuda", measured_offset_id: int = 5,
+                    modeled_offset_id: int = 5) -> "RegionModelArrays":
         """Stack set-up :class:`m3t_tpu_torch.region_model.RegionModel` objects into a
-        batch, as from_npz stacks their cache files (m3t_tpu/pipeline.py:71)."""
+        batch, as from_npz stacks their cache files (m3t_tpu/pipeline.py:71), with the
+        depth offsets of the given offset ids."""
         return RegionModelArrays._stack(_model_arrays(models, _REGION_FIELDS), n_lines,
-                                        device)
+                                        device, measured_offset_id, modeled_offset_id)
 
     @staticmethod
-    def _stack(models: list[dict], n_lines: int, device) -> "RegionModelArrays":
+    def _stack(models: list[dict], n_lines: int, device, measured_offset_id: int = 5,
+               modeled_offset_id: int = 5) -> "RegionModelArrays":
         dev = resolve_device(device)
 
         def stack(fn):
@@ -144,17 +147,19 @@ class RegionModelArrays(NamedTuple):
         def cl(a):  # (V, L, 3) -> (V, 3, L)
             return np.swapaxes(a[:, :n_lines], -1, -2)
 
-        # Offset 5 for both, the region modality's default offset ids
+        # Offset 5 by default, the region modality's default offset ids
         # (m3t_tpu/region_modality.py:283-286).
-        offsets = stack(lambda m: m["depth_offsets"][:, :n_lines, 5])
+        measured = stack(lambda m: m["depth_offsets"][:, :n_lines, measured_offset_id])
+        modeled = (measured if modeled_offset_id == measured_offset_id else
+                   stack(lambda m: m["depth_offsets"][:, :n_lines, modeled_offset_id]))
         return RegionModelArrays(
             orientations=stack(lambda m: m["orientations"]),
             centers=stack(lambda m: cl(m["centers"])),
             normals=stack(lambda m: cl(m["normals"])),
             foreground_distances=stack(lambda m: m["foreground_distances"][:, :n_lines]),
             background_distances=stack(lambda m: m["background_distances"][:, :n_lines]),
-            measured_depth_offsets=offsets,
-            modeled_depth_offsets=offsets,
+            measured_depth_offsets=measured,
+            modeled_depth_offsets=modeled,
             contour_lengths=stack(lambda m: np.asarray(m["contour_lengths"], np.float32)),
             max_contour_length=_as_tensor(
                 np.array([np.max(m["contour_lengths"]) for m in models], np.float32),
@@ -192,28 +197,33 @@ class DepthModelArrays(NamedTuple):
         return DepthModelArrays._stack(_load_npz_models(paths), n_points, device)
 
     @staticmethod
-    def from_models(models, n_points: int, device="cuda") -> "DepthModelArrays":
+    def from_models(models, n_points: int, device="cuda", measured_offset_id: int = 5,
+                    modeled_offset_id: int = 5) -> "DepthModelArrays":
         """Stack set-up :class:`m3t_tpu_torch.depth_model.DepthModel` objects into a
-        batch, as from_npz stacks their cache files (m3t_tpu/pipeline.py:115)."""
+        batch, as from_npz stacks their cache files (m3t_tpu/pipeline.py:115), with the
+        depth offsets of the given offset ids."""
         return DepthModelArrays._stack(_model_arrays(models, _DEPTH_FIELDS), n_points,
-                                       device)
+                                       device, measured_offset_id, modeled_offset_id)
 
     @staticmethod
-    def _stack(models: list[dict], n_points: int, device) -> "DepthModelArrays":
+    def _stack(models: list[dict], n_points: int, device, measured_offset_id: int = 5,
+               modeled_offset_id: int = 5) -> "DepthModelArrays":
         dev = resolve_device(device)
 
         def stack(fn):
             return _stack_views(models, fn, dev)
 
-        # Offset 5 for both, the depth modality's default offset ids
+        # Offset 5 by default, the depth modality's default offset ids
         # (m3t_tpu/depth_modality.py:163-169).
-        offsets = stack(lambda m: m["depth_offsets"][:, :n_points, 5])
+        measured = stack(lambda m: m["depth_offsets"][:, :n_points, measured_offset_id])
+        modeled = (measured if modeled_offset_id == measured_offset_id else
+                   stack(lambda m: m["depth_offsets"][:, :n_points, modeled_offset_id]))
         return DepthModelArrays(
             orientations=stack(lambda m: m["orientations"]),
             centers=stack(lambda m: m["centers"][:, :n_points]),
             normals=stack(lambda m: m["normals"][:, :n_points]),
-            measured_depth_offsets=offsets,
-            modeled_depth_offsets=offsets,
+            measured_depth_offsets=measured,
+            modeled_depth_offsets=modeled,
         )
 
     def expand(self, n_bodies: int) -> "DepthModelArrays":
@@ -462,10 +472,11 @@ def _solve_and_update(pcfg: PipelineConfig, gradient, hessian, pose, group=None)
         group = group.to(torch.int64)
         gradient = torch.zeros_like(gradient).index_add_(0, group, gradient)[group]
         hessian = torch.zeros_like(hessian).index_add_(0, group, hessian)[group]
-    tikhonov = torch.diag(torch.tensor(
-        [pcfg.tikhonov_rotation] * 3 + [pcfg.tikhonov_translation] * 3,
-        dtype=torch.float32, device=pose.device))
-    a = -hessian + tikhonov[None, :, :]
+    # Filled on the device (no host-to-device copy), as the articulated step does.
+    diagonal = torch.full((6,), pcfg.tikhonov_rotation, dtype=torch.float32,
+                          device=pose.device)
+    diagonal[3:] = pcfg.tikhonov_translation
+    a = -hessian + torch.diag(diagonal)[None, :, :]
     theta = _ldlt_solve_6x6(a, gradient)
     theta = torch.where(torch.isnan(theta).any(dim=-1, keepdim=True),
                         torch.zeros_like(theta), theta)

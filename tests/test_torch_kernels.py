@@ -624,3 +624,115 @@ def test_scale_out_paths_on_card_match_cpu(cuda_device, path):
         for got, want in zip(results["cuda"], results["cpu"]):
             np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-4)
         state = results["cpu"]
+
+
+def _serve_tracker(device, tmp_path, frames, depth_frames, poses, rgbd):
+    """The serve path's object graph (chip_smoke.py phase 9) over len(poses) bodies of
+    the bench sphere on device: the committed models loaded as the cache files of the
+    port's RegionModel and DepthModel, one colour (and depth) camera, a Tracker with 3x2
+    iterations through the fused serve backend."""
+    import shutil
+
+    from m3t_tpu_torch import (camera, depth_modality, detector, link, optimizer,
+                               region_modality, tracker)
+    from m3t_tpu_torch.depth_model import DepthModel
+    from m3t_tpu_torch.region_model import RegionModel
+
+    models = []
+    for cls, npz in ((RegionModel, NPZ), (DepthModel, DEPTH_NPZ)):
+        path = tmp_path / f"{device}_{npz.name}"
+        shutil.copy(npz, path)
+        models.append(cls(npz.stem, procedural.sphere_body("bench", 0.06, 2), str(path),
+                          n_divides=2, n_points=200, image_size=800))
+        assert models[-1].SetUp()
+    intr = Intrinsics(300.0, 300.0, 159.5, 119.5, 320, 240)
+    color_camera = camera.ImageColorCamera("color", intr, frames)
+    depth_camera = camera.ImageDepthCamera("depth", intr, depth_frames)
+    srv = tracker.Tracker("serve", n_corr_iterations=3, n_update_iterations=2,
+                          use_fused_cycle=True)
+    for i, pose in enumerate(poses):
+        body = procedural.sphere_body(f"body{i}", 0.06, 2)
+        rm = region_modality.RegionModality(f"region{i}", body, color_camera, models[0],
+                                            device=device)
+        rm.scales, rm.standard_deviations = [4, 2, 1], [5.0, 3.5, 1.5]
+        body_link = link.Link(f"link{i}", body)
+        body_link.AddModality(rm)
+        if rgbd:
+            body_link.AddModality(depth_modality.DepthModality(
+                f"depth{i}", body, depth_camera, models[1], device=device))
+        opt = optimizer.Optimizer(f"optimizer{i}", body_link)
+        srv.AddOptimizer(opt)
+        srv.AddDetector(detector.StaticDetector(f"detector{i}", opt, link2world_pose=pose))
+    assert srv.SetUp()
+    srv.ExecuteDetection(start_tracking=True)
+    return srv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rgbd", [False, True], ids=["region", "rgbd"])
+def test_serve_on_card_matches_cpu(cuda_device, rgbd, tmp_path, monkeypatch):
+    """The Tracker at B=4 served through the fused backend on the card and on the CPU:
+    detection and the starting step at frame 0, then a step per frame (the sphere moves
+    1 mm per frame), each started on both devices from the CPU's state.  Every kernel
+    call of the card's steps equals its twin on the same inputs; poses and histograms
+    agree within 1e-4 but for at most one body per step: a sphere's rotation is held
+    only by the Tikhonov term, so a sample on a rounding boundary of the plain
+    arithmetic moves it by ~3e-3, and its histograms with it (at step 1 body 1 does so
+    on the card, by 2.889e-3 in pose and 5.4e-4 in histograms, and on the CPU alone
+    when its state moves by a relative 1e-7; chip_smoke.py phase 7).  That body stays
+    within 1e-2 in pose and 1e-3 in histograms."""
+    from m3t_tpu_torch import fused_serve
+
+    intr = Intrinsics(300.0, 300.0, 159.5, 119.5, 320, 240)
+    sphere = procedural.sphere_triangles(0.06, 2)
+    frames, depth_frames = [], []
+    for t in range(3):
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, 3] = [0.001 * t, 0.0, 0.5]
+        frames.append(procedural.render_synthetic_color_frame(
+            sphere, intr, pose, noise_rng=np.random.default_rng(t)))
+        depth_frames.append(procedural.render_synthetic_depth_frame(sphere, intr, pose))
+    rng = np.random.default_rng(12)
+    poses = np.tile(np.eye(4, dtype=np.float32), (4, 1, 1))
+    poses[:, 2, 3] = 0.5
+    poses[:, :2, 3] += rng.uniform(-0.004, 0.004, (4, 2)).astype(np.float32)
+    trackers = {dev: _serve_tracker(dev, tmp_path, frames, depth_frames, poses, rgbd)
+                for dev in ("cpu", "cuda")}
+    calls = []
+    for module, name in ((rf, "sample_lines"), (rf, "bin_counts"), (df, "sample_windows")):
+        def record(*args, kernel=getattr(module, name), twin=getattr(module, f"{name}_plain"),
+                   **kwargs):
+            out = kernel(*args, **kwargs)
+            if out.is_cuda:
+                calls.append(torch.equal(out, twin(*args, **kwargs)))
+            return out
+        record.launches = 0  # the wrapper counts on whatever its module's name holds
+        monkeypatch.setattr(module, name, record)
+
+    def state(srv):
+        rms = [o.root_link_ptr.modality_ptrs[0] for o in srv.optimizer_ptrs]
+        return [np.stack([o.root_link_ptr.link2world_pose for o in srv.optimizer_ptrs]),
+                *(torch.stack([getattr(m.color_histograms_ptr, f"histogram_{s}") for m in rms])
+                  .cpu().numpy() for s in "fb")]
+
+    for i in range(3):
+        for srv in trackers.values():
+            assert (srv.UpdateCameras(i) and srv.CalculateConsistentPoses()
+                    and srv.ExecuteDetectingStep(i) and srv.ExecuteStartingStep(i)
+                    and srv.ExecuteTrackingStep(i))
+            assert srv._fused_backend is not None
+        want = state(trackers["cpu"])
+        got = state(trackers["cuda"])
+        # A body parts when its pose or its histograms do (a moved pose moves the
+        # histogram update too).
+        parted = np.any([np.abs(g - w).reshape(4, -1).max(1) > 1e-4
+                         for g, w in zip(got, want)], axis=0)
+        assert parted.sum() <= 1, f"step {i}: bodies {np.flatnonzero(parted)} parted"
+        for g, w, bound in zip(got, want, (1e-2, 1e-3, 1e-3)):
+            np.testing.assert_allclose(g[~parted], w[~parted], rtol=0, atol=1e-4,
+                                       err_msg=f"step {i}")
+            np.testing.assert_allclose(g[parted], w[parted], rtol=0, atol=bound,
+                                       err_msg=f"step {i}, parted body "
+                                               f"{np.flatnonzero(parted)}")
+        fused_serve.load_tracker_state(trackers["cuda"], *want)
+    assert calls and all(calls), calls

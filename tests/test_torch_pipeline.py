@@ -355,6 +355,14 @@ def test_port_imports_neither_jax_nor_reference():
         "import m3t_tpu_torch.utils.contours, m3t_tpu_torch.utils.yaml_io\n"
         "import m3t_tpu_torch.parallel, m3t_tpu_torch.parallel.sharding\n"
         "import m3t_tpu_torch.parallel.dryrun\n"
+        "import m3t_tpu_torch.color_histograms, m3t_tpu_torch.camera\n"
+        "import m3t_tpu_torch.modality, m3t_tpu_torch.region_modality\n"
+        "import m3t_tpu_torch.depth_modality, m3t_tpu_torch.link\n"
+        "import m3t_tpu_torch.optimizer, m3t_tpu_torch.detector, m3t_tpu_torch.refiner\n"
+        "import m3t_tpu_torch.publisher, m3t_tpu_torch.subscriber\n"
+        "import m3t_tpu_torch.tracker, m3t_tpu_torch.fused_serve\n"
+        "import m3t_tpu_torch.utils.visualization\n"
+        "for name in m3t_tpu_torch._LAZY: getattr(m3t_tpu_torch, name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'm3t_tpu'))\n"
         "assert not bad, bad\n"
         "import torch\n"
