@@ -132,9 +132,52 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      read;
      9x. in phase 7's loop, both graphs at B=8 and at B=1 (9l's kernel shapes) on the
          card and on the CPU: 3 serve steps, each started on both devices from the CPU's
-         state
-         (fused_serve.load_tracker_state), poses and histograms body by body within
+         state (fused_serve.read_graph_state and load_graph_state), poses and histograms
+         body by body within
          atol 1e-4, every kernel call of the card's steps equal to its twin.
+  10. the host path of the object graph (renderers, the host scene checks, hard and soft
+     constraints and the host KKT step), through Tracker.RunTrackerProcess(
+     execute_detection=True, start_tracking=True, max_iterations=6) over six colour and
+     uint16 depth frames rendered by the port's host rasterizer (the bodies moving 1 mm
+     along x per frame), with every kernel call recorded (the host path must make none:
+     the kernels line's host_path_launches), the fused backend's refusal asserted (with
+     the JAX package's reason), every tensor of the graph asserted on the card and every
+     link within 5 mm of its rendered pose; then 3 timed windows of 2 steps on the
+     frames replayed back and forth after 2 warm-up steps, one step more with its parts
+     timed apart (rendering, correspondences, gradient and Hessian, optimization,
+     results), and peak memory:
+     10o. an occluded scene of a YCB-Video frame's size: five Body objects of the phase
+         0m sphere (ids 1-5, set explicitly) at 0.45-0.6 m, two of them overlapping in
+         the image, and phase 7's cube (id 6, untracked) in front of one, in one
+         RendererGeometry; each sphere with a RegionModality (bench.py's region
+         parameters) and a DepthModality (200 points) wired as eval/ycb_evaluator.py
+         wires a body, both measuring occlusions on the depth camera and modelling them
+         with a FocusedBasicDepthRenderer, the region modality checking regions and the
+         depth modality silhouettes on a FocusedSilhouetteRenderer(id_type=REGION) (200
+         px crops referencing the body); 5x2 iterations; the graph "models occlusions".
+         Also one FullNormalRenderer image of the scene at 640x512 on the card and on the
+         CPU: the share of pixels whose triangle id differs (at most 0.1 %), and the
+         largest depth and normal differences where the ids agree; and the graph's ten
+         focused renderers rendering once, each chunk of triangles over its window (as
+         the renderers render) and over the whole image, on the card and on the CPU:
+         the images equal, and the seconds of each;
+     10k. four copies of phase 6k's structure (bench.py:285-306, the child free in all
+         six directions with a Body of its own), each link with region and depth
+         modalities that model link-on-link occlusions through FocusedBasicDepthRenderers,
+         the hard Constraint of bench.py (a revolute joint about z) and a SoftConstraint
+         bounding the child's translation; 5x2 iterations; the graph "has constraints";
+     10x. both graphs at their full sizes on the card and on the CPU: 2 steps, each
+         started on both devices from the CPU's state (fused_serve.read_graph_state and
+         load_graph_state: joint poses, link poses, histograms), poses and histograms
+         within atol 1e-4 entry by entry (a body or a structure); at most one entry per
+         case may part, within 1e-2 in pose and 1e-3 in histograms, logged by name and
+         step, and only where a second CPU graph, started every step from the CPU's
+         state with every link pose moved by a relative 1e-7 (at step 0, its detector's
+         pose), parts from the CPU at the same entry and step: a rounding-boundary event
+         of the plain arithmetic, which the CPU meets alone.
+     A line names what the card's machine cannot run for want of cv2 and is held on the
+     CPU only: the TextureModality, the disk cameras, the generator over disk cameras and
+     the viewers' display and saving.
 The last two lines are the kernels JSON and {"ok": true, "device": {...}}.  With
 --profile, one window each of region, RGB-D, occlusion-path, kinematic, kinematic RGB-D,
 RGB-D scan step, multi-camera and multi-camera kinematic cycles is also traced with
@@ -1824,9 +1867,10 @@ def check_serve_card_against_cpu(label, inp, seq, models, rgbd: bool, n_bodies: 
                                  n_steps: int = 3):
     """Phase 9x: the serve graph at B=n_bodies on the card and on the CPU, detection and
     the starting step at frame 0, then a tracking step per frame, each step started on
-    both devices from the CPU's state (fused_serve.load_tracker_state); poses and
-    histograms compared body by body after every step, and every kernel call of the
-    card's steps held against its plain twin on the same inputs."""
+    both devices from the CPU's state (fused_serve.read_graph_state and
+    load_graph_state); poses and histograms compared body by body after every step, and
+    every kernel call of the card's steps held against its plain twin on the same
+    inputs."""
     from m3t_tpu_torch import fused_serve
 
     trackers = {}
@@ -1860,8 +1904,7 @@ def check_serve_card_against_cpu(label, inp, seq, models, rgbd: bool, n_bodies: 
                 parted.append((body, i))
                 log(f"{label}: body {body} parted at step {i}: max abs diff {event}")
         worst = {n: max(worst[n], float(d.max())) for n, d in diffs.items()}
-        fused_serve.load_tracker_state(card, serve_poses(cpu),
-                                       *(h.numpy() for h in serve_histograms(cpu)))
+        fused_serve.load_graph_state(card, fused_serve.read_graph_state(cpu))
     log(f"{label}: card vs CPU at B={n_bodies}, {n_steps} serve steps from equal states: "
         f"max abs diff {worst}; parted {parted}; {n_calls} kernel calls against their "
         f"twins, {len(mismatches)} differ")
@@ -1869,9 +1912,554 @@ def check_serve_card_against_cpu(label, inp, seq, models, rgbd: bool, n_bodies: 
                 twin_mismatches=mismatches)
 
 
+# ----------------------------------------------------------------------------------------
+# Phase 10: the host path (renderers, the scene checks, constraints and the host KKT)
+# through Tracker.RunTrackerProcess
+# ----------------------------------------------------------------------------------------
+
+HOST_FRAMES = 6
+HOST_STEP_M = 0.001  # every body (structure) moves along x by this much per frame
+# Phase 10o: five tracked spheres at frame 0 (camera frame, m) and their colours.  Bodies
+# 3 and 4 overlap in the image (3 in front); phase 7's cube, untracked, hides the lower
+# left of body 1.
+HOST_BODIES = ((-0.20, -0.12, 0.50), (-0.02, -0.05, 0.55), (0.21, -0.10, 0.60),
+               (-0.06, 0.13, 0.45), (0.04, 0.15, 0.52))
+HOST_COLOURS = ((160, 60, 50), (200, 140, 40), (150, 50, 160), (220, 210, 70),
+                (110, 40, 30))
+HOST_CUBE_COLOUR = (60, 170, 60)
+# Phase 10k: the roots of four copies of phase 6k's two-link structure (the child 0.13 m
+# along the root's x).
+STRUCTURE_ROOTS = ((-0.22, -0.12, 0.60), (0.05, -0.12, 0.60), (-0.22, 0.12, 0.62),
+                   (0.05, 0.12, 0.58))
+CHILD_ARM = 0.13
+# The parts of a host-path step, by the methods timed for them (rendering: every
+# renderer; correspondences and results: every modality's).
+HOST_PARTS = {"StartRendering": "rendering", "CalculateCorrespondences": "correspondences",
+              "CalculateGradientAndHessian": "gradient_and_hessian",
+              "CalculateOptimization": "optimization", "CalculateResults": "results"}
+HOST_PARTED_BOUNDS = {"pose": 1e-2, "histogram_f": 1e-3, "histogram_b": 1e-3}
+# Phase 10x's witness: the relative move of every link pose of the second CPU graph.
+WITNESS_NUDGE = 1e-7
+CV2_ONLY = ("TextureModality (ORB/BRISK/SIFT detection and matching), LoaderColorCamera "
+            "and LoaderDepthCamera (PNG frames from disk), GenerateConfiguredTracker over "
+            "disk cameras, and the viewers' display and saving")
+
+
+def host_frames(intr_t, items, n_frames: int = HOST_FRAMES, seed: int = 20):
+    """Colour (H, W, 3) uint8 and depth (H, W) uint16 frames of ``items`` (body-frame
+    triangles, a function of the frame giving the camera-frame pose, colour), rendered
+    by the port's host rasterizer on the background of the flagship frames, with noise."""
+    from m3t_tpu_torch.ops.raster import rasterize_np
+
+    colours, depths = [], []
+    rng = np.random.default_rng(seed)
+    for f in range(n_frames):
+        tris = np.concatenate([t @ pose(f)[:3, :3].T + pose(f)[:3, 3] for t, pose, _ in items])
+        ids = np.repeat(np.arange(1, len(items) + 1), [len(t) for t, _, _ in items])
+        depth, id_img = rasterize_np(tris, ids, intr_t.fu, intr_t.fv, intr_t.ppu,
+                                     intr_t.ppv, intr_t.width, intr_t.height,
+                                     cull_backfaces=True)
+        frame = np.empty((intr_t.height, intr_t.width, 3), np.int16)
+        frame[:] = (40, 120, 190)
+        for k, (_, _, colour) in enumerate(items):
+            frame[id_img == k + 1] = colour
+        frame += rng.integers(-8, 9, frame.shape).astype(np.int16)
+        colours.append(np.clip(frame, 0, 255).astype(np.uint8))
+        depths.append(np.round(np.where(np.isfinite(depth), depth, 2.0) / DEPTH_SCALE)
+                      .astype(np.uint16))
+    return colours, depths
+
+
+def still(position):
+    """The pose of a body that stays at ``position``, at any frame."""
+    def pose(f):
+        p = np.eye(4, dtype=np.float32)
+        p[:3, 3] = position
+        return p
+    return pose
+
+
+def moving(position):
+    """The pose at frame f of a body starting at ``position``, moving HOST_STEP_M along
+    x per frame."""
+    def pose(f):
+        p = np.eye(4, dtype=np.float32)
+        p[:3, 3] = position
+        p[0, 3] += HOST_STEP_M * f
+        return p
+    return pose
+
+
+def host_cameras(intr_t, colours, depths, prefix: str):
+    """An ImageColorCamera and an ImageDepthCamera over the frames, replayed back and
+    forth (pingpong) beyond the last one."""
+    from m3t_tpu_torch import camera
+
+    n = len(colours)
+    return (camera.ImageColorCamera(f"{prefix}_color", intr_t,
+                                    lambda i: colours[pingpong(i, n)]),
+            camera.ImageDepthCamera(f"{prefix}_depth", intr_t,
+                                    lambda i: depths[pingpong(i, n)],
+                                    depth_scale=DEPTH_SCALE))
+
+
+def host_modalities(prefix, body, color_camera, depth_camera, models, rg, device,
+                    region_checking: bool):
+    """A body's RegionModality (bench.py's region parameters) and DepthModality (200
+    points), wired as eval/ycb_evaluator.py wires a body: both measure occlusions on the
+    depth camera and model them with a FocusedBasicDepthRenderer; with region_checking,
+    the region modality checks regions and the depth modality silhouettes on a
+    FocusedSilhouetteRenderer(id_type=REGION) (the body's region id is its body id).
+    Both renderers reference the body and read ``rg``."""
+    from m3t_tpu_torch import depth_modality, region_modality, renderer
+
+    depth_renderer = renderer.FocusedBasicDepthRenderer(f"{prefix}_depth_renderer", rg,
+                                                        color_camera, device=device)
+    depth_renderer.AddReferencedBody(body)
+    rm = region_modality.RegionModality(f"{prefix}_region", body, color_camera, models[0],
+                                        device=device)
+    rm.n_lines_max = N_LINES
+    rm.MeasureOcclusions(depth_camera)
+    rm.ModelOcclusions(depth_renderer)
+    dm = depth_modality.DepthModality(f"{prefix}_depth", body, depth_camera, models[1],
+                                      device=device)
+    dm.n_points_max = N_POINTS
+    dm.MeasureOcclusions()
+    dm.ModelOcclusions(depth_renderer)
+    if region_checking:
+        silhouette_renderer = renderer.FocusedSilhouetteRenderer(
+            f"{prefix}_silhouette_renderer", rg, color_camera,
+            id_type=renderer.IDType.REGION, device=device)
+        silhouette_renderer.AddReferencedBody(body)
+        rm.UseRegionChecking(silhouette_renderer)
+        dm.UseSilhouetteChecking(silhouette_renderer)
+    return rm, dm
+
+
+def occluded_scene_graph(inp, models, device):
+    """Phase 10o's graph on device: five Body objects of the bench sphere (ids 1-5,
+    set explicitly) at HOST_BODIES and phase 7's cube (id 6, untracked) in one
+    RendererGeometry, each sphere with its Link, region and depth modalities (every
+    scene check), Optimizer and a StaticDetector 2-3 mm off its frame-0 pose; a Tracker
+    with 5x2 iterations asking for the fused cycle; the frames of the moving spheres and
+    the still cube.  Returns (tracker, the frames' body poses (F, 5, 4, 4), the scene's
+    pieces)."""
+    from m3t_tpu_torch import detector, link, optimizer, renderer_geometry, tracker
+    from m3t_tpu_torch.utils import procedural
+
+    sphere = procedural.sphere_triangles(0.06, 2)
+    cube_v, cube_t = procedural.cube(CUBE_HALF)
+    items = [(sphere, moving(p), c) for p, c in zip(HOST_BODIES, HOST_COLOURS)]
+    items.append((cube_v[cube_t], still(CUBE_POSITION), HOST_CUBE_COLOUR))
+    colours, depths = host_frames(inp["intr_t"], items)
+    color_camera, depth_camera = host_cameras(inp["intr_t"], colours, depths, "host")
+    rg = renderer_geometry.RendererGeometry("host_geometry", device=device)
+    bodies = [procedural.sphere_body(f"host_body{i}", radius=0.06, n_subdiv=2)
+              for i in range(len(HOST_BODIES))]
+    bodies.append(procedural.cube_body("host_cube", half=CUBE_HALF))
+    for i, body in enumerate(bodies):
+        body.body_id = body.region_id = i + 1
+        rg.AddBody(body)
+    bodies[-1].set_body2world_pose(still(CUBE_POSITION)(0))
+    srv = tracker.Tracker("host", n_corr_iterations=5, n_update_iterations=2,
+                          use_fused_cycle=True)
+    rng = np.random.default_rng(21)
+    for i, (body, position) in enumerate(zip(bodies, HOST_BODIES)):
+        rm, dm = host_modalities(f"host{i}", body, color_camera, depth_camera, models, rg,
+                                 device, region_checking=True)
+        body_link = link.Link(f"host_link{i}", body)
+        body_link.AddModality(rm)
+        body_link.AddModality(dm)
+        body_optimizer = optimizer.Optimizer(f"host_optimizer{i}", body_link)
+        start = moving(position)(0)
+        start[:2, 3] += rng.uniform(-0.003, 0.003, 2).astype(np.float32)
+        srv.AddOptimizer(body_optimizer)
+        srv.AddDetector(detector.StaticDetector(f"host_detector{i}", body_optimizer,
+                                                link2world_pose=start))
+    truth = np.stack([[moving(p)(f) for p in HOST_BODIES] for f in range(HOST_FRAMES)])
+    return srv, truth, dict(rg=rg, bodies=bodies, color_camera=color_camera)
+
+
+def structure_graph(inp, models, device):
+    """Phase 10k's graph on device: four copies of phase 6k's structure (bench.py:285-306
+    with the child free in all six directions and its own Body) at STRUCTURE_ROOTS, each
+    a root and a child Link of the bench sphere with region and depth modalities that
+    model link-on-link occlusions through FocusedBasicDepthRenderers over one
+    RendererGeometry of all eight links, the hard Constraint of bench.py ([T,T,F,T,T,T]:
+    a revolute joint about z) and a SoftConstraint that bounds the child's translation
+    (tests/test_kinematics.py::test_soft_constraint_limits_deviation); an Optimizer and a
+    StaticDetector 2-3 mm off per structure; a Tracker with 5x2 iterations asking for the
+    fused cycle; the frames of the structures moving along x (parents red, children
+    green).  Returns (tracker, the frames' link poses (F, 8, 4, 4), the scene's pieces)."""
+    from m3t_tpu_torch import (constraint, detector, link, optimizer, renderer_geometry,
+                               soft_constraint, tracker)
+    from m3t_tpu_torch.utils import procedural
+
+    sphere = procedural.sphere_triangles(0.06, 2)
+    b2j = still((CHILD_ARM, 0.0, 0.0))(0)
+    items = []
+    for root in STRUCTURE_ROOTS:
+        items.append((sphere, moving(root), (160, 60, 50)))
+        items.append((sphere, moving(np.add(root, (CHILD_ARM, 0.0, 0.0))), (60, 170, 60)))
+    colours, depths = host_frames(inp["intr_t"], items, seed=22)
+    color_camera, depth_camera = host_cameras(inp["intr_t"], colours, depths, "structure")
+    rg = renderer_geometry.RendererGeometry("structure_geometry", device=device)
+    bodies = [procedural.sphere_body(f"structure_body{i}", radius=0.06, n_subdiv=2)
+              for i in range(2 * len(STRUCTURE_ROOTS))]
+    for i, body in enumerate(bodies):
+        body.body_id = body.region_id = i + 1
+        rg.AddBody(body)
+    srv = tracker.Tracker("structures", n_corr_iterations=5, n_update_iterations=2,
+                          use_fused_cycle=True)
+    rng = np.random.default_rng(23)
+    for s, root in enumerate(STRUCTURE_ROOTS):
+        links = []
+        for k, body in enumerate(bodies[2 * s:2 * s + 2]):
+            rm, dm = host_modalities(f"structure{s}_{k}", body, color_camera, depth_camera,
+                                     models, rg, device, region_checking=False)
+            links.append(link.Link(f"structure{s}_link{k}", body,
+                                   body2joint_pose=b2j if k else None))
+            links[-1].AddModality(rm)
+            links[-1].AddModality(dm)
+        links[0].AddChildLink(links[1])
+        hard = constraint.Constraint(f"structure{s}_constraint", links[0], links[1],
+                                     body22joint2_pose=b2j,
+                                     constraint_directions=[True, True, False, True, True,
+                                                            True])
+        soft = soft_constraint.SoftConstraint(
+            f"structure{s}_soft_constraint", links[0], links[1], body22joint2_pose=b2j,
+            constraint_directions=[False, False, False, True, True, True],
+            max_distance_translation=0.002, standard_deviation_translation=0.01)
+        structure_optimizer = optimizer.Optimizer(f"structure{s}_optimizer", links[0])
+        structure_optimizer.AddConstraint(hard)
+        structure_optimizer.AddSoftConstraint(soft)
+        start = moving(root)(0)
+        start[:2, 3] += rng.uniform(-0.003, 0.003, 2).astype(np.float32)
+        srv.AddOptimizer(structure_optimizer)
+        srv.AddDetector(detector.StaticDetector(f"structure{s}_detector",
+                                                structure_optimizer, link2world_pose=start))
+    truth = np.stack([[item[1](f) for item in items] for f in range(HOST_FRAMES)])
+    return srv, truth, dict(rg=rg, bodies=bodies, color_camera=color_camera)
+
+
+def graph_poses(srv) -> np.ndarray:
+    """Every link's pose, optimizer by optimizer, root first: (N, 4, 4)."""
+    return np.stack([link.link2world_pose for o in srv.optimizer_ptrs
+                     for link in o.ReferencedLinks()])
+
+
+def graph_histograms(srv):
+    """Every region modality's histograms in graph_poses' order: (N, n_bins**3) each."""
+    rms = [m for o in srv.optimizer_ptrs for link in o.ReferencedLinks()
+           for m in link.modality_ptrs if hasattr(m, "use_region_checking")]
+    return [torch.stack([getattr(m.color_histograms_ptr, f"histogram_{s}") for m in rms])
+            for s in "fb"]
+
+
+def graph_tensors(srv):
+    """(owner, attribute, tensor) of every tensor held by the tracker's modalities,
+    their histograms, renderers and renderer geometries (also inside named tuples)."""
+    owners = []
+    for o in srv.optimizer_ptrs:
+        for link in o.ReferencedLinks():
+            for m in link.modality_ptrs:
+                owners += [m, m.color_histograms_ptr] if hasattr(m, "color_histograms_ptr") \
+                    else [m]
+    owners += srv.correspondence_renderer_ptrs + srv.results_renderer_ptrs
+    owners += [data for rg in srv.renderer_geometry_ptrs
+               for data in rg.render_data_bodies.values()]
+    found = []
+    for owner in owners:
+        for key, value in vars(owner).items():
+            values = value if isinstance(value, tuple) else (value,)
+            found += [(getattr(owner, "name", type(owner).__name__), key, t)
+                      for t in values if isinstance(t, torch.Tensor)]
+    return found
+
+
+def host_steps(srv, first: int, n: int) -> float:
+    """n more iterations of RunTrackerProcess's loop (cameras, consistent poses, the
+    tracking step) from iteration ``first``, ending in a host read of the poses: their
+    wall seconds."""
+    begin = time.perf_counter()
+    for i in range(first, first + n):
+        if not (srv.UpdateCameras(i) and srv.CalculateConsistentPoses()
+                and srv.ExecuteTrackingStep(i)):
+            raise AssertionError(f"host step {i} failed")
+    graph_poses(srv)
+    torch.cuda.synchronize()
+    return time.perf_counter() - begin
+
+
+def run_host_path(label, graph, inp, models, refusal: str, n_windows: int = 3,
+                  steps_per_window: int = 2, n_warmup: int = 2, breakdown: bool = True):
+    """Phases 10o and 10k: the graph on the card through RunTrackerProcess over the
+    HOST_FRAMES frames (detection and the starting step at frame 0, a tracking step per
+    frame) with every kernel call recorded (the host path must make none), the fused
+    backend's refusal asserted, every tensor of the graph asserted on the card and every
+    link within 5 mm of its rendered pose in the last frame; then n_windows timed
+    windows of steps_per_window steps on the frames replayed back and forth after
+    n_warmup steps, and one step more with its parts timed apart."""
+    from m3t_tpu_torch import (depth_modality, fused_serve, region_modality, renderer,
+                               tracker)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    begin = time.perf_counter()
+    srv, truth, _ = graph(inp, models, "cuda")
+    graph_s = time.perf_counter() - begin
+    begin = time.perf_counter()
+    if not srv.SetUp():
+        raise AssertionError(f"{label}: Tracker.SetUp failed")
+    setup_s = time.perf_counter() - begin
+    printed = io.StringIO()
+    with recorded_launches() as calls, contextlib.redirect_stdout(printed):
+        begin = time.perf_counter()
+        ok = srv.RunTrackerProcess(execute_detection=True, start_tracking=True,
+                                   max_iterations=HOST_FRAMES)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - begin
+        host_steps(srv, HOST_FRAMES, n_warmup)
+        window_s = []
+        step = HOST_FRAMES + n_warmup
+        for _ in range(n_windows):
+            window_s.append(host_steps(srv, step, steps_per_window))
+            step += steps_per_window
+        parts = {}
+        if breakdown:
+            mixins = (renderer._DepthRenderMixin, renderer._SilhouetteRenderMixin)
+            with contextlib.ExitStack() as stack:
+                for mixin in mixins:
+                    stack.enter_context(timed_calls(mixin, ["StartRendering"], parts))
+                for cls in (region_modality.RegionModality, depth_modality.DepthModality):
+                    stack.enter_context(timed_calls(cls, ["CalculateCorrespondences",
+                                                          "CalculateResults"], parts))
+                stack.enter_context(timed_calls(tracker.Tracker, [
+                    "CalculateGradientAndHessian", "CalculateOptimization"], parts))
+                total = host_steps(srv, step, 1)
+            parts = {HOST_PARTS[name]: s * 1e3 for name, s in parts.items()}
+            parts["rest"] = total * 1e3 - sum(parts.values())
+    notice = printed.getvalue()
+    sys.stdout.write(notice)
+    if not ok:
+        raise AssertionError(f"{label}: RunTrackerProcess failed")
+    if calls:
+        raise AssertionError(f"{label}: the host path launched kernels: "
+                             f"{sorted({c[0] for c in calls})}")
+    backend, reason = fused_serve.FusedServeBackend.try_build(srv)
+    if backend is not None or refusal not in reason:
+        raise AssertionError(f"{label}: the fused backend did not refuse the graph with "
+                             f"{refusal!r}: {reason!r}")
+    if f"fused cycle unavailable ({reason})" not in notice:
+        raise AssertionError(f"{label}: no fallback notice with {reason!r}: {notice!r}")
+    off_card = [(owner, key, str(t.device)) for owner, key, t in graph_tensors(srv)
+                if t.device.type != "cuda"]
+    if off_card:
+        raise AssertionError(f"{label}: tensors off the card: {off_card[:10]}")
+    poses = graph_poses(srv)
+    # After RunTrackerProcess and the replays, the last step tracked frame pingpong(step).
+    frame = pingpong(step if breakdown else step - 1, HOST_FRAMES)
+    err = np.linalg.norm(poses[:, :3, 3] - truth[frame][:, :3, 3], axis=1)
+    if not np.all(np.isfinite(poses)) or not np.all(err < 0.005):
+        raise AssertionError(f"{label}: translation errors {err.tolist()} m (limit 5 mm)")
+    ms_step = statistics.median(window_s) / steps_per_window * 1e3
+    result = dict(
+        path=label, links=len(poses), frames=HOST_FRAMES, refusal=reason,
+        kernel_launches=len(calls), ms_per_step=ms_step,
+        window_ms_per_step=[w / steps_per_window * 1e3 for w in window_s],
+        steps_per_window=steps_per_window, step_parts_ms=parts,
+        graph_build_s=graph_s, setup_s=setup_s, run_tracker_process_s=run_s,
+        translation_error_mm=[round(float(e) * 1e3, 4) for e in err],
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        tensors_on_card=len(graph_tensors(srv)))
+    log(f"{label}: {json.dumps(result)}")
+    return result
+
+
+def check_normal_image(inp, models):
+    """Phase 10o's scene at frame 0 through one FullNormalRenderer at 640x512 on the
+    card and on the CPU: the share of pixels whose triangle id differs, and the largest
+    depth and normal differences where the ids agree.  More than 0.1 % differing fails."""
+    from m3t_tpu_torch import renderer
+
+    images = {}
+    for dev in ("cuda", "cpu"):
+        _, _, scene = occluded_scene_graph(inp, models, dev)
+        for body, position in zip(scene["bodies"], HOST_BODIES):
+            body.set_body2world_pose(moving(position)(0))
+        if not (scene["color_camera"].SetUp() and scene["rg"].SetUp()):
+            raise AssertionError(f"normal image: set-up failed on {dev}")
+        full = renderer.FullNormalRenderer("host_normal", scene["rg"], scene["color_camera"],
+                                           device=dev)
+        if not full.SetUp():
+            raise AssertionError(f"normal image: renderer set-up failed on {dev}")
+        begin = time.perf_counter()
+        depth, ids, normals = full._render(renderer.IDType.BODY, with_normals=True)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - begin
+        images[dev] = [t.cpu().numpy() for t in (depth, ids, normals)] + [seconds]
+    (cd, ci, cn, cs), (pd, pi, pn, ps) = images["cuda"], images["cpu"]
+    same = ci == pi
+    both = same & np.isfinite(cd) & np.isfinite(pd)
+    result = dict(
+        pixels=int(ci.size), differing_id_share=float(1.0 - same.mean()),
+        covered_share=float((pi > 0).mean()), ids=sorted(int(v) for v in np.unique(pi)),
+        max_depth_diff_m=float(np.abs(cd[both] - pd[both]).max()),
+        max_normal_diff=float(np.abs(cn[both] - pn[both]).max()),
+        card_render_s=cs, cpu_render_s=ps)
+    log(f"normal image 640x512, card vs CPU: {json.dumps(result)}")
+    if result["differing_id_share"] > 1e-3:
+        raise AssertionError(f"normal image: {result['differing_id_share']:.4%} of the "
+                             f"pixels differ in id between card and CPU (limit 0.1 %)")
+    if len(result["ids"]) != len(HOST_BODIES) + 2:
+        raise AssertionError(f"normal image: ids {result['ids']}")
+    return result
+
+
+def nudged_pose(pose) -> np.ndarray:
+    """The pose with its rotation and translation moved by a relative WITNESS_NUDGE."""
+    pose = np.array(pose, np.float32)
+    pose[:3] *= np.float32(1.0 + WITNESS_NUDGE)
+    return pose
+
+
+def nudged(state: dict) -> dict:
+    """fused_serve.read_graph_state's result with every link pose nudged."""
+    return dict(state, links={name: (body2joint, joint2parent, nudged_pose(link2world))
+                              for name, (body2joint, joint2parent, link2world)
+                              in state["links"].items()})
+
+
+def entry_diffs(a, b, n_entries: int) -> dict:
+    """The largest pose and histogram differences per batch entry between two graphs
+    of the same names (histograms compared on the CPU)."""
+    diffs = {"pose": np.abs(graph_poses(a) - graph_poses(b))}
+    for name, x, y in zip(("histogram_f", "histogram_b"), graph_histograms(a),
+                          graph_histograms(b)):
+        diffs[name] = (x.cpu() - y.cpu()).abs().numpy()
+    return {n: d.reshape(n_entries, -1).max(1) for n, d in diffs.items()}
+
+
+def check_render_windows(inp, models, n_passes: int = 3):
+    """Phase 10o's ten focused renderers over its scene at frame 0, each rendering once
+    per pass, every chunk of triangles over its window (raster.chunk_windows, as the
+    renderers render) and over the whole image (no windows), on the card and on the CPU:
+    the images of the two must be equal on each device.  Seconds per pass, after one
+    untimed pass: the median of n_passes synchronized passes on the card, one pass on
+    the CPU (a tracking step renders six passes: five correspondence iterations and the
+    results)."""
+    from unittest import mock
+
+    from m3t_tpu_torch.ops import raster
+
+    result = {}
+    for dev in ("cuda", "cpu"):
+        srv, _, scene = occluded_scene_graph(inp, models, dev)
+        if not srv.SetUp():
+            raise AssertionError(f"render windows: Tracker.SetUp failed on {dev}")
+        for body, position in zip(scene["bodies"], HOST_BODIES):
+            body.set_body2world_pose(moving(position)(0))
+        renderers = srv.correspondence_renderer_ptrs
+        if not all(r.StartRendering() for r in renderers):         # warm-up, untimed
+            raise AssertionError(f"render windows: a render failed on {dev}")
+        images = {}
+        for mode in ("windows", "whole_image"):
+            with (mock.patch.object(raster, "chunk_windows", lambda *args: None)
+                  if mode == "whole_image" else contextlib.nullcontext()):
+                seconds = []
+                for _ in range(n_passes if dev == "cuda" else 1):
+                    torch.cuda.synchronize()
+                    begin = time.perf_counter()
+                    if not all(r.StartRendering() for r in renderers):
+                        raise AssertionError(f"render windows: a render failed on {dev}")
+                    torch.cuda.synchronize()
+                    seconds.append(time.perf_counter() - begin)
+            result[f"{dev}_{mode}_s_per_pass"] = statistics.median(seconds)
+            images[mode] = [t.cpu() for r in renderers
+                            for t in (r.depth_image, getattr(r, "silhouette_image", None))
+                            if t is not None]
+        if not all(torch.equal(a, b) for a, b in zip(images["windows"],
+                                                      images["whole_image"])):
+            raise AssertionError(f"render windows: windowed and whole-image renders "
+                                 f"differ on {dev}")
+    result["renderers"] = len(renderers)
+    log(f"focused renders, windowed against whole-image: {json.dumps(result)}")
+    return result
+
+
+def check_host_card_against_cpu(label, graph, inp, models, n_steps: int = 2,
+                                parted_allowed: int = 1):
+    """Phase 10x: the graph on the card and on the CPU, detection and the starting
+    step at frame 0, then a tracking step per frame, each step started on both devices
+    from the CPU's state (fused_serve.read_graph_state / load_graph_state: joint poses,
+    link poses, histograms).  Poses and histograms compared after the starting step and
+    every step, batch entry by batch entry (a body, or a structure of two links);
+    at most ``parted_allowed`` entries may part beyond PHASE7_ATOL, each within
+    HOST_PARTED_BOUNDS, logged by name and step.  A witness graph on the CPU starts every
+    step from the CPU's state nudged (its detectors' poses at step 0); a card entry that
+    parts where the witness does not part from the CPU is unexplained, and fails."""
+    from m3t_tpu_torch import fused_serve
+
+    trackers = {}
+    for dev in ("cuda", "cpu", "witness"):
+        trackers[dev] = graph(inp, models, "cpu" if dev == "witness" else dev)[0]
+        if not trackers[dev].SetUp():
+            raise AssertionError(f"{label}: Tracker.SetUp failed on {dev}")
+        trackers[dev].ExecuteDetection(start_tracking=True)
+    card, cpu, witness = trackers["cuda"], trackers["cpu"], trackers["witness"]
+    for detector in witness.detector_ptrs:
+        detector.link2world_pose = nudged_pose(detector.link2world_pose)
+    names = [o.name for o in cpu.optimizer_ptrs]
+    per_entry = len(graph_poses(cpu)) // len(names)
+    worst = {n: 0.0 for n in HOST_PARTED_BOUNDS}
+    parted, beyond, witnessed, unexplained = {}, [], {}, []
+    cpu_s = 0.0
+    for i in range(n_steps):
+        for dev, srv in trackers.items():
+            begin = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                ok = (srv.UpdateCameras(i) and srv.CalculateConsistentPoses()
+                      and srv.ExecuteDetectingStep(i) and srv.ExecuteStartingStep(i)
+                      and srv.ExecuteTrackingStep(i))
+            if dev == "cpu":
+                cpu_s += time.perf_counter() - begin
+            if not ok:
+                raise AssertionError(f"{label}: step {i} failed on {dev}")
+        diffs = entry_diffs(card, cpu, len(names))
+        witness_diffs = entry_diffs(witness, cpu, len(names))
+        for entry, name in enumerate(names):
+            event = {n: float(d[entry]) for n, d in diffs.items()}
+            moved = {n: float(d[entry]) for n, d in witness_diffs.items()}
+            if any(d > PHASE7_ATOL for d in moved.values()):
+                witnessed.setdefault(name, []).append(i)
+                log(f"{label}: the nudged CPU parts from the CPU at {name}, step {i}: "
+                    f"max abs diff {moved}")
+            if any(d > PHASE7_ATOL for d in event.values()):
+                parted.setdefault(name, []).append(i)
+                log(f"{label}: {name} parted at step {i}: max abs diff {event}")
+                if any(event[n] > b for n, b in HOST_PARTED_BOUNDS.items()):
+                    beyond.append((name, i, event))
+                if i not in witnessed.get(name, []):
+                    unexplained.append((name, i, event))
+        worst = {n: max(worst[n], float(d.max())) for n, d in diffs.items()}
+        state = fused_serve.read_graph_state(cpu)
+        fused_serve.load_graph_state(card, state)
+        fused_serve.load_graph_state(witness, nudged(state))
+    log(f"{label}: card vs CPU, {len(names)} entries of {per_entry} link(s), {n_steps} "
+        f"steps from equal states: max abs diff {worst}; parted {parted} (allowed "
+        f"{parted_allowed}, bounds {HOST_PARTED_BOUNDS}); the CPU nudged by a relative "
+        f"{WITNESS_NUDGE} parts from the CPU at {witnessed}; unexplained {unexplained}; "
+        f"CPU steps {cpu_s:.1f} s")
+    return dict(max_abs_diff=worst, parted=parted, parted_allowed=parted_allowed,
+                beyond_bounds=beyond, witness_parted=witnessed, unexplained=unexplained,
+                cpu_steps_s=cpu_s, twin_mismatches=[])
+
+
 def kernel_line(shapes, paths):
     """The kernels JSON entries: times and bounds per flagship cycle of the kernel's
-    path (the sum over the cycle's calls), launches from that path's counted run."""
+    path (the sum over the cycle's calls), launches from that path's counted run, and
+    the launches of phase 10's host path (``host_path_launches``: it launches none)."""
     kernels = []
     for name, source, replaces, path in (
             ("sample_lines", REGION_SOURCE, "m3t_tpu/ops/region_fast.py:232", "region"),
@@ -1892,7 +2480,9 @@ def kernel_line(shapes, paths):
             bound_ms=per_cycle("bound_ms"),
             bound_by=max(("bytes", "operations"), key=lambda by, rows=rows: sum(
                 s["bound_ms"] * s["per_cycle"] for s in rows if s["bound_by"] == by)),
-            library_ms=None if None in library else per_cycle("library_ms")))
+            library_ms=None if None in library else per_cycle("library_ms"),
+            host_path_launches=sum(paths[p]["kernel_launches"]
+                                   for p in ("host_occluded", "host_structures"))))
     return kernels
 
 
@@ -2064,15 +2654,33 @@ def main() -> int:
              len(kmc["cam2ref"]))):
         card_vs_cpu[label] = check_card_against_cpu(label, path_inp, cycle,
                                                     parted_allowed=parted_allowed)
+    # Phase 10: the host path through RunTrackerProcess, an occluded scene with every
+    # scene check (10o) and articulated structures with constraints (10k), then the
+    # same graphs on the card against the CPU (10x).
+    phase10_begin = time.perf_counter()
+    paths["host_occluded"] = run_host_path("host_occluded", occluded_scene_graph, inp,
+                                           models, "models occlusions")
+    paths["host_structures"] = run_host_path("host_structures", structure_graph, inp,
+                                             models, "has constraints")
+    paths["host_occluded"]["normal_image"] = check_normal_image(inp, models)
+    paths["host_occluded"]["render_windows"] = check_render_windows(inp, models)
+    for label, graph in (("host occluded", occluded_scene_graph),
+                         ("host structures", structure_graph)):
+        card_vs_cpu[label] = check_host_card_against_cpu(label, graph, inp, models)
+    phase10_s = time.perf_counter() - phase10_begin
+    log(f"phase 10 took {phase10_s:.1f} s")
+    log(f"held on the CPU only, for want of cv2 on this machine: {CV2_ONLY}")
     disagree = {label: case for label, case in card_vs_cpu.items()
-                if len(case["parted"]) > case["parted_allowed"] or case["twin_mismatches"]}
+                if len(case["parted"]) > case["parted_allowed"] or case["twin_mismatches"]
+                or case.get("beyond_bounds") or case.get("unexplained")}
     if disagree:
         raise AssertionError(f"card and CPU disagree beyond atol {PHASE7_ATOL}: {disagree}")
     dryrun = run_dryrun()
 
     print(json.dumps({"kernel_shapes": shapes}))
     print(json.dumps({"paths": paths, "card_vs_cpu": card_vs_cpu, "dryrun": dryrun,
-                      "card": card, "model_generation_s": generation_s}))
+                      "card": card, "model_generation_s": generation_s,
+                      "phase10_s": phase10_s}))
     print(card)
     print(json.dumps({"kernels": kernel_line(shapes, paths)}))
     print(json.dumps({"ok": True, "device": {

@@ -11,20 +11,25 @@ generated on the host (``body.Body``, ``region_model.RegionModel`` and
 g++-built library in ``native/``) and stacked with ``pipeline.RegionModelArrays`` /
 ``DepthModelArrays.from_models``.
 
-The reference-shaped object graph serves on top of them: cameras, modalities, links,
-optimizers and detectors driven by a :class:`Tracker` (``tracker.py``), whose tracking
-step runs through the fused cycle (``fused_serve.FusedServeBackend``) with
-``use_fused_cycle=True``.  Its names load lazily, as the JAX package's do.
+The reference-shaped object graph serves on top of them: cameras (also the live ones of
+``hardware_camera.py``), renderers over a ``RendererGeometry``, the region, depth and
+texture modalities, links with hard and soft constraints, optimizers, detectors and
+viewers driven by a :class:`Tracker` (``tracker.py``), or built from a config file by
+``GenerateConfiguredTracker`` (``generator.py``).  The tracking step runs through the
+fused cycle (``fused_serve.FusedServeBackend``) with ``use_fused_cycle=True`` where the
+graph allows it, else on the host path.  Its names load lazily, as the JAX package's do;
+OpenCV and the camera SDKs are imported only where they run.
 """
 
 import torch
 
-# Pose/geometry math must be exact float32, as m3t_tpu.common forces
+# Pose/geometry math must be exact float32, as m3t_tpu/common.py forces
 # jax_default_matmul_precision="highest": TF32 keeps ~3 decimal digits.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 _LAZY = {
+    "Intrinsics": "m3t_tpu_torch.common",
     "Body": "m3t_tpu_torch.body",
     "Camera": "m3t_tpu_torch.camera",
     "ColorCamera": "m3t_tpu_torch.camera",
@@ -49,6 +54,30 @@ _LAZY = {
     "Subscriber": "m3t_tpu_torch.subscriber",
     "Tracker": "m3t_tpu_torch.tracker",
     "FusedServeBackend": "m3t_tpu_torch.fused_serve",
+    "TextureModality": "m3t_tpu_torch.texture_modality",
+    "Constraint": "m3t_tpu_torch.constraint",
+    "SoftConstraint": "m3t_tpu_torch.soft_constraint",
+    "RendererGeometry": "m3t_tpu_torch.renderer_geometry",
+    "IDType": "m3t_tpu_torch.renderer",
+    "FocusedBasicDepthRenderer": "m3t_tpu_torch.renderer",
+    "FocusedDepthRenderer": "m3t_tpu_torch.renderer",
+    "FocusedNormalRenderer": "m3t_tpu_torch.renderer",
+    "FocusedSilhouetteRenderer": "m3t_tpu_torch.renderer",
+    "FullBasicDepthRenderer": "m3t_tpu_torch.renderer",
+    "FullDepthRenderer": "m3t_tpu_torch.renderer",
+    "FullNormalRenderer": "m3t_tpu_torch.renderer",
+    "FullSilhouetteRenderer": "m3t_tpu_torch.renderer",
+    "AzureKinectColorCamera": "m3t_tpu_torch.hardware_camera",
+    "AzureKinectDepthCamera": "m3t_tpu_torch.hardware_camera",
+    "OpenCVColorCamera": "m3t_tpu_torch.hardware_camera",
+    "RealSenseColorCamera": "m3t_tpu_torch.hardware_camera",
+    "RealSenseDepthCamera": "m3t_tpu_torch.hardware_camera",
+    "Viewer": "m3t_tpu_torch.viewer",
+    "ImageColorViewer": "m3t_tpu_torch.viewer",
+    "ImageDepthViewer": "m3t_tpu_torch.viewer",
+    "NormalColorViewer": "m3t_tpu_torch.viewer",
+    "NormalDepthViewer": "m3t_tpu_torch.viewer",
+    "GenerateConfiguredTracker": "m3t_tpu_torch.generator",
 }
 
 

@@ -18,10 +18,13 @@ back to the host path with a printed notice; the reasons are the JAX package's.
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 
 from m3t_tpu_torch import pipeline
+from m3t_tpu_torch.common import to_numpy
 from m3t_tpu_torch.depth_modality import DepthModality
 from m3t_tpu_torch.region_modality import RegionModality, f32_intrinsics
 
@@ -252,17 +255,63 @@ class FusedServeBackend:
         return True
 
 
-def load_tracker_state(tracker, body2world_poses, histograms_f, histograms_b) -> None:
-    """Write rigid bodies' poses (N, 4, 4) and their region modalities' histograms
-    (N, n_bins**3), numpy in the order of ``tracker.optimizer_ptrs``, into the links and
-    ColorHistograms of the tracker's graph (on their device), through the attributes
-    that the fused backend writes after each step."""
-    for i, opt in enumerate(tracker.optimizer_ptrs):
-        link = opt.ReferencedLinks()[0]
-        link.set_link2world_pose(np.asarray(body2world_poses[i], np.float32))
-        modality = next(m for m in link.modality_ptrs if isinstance(m, RegionModality))
-        hist = modality.color_histograms_ptr
-        hist.histogram_f = torch.as_tensor(np.asarray(histograms_f[i], np.float32),
-                                           device=hist.device)
-        hist.histogram_b = torch.as_tensor(np.asarray(histograms_b[i], np.float32),
-                                           device=hist.device)
+def read_graph_state(tracker) -> dict:
+    """What a tracking step of ``tracker``'s graph starts from, as host numpy keyed by
+    object name: every link's joint poses and pose (``links``), every region modality's
+    histograms (``histograms``) and every TextureModality's keyframes, detections and
+    keyframe bookkeeping (``keyframes``).  It reads attributes only, so it takes a
+    Tracker of the JAX package as well; :func:`load_graph_state` writes the result into
+    a port graph of the same names."""
+    state = {"links": {}, "histograms": {}, "keyframes": {}}
+
+    def host(x):
+        return None if x is None else to_numpy(x)
+
+    for opt in tracker.optimizer_ptrs:
+        for link in opt.ReferencedLinks():
+            state["links"][link.name] = tuple(
+                host(p) for p in (link.body2joint_pose, link.joint2parent_pose,
+                                  link.link2world_pose))
+            for m in link.modality_ptrs:
+                if hasattr(m, "_points_keyframes"):
+                    state["keyframes"][m.name] = dict(
+                        points=[host(p) for p in m._points_keyframes],
+                        descriptors=[host(d) for d in m._descriptors_keyframes],
+                        keypoints=host(m._keypoints), descriptors_now=host(m._descriptors),
+                        orientation=host(m._orientation_last_keyframe),
+                        age=int(m.keyframe_age))
+                elif getattr(m, "color_histograms_ptr", None) is not None:
+                    hist = m.color_histograms_ptr
+                    state["histograms"][m.name] = (host(hist.histogram_f),
+                                                   host(hist.histogram_b))
+    return state
+
+
+def load_graph_state(tracker, state: dict) -> None:
+    """Write :func:`read_graph_state`'s result into the port graph of ``tracker``: joint
+    poses and link poses (the body's pose follows its link), histograms on their device,
+    texture keyframes as host arrays; every one a copy, so that no two graphs share
+    memory."""
+    for opt in tracker.optimizer_ptrs:
+        for link in opt.ReferencedLinks():
+            body2joint, joint2parent, link2world = state["links"][link.name]
+            link.body2joint_pose = np.asarray(body2joint, np.float32).copy()
+            link.joint2parent_pose = np.asarray(joint2parent, np.float32).copy()
+            link.set_link2world_pose(np.asarray(link2world, np.float32).copy())
+            for m in link.modality_ptrs:
+                if m.name in state["keyframes"]:
+                    kf = state["keyframes"][m.name]
+                    m._points_keyframes = collections.deque(
+                        np.array(p, np.float32) for p in kf["points"])
+                    m._descriptors_keyframes = collections.deque(
+                        None if d is None else np.array(d) for d in kf["descriptors"])
+                    m._keypoints = np.array(kf["keypoints"], np.float32)
+                    m._descriptors = (None if kf["descriptors_now"] is None
+                                      else np.array(kf["descriptors_now"]))
+                    m._orientation_last_keyframe = np.array(kf["orientation"])
+                    m.keyframe_age = kf["age"]
+                elif m.name in state["histograms"]:
+                    hist = m.color_histograms_ptr
+                    hist.histogram_f, hist.histogram_b = (
+                        torch.tensor(np.asarray(h, np.float32), device=hist.device)
+                        for h in state["histograms"][m.name])

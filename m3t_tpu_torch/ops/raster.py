@@ -6,7 +6,9 @@ Three parts:
     are linear in pixel coordinates (u, v), so coverage and depth at a pixel are
     ``(a*u + b*v) + c`` per plane.  The scene-occlusion queries
     (ops/occlusion.py) evaluate the same planes at single pixels; :func:`rasterize`
-    evaluates them over a whole (H, W) image (the image mode).
+    evaluates them over an (H, W) image (the image mode and the renderers; a renderer
+    evaluates each chunk of triangles only over the pixels it can cover,
+    :func:`chunk_windows`).
   * :func:`rasterize_np`, the host-side z-buffer of the JAX module's ``rasterize_np``,
     which renders the model views and the synthetic frames: the C++ rasterizer of
     ``native/``, or its numpy version on request.
@@ -15,13 +17,13 @@ Three parts:
 Conventions: pixel (iu, iv) samples the projected point (u, v) = (iu, iv); camera frame
 x right, y down, z forward, u = x*fu/z + ppu; background depth = +inf; silhouette id 0 =
 background.  Every expression keeps the JAX source's operation order with one rounding
-per operation; the normal images of the JAX rasterizer are not ported (nothing on the
-port's paths renders them).
+per operation.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -41,12 +43,14 @@ class TriangleSoup(NamedTuple):
     ids:    (B, T) int32 — silhouette id per triangle
     bbox:   (B, T, 4) float32 — projected [u_min, u_max, v_min, v_max] per triangle
             (garbage for invalid triangles)
+    normals:(B, T, 3) float32 — camera-frame unit normals (for normal rendering)
     """
 
     coeffs: torch.Tensor
     valid: torch.Tensor
     ids: torch.Tensor
     bbox: torch.Tensor
+    normals: torch.Tensor
 
 
 def _per_scene(x, like: torch.Tensor):
@@ -107,29 +111,98 @@ def triangle_coefficients(tri_verts_cam, ids, fu, fv, ppu, ppv, cull_backfaces=F
                           az, bz, cz], dim=-1)
     bbox = torch.stack([u.amin(dim=-1), u.amax(dim=-1),
                         vv.amin(dim=-1), vv.amax(dim=-1)], dim=-1)
-    return TriangleSoup(coeffs, valid, ids.to(torch.int32), bbox)
+    n = torch.linalg.cross(v[..., 1, :] - v[..., 0, :], v[..., 2, :] - v[..., 0, :])
+    n = n / torch.clamp(torch.sqrt(torch.sum(n * n, dim=-1, keepdim=True)), min=1e-12)
+    return TriangleSoup(coeffs, valid, ids.to(torch.int32), bbox, n)
 
 
-def rasterize(soup: TriangleSoup, width: int, height: int, chunk: int = 64):
+# A chunk's window: the boxes of its valid triangles widened by this many pixels.
+WINDOW_MARGIN = 2
+# |area| / (longest edge)^2 below which a triangle is a sliver (smallest angle under
+# about 2e-3 rad): a chunk holding one is evaluated over the whole image.
+SLIVER_RATIO = 1e-3
+
+
+def chunk_windows(soup: TriangleSoup, width: int, height: int, chunk: int) -> list:
+    """Per chunk of ``chunk`` triangles, the pixel rectangle (u0, u1, v0, v1), ends
+    excluded, outside which none of its valid triangles covers a pixel in any scene, or
+    None when none of them reaches the image.
+
+    The rectangle is the union of the triangles' boxes widened by WINDOW_MARGIN pixels.
+    At a pixel that far outside a triangle's box, the exact edge function of the edge
+    that separates it is at least about margin * sin(smallest angle) * edge length,
+    while the float32 rounding of ``(a*u + b*v) + c`` stays below 1e-6 of the terms, so
+    the coverage test there is false as evaluated; a chunk with a sliver (SLIVER_RATIO)
+    takes the whole image.  One host read for all chunks."""
+    b, n_tri, _ = soup.coeffs.shape
+    n_chunks = -(-n_tri // chunk)
+    pad = n_chunks * chunk - n_tri
+    coeffs = soup.coeffs
+    # Edge k's vector is (b_k, -a_k) up to sign: |area| = |a0 b1 - a1 b0|.
+    area = torch.abs(coeffs[..., 0] * coeffs[..., 4] - coeffs[..., 3] * coeffs[..., 1])
+    longest = torch.stack([coeffs[..., 3 * k] ** 2 + coeffs[..., 3 * k + 1] ** 2
+                           for k in range(3)], dim=-1).amax(dim=-1)
+    sliver = soup.valid & ~(area > SLIVER_RATIO * longest)
+    inf = torch.full_like(soup.bbox[..., :2], float("inf"))
+    lo = torch.where(soup.valid[..., None], soup.bbox[..., [0, 2]], inf)
+    hi = torch.where(soup.valid[..., None], soup.bbox[..., [1, 3]], -inf)
+    lo = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=float("inf"))
+    hi = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=-float("inf"))
+    sliver = torch.nn.functional.pad(sliver, (0, pad))
+    lo = lo.reshape(b, n_chunks, chunk, 2).amin(dim=(0, 2))
+    hi = hi.reshape(b, n_chunks, chunk, 2).amax(dim=(0, 2))
+    sliver = sliver.reshape(b, n_chunks, chunk).any(dim=2).any(dim=0)
+    windows = []
+    for (u_lo, v_lo), (u_hi, v_hi), thin in zip(lo.tolist(), hi.tolist(),
+                                                 sliver.tolist()):
+        if thin:
+            windows.append((0, width, 0, height))
+            continue
+        if not (u_lo <= u_hi and v_lo <= v_hi):          # no valid triangle (or NaN)
+            windows.append(None)
+            continue
+        u0 = max(0, math.floor(u_lo) - WINDOW_MARGIN)
+        u1 = min(width, math.ceil(u_hi) + WINDOW_MARGIN + 1)
+        v0 = max(0, math.floor(v_lo) - WINDOW_MARGIN)
+        v1 = min(height, math.ceil(v_hi) + WINDOW_MARGIN + 1)
+        windows.append((u0, u1, v0, v1) if u0 < u1 and v0 < v1 else None)
+    return windows
+
+
+def rasterize(soup: TriangleSoup, width: int, height: int, chunk: int = 64,
+              with_normals: bool = False, windows: list | None = None):
     """Z-buffer rasterization of B scenes (m3t_tpu/ops/raster.py:118-188).
 
     Returns (depth (B, H, W) f32 meters, +inf background; id_image (B, H, W) int32, 0
-    background).  Triangles go in chunks of ``chunk``: within a chunk the first index of
-    the closest triangle wins (argmin), across chunks only a strictly closer triangle
-    replaces the one stored."""
+    background[; normal_image (B, H, W, 3) f32, 0 background]).  Triangles go in chunks
+    of ``chunk``: within a chunk the first index of the closest triangle wins (argmin),
+    across chunks only a strictly closer triangle replaces the one stored; the id and
+    the normal follow the same triangle, so that the image is the earliest of the
+    closest triangles at every pixel, whatever the chunk size.  Every chunk is evaluated
+    over the whole image, with no host read, unless ``windows`` (:func:`chunk_windows`
+    of the same soup, image and chunk) limits each chunk to its window: elsewhere it
+    covers no pixel, so the images are the same."""
     b, n_tri, _ = soup.coeffs.shape
     dev = soup.coeffs.device
-    iv, iu = torch.meshgrid(torch.arange(height, dtype=torch.float32, device=dev),
-                            torch.arange(width, dtype=torch.float32, device=dev),
-                            indexing="ij")
-    uu = iu.reshape(1, 1, -1)
-    vv = iv.reshape(1, 1, -1)
-    depth = torch.full((b, height * width), float("inf"), device=dev)
-    id_img = torch.zeros((b, height * width), dtype=torch.int32, device=dev)
-    for start in range(0, n_tri, chunk):
+    depth = torch.full((b, height, width), float("inf"), device=dev)
+    id_img = torch.zeros((b, height, width), dtype=torch.int32, device=dev)
+    normal_img = (torch.zeros((b, height, width, 3), device=dev) if with_normals
+                  else None)
+    if windows is None:
+        windows = [(0, width, 0, height)] * -(-n_tri // chunk)
+    for index, window in enumerate(windows):
+        if window is None:
+            continue
+        u0, u1, v0, v1 = window
+        start = index * chunk
+        iv, iu = torch.meshgrid(torch.arange(v0, v1, dtype=torch.float32, device=dev),
+                                torch.arange(u0, u1, dtype=torch.float32, device=dev),
+                                indexing="ij")
+        uu = iu.reshape(1, 1, -1)
+        vv = iv.reshape(1, 1, -1)
         c = soup.coeffs[:, start:start + chunk, :, None]              # (B, t, 12, 1)
         planes = [c[:, :, 3 * k] * uu + c[:, :, 3 * k + 1] * vv + c[:, :, 3 * k + 2]
-                  for k in range(4)]                                  # (B, t, HW) each
+                  for k in range(4)]                                  # (B, t, hw) each
         inside = ((planes[0] >= 0.0) & (planes[1] >= 0.0) & (planes[2] >= 0.0)
                   & soup.valid[:, start:start + chunk, None])
         inv_z = planes[3]
@@ -138,11 +211,22 @@ def rasterize(soup: TriangleSoup, width: int, height: int, chunk: int = 64):
                         torch.full_like(inv_z, float("inf")))
         best = torch.argmin(z, dim=1, keepdim=True)                   # first minimum
         best_z = torch.gather(z, 1, best)[:, 0]
-        closer = best_z < depth
-        depth = torch.where(closer, best_z, depth)
+        shape = (b, v1 - v0, u1 - u0)
+        stored = depth[:, v0:v1, u0:u1]
+        closer = best_z.reshape(shape) < stored
+        depth[:, v0:v1, u0:u1] = torch.where(closer, best_z.reshape(shape), stored)
         chunk_ids = torch.gather(soup.ids[:, start:start + chunk], 1, best[:, 0])
-        id_img = torch.where(closer, chunk_ids, id_img)
-    return depth.reshape(b, height, width), id_img.reshape(b, height, width)
+        id_img[:, v0:v1, u0:u1] = torch.where(closer, chunk_ids.reshape(shape),
+                                              id_img[:, v0:v1, u0:u1])
+        if with_normals:
+            chunk_normals = torch.gather(soup.normals[:, start:start + chunk], 1,
+                                         best[:, 0, :, None].expand(-1, -1, 3))
+            normal_img[:, v0:v1, u0:u1] = torch.where(
+                closer[..., None], chunk_normals.reshape(shape + (3,)),
+                normal_img[:, v0:v1, u0:u1])
+    if with_normals:
+        return depth, id_img, normal_img
+    return depth, id_img
 
 
 # --------------------------------------------------------------------------------------

@@ -247,8 +247,8 @@ class TrackingState(NamedTuple):
 
 
 class PipelineConfig(NamedTuple):
-    """m3t_tpu.pipeline.PipelineConfig: the region cycle, depth fusion, texture terms,
-    measured occlusions and the focused scene's checks."""
+    """PipelineConfig of m3t_tpu/pipeline.py: the region cycle, depth fusion, texture
+    terms, measured occlusions and the focused scene's checks."""
 
     cfg: RegionConfig = RegionConfig()
     scales: tuple = (6, 4, 2, 1)

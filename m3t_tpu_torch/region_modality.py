@@ -301,6 +301,10 @@ class RegionModality(Modality):
         return self.color_camera_ptr.world2camera_pose @ self.body_ptr.body2world_pose
 
     def _tensor(self, a):
+        """A host array, or a tensor on any device (a renderer's image), on the
+        modality's device."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device)
         return torch.as_tensor(np.asarray(a), device=self.device)
 
     def _fetch_view(self):

@@ -734,5 +734,6 @@ def test_serve_on_card_matches_cpu(cuda_device, rgbd, tmp_path, monkeypatch):
             np.testing.assert_allclose(g[parted], w[parted], rtol=0, atol=bound,
                                        err_msg=f"step {i}, parted body "
                                                f"{np.flatnonzero(parted)}")
-        fused_serve.load_tracker_state(trackers["cuda"], *want)
+        fused_serve.load_graph_state(trackers["cuda"],
+                                     fused_serve.read_graph_state(trackers["cpu"]))
     assert calls and all(calls), calls

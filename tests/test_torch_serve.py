@@ -12,7 +12,8 @@ columns left of u = 70, and occlusion handling from the second frame
 and read the same cache file.  The trackers run frame by frame; after every step the
 port's poses and histograms are held against JAX's (atol 1e-4, the tolerance of
 tests/test_torch_pipeline.py), and the JAX state is then loaded into the port
-(fused_serve.load_tracker_state), so that each step starts both from the same state.
+(fused_serve.read_graph_state and load_graph_state), so that each step starts both from
+the same state.
 """
 
 from types import SimpleNamespace
@@ -160,7 +161,7 @@ def _state(tracker, modalities):
 def test_tracker_matches_jax(world, fused, rgbd):
     """RunTrackerProcess's loop body, frame by frame: detection at frame 0, the starting
     step, then a tracking step per frame, on the host path or the fused backend."""
-    graphs = {pkg: _graph(world, pkg, f"tm_{pkg}", fused, rgbd) for pkg in PACKAGES}
+    graphs = {pkg: _graph(world, pkg, "tm", fused, rgbd) for pkg in PACKAGES}
     for tracker, _ in graphs.values():
         tracker.ExecuteDetection(start_tracking=True)
     for i in range(N_FRAMES):
@@ -174,7 +175,7 @@ def test_tracker_matches_jax(world, fused, rgbd):
         np.testing.assert_allclose(tposes, jposes, rtol=0, atol=ATOL, err_msg=f"step {i}")
         for t, j in zip(thists, jhists):
             np.testing.assert_allclose(t, j, rtol=0, atol=ATOL, err_msg=f"step {i}")
-        tfused_serve.load_tracker_state(tt, jposes, *jhists)
+        tfused_serve.load_graph_state(tt, tfused_serve.read_graph_state(jt))
     # The sphere was tracked (tests/test_fused_serve.py's bounds).
     truth = np_pose(translation=[0.002 * (N_FRAMES - 1), -0.001 * (N_FRAMES - 1), 0.6])
     assert np.linalg.norm(jposes[0, :2, 3] - truth[:2, 3]) < 0.004
