@@ -175,9 +175,35 @@ Phases (any failure exits non-zero; no phase catches its own failure):
          state with every link pose moved by a relative 1e-7 (at step 0, its detector's
          pose), parts from the CPU at the same entry and step: a rounding-boundary event
          of the plain arithmetic, which the CPU meets alone.
+  11. the evaluators (m3t_tpu_torch/eval) and their entry points on synthetic datasets in
+     the published layouts, in a temporary directory, each frame rendered by the port's
+     host rasterizer, written by its PNG writer and read back equal by its reader; the
+     bodies are clusters of spheres (no symmetry), their models generated in parallel
+     processes (n_divides 1; RBOT's at image_size 800, the others' at 400) and copied
+     under every body name of the same mesh; no model is generated during a run:
+     11w. the datasets: RBOT (18 body names, 4 sequences of 10 frames at 640x512, the
+         squirrel_small partner crossing in d_occlusion), YCB-Video (2 sequences of 3
+         bodies at 640x480, 8-bit BGR and 16-bit depth at 0.1 mm, detector poses 4 mm off),
+         RTB (a two-link revolute structure through its tracker_config/config.yaml, 2
+         sequences with ground-truth depth), OPT (1920x1080) and Choi (640x480);
+     11r. RBOT through the entry point's configuration (modelled occlusions and region
+         checking, 200 lines): 72 runs and 18 hidden partners, B = 90, fused, every
+         kernel launch counted from 0: sample_lines, bin_counts and query_eval launched in
+         every frame's cycle; tracking success, seconds per body-frame, peak memory; then
+         python -m m3t_tpu_torch.examples.evaluate_rbot_dataset on the same files must
+         print the same tracking success;
+     11y, 11k, 11o. YCB-Video fused RGB-D, RTB fused kinematic with depth, OPT and Choi
+         through the serve path (execute_tracking_step_maybe_fused): sample_lines,
+         bin_counts and sample_windows launched in every cycle or step, scores held;
+     11h. RBOT, YCB-Video and RTB on the host path, 3 frames each;
+     11x. card against CPU on the same files: RBOT (2 bodies x a_regular and d_occlusion,
+         5 frames), YCB-Video, RTB, OPT and Choi: per batch entry the same success flag
+         per frame, every scored pose within PHASE7_ATOL and the scores within it; at most
+         one entry per case may part, and only where the CPU on inputs nudged by a relative
+         WITNESS_NUDGE parts too.  cv2 must not have been imported.
      A line names what the card's machine cannot run for want of cv2 and is held on the
-     CPU only: the TextureModality, the disk cameras, the generator over disk cameras and
-     the viewers' display and saving.
+     CPU only: the TextureModality, loader frames other than PNG and the viewers' display
+     and saving.
 The last two lines are the kernels JSON and {"ok": true, "device": {...}}.  With
 --profile, one window each of region, RGB-D, occlusion-path, kinematic, kinematic RGB-D,
 RGB-D scan step, multi-camera and multi-camera kinematic cycles is also traced with
@@ -1940,34 +1966,41 @@ HOST_PARTS = {"StartRendering": "rendering", "CalculateCorrespondences": "corres
 HOST_PARTED_BOUNDS = {"pose": 1e-2, "histogram_f": 1e-3, "histogram_b": 1e-3}
 # Phase 10x's witness: the relative move of every link pose of the second CPU graph.
 WITNESS_NUDGE = 1e-7
-CV2_ONLY = ("TextureModality (ORB/BRISK/SIFT detection and matching), LoaderColorCamera "
-            "and LoaderDepthCamera (PNG frames from disk), GenerateConfiguredTracker over "
-            "disk cameras, and the viewers' display and saving")
+CV2_ONLY = ("TextureModality (ORB/BRISK/SIFT detection and matching), the loader cameras' "
+            "frames other than PNG, and the viewers' display and saving")
+
+
+def render_frame(intr_t, items, rng, noise: int = 8, gain: float = 1.0, depth_scale=None):
+    """A colour (H, W, 3) uint8 frame, and with ``depth_scale`` a uint16 depth frame, of
+    ``items`` (body-frame triangles (T, 3, 3), camera-frame pose, colour), rendered by the
+    port's host rasterizer on the background of the flagship frames, times ``gain``,
+    with uniform noise of +-``noise``; depth 2 m where no triangle lies."""
+    from m3t_tpu_torch.ops.raster import rasterize_np
+
+    tris = np.concatenate([t @ pose[:3, :3].T + pose[:3, 3] for t, pose, _ in items])
+    ids = np.repeat(np.arange(1, len(items) + 1), [len(t) for t, _, _ in items])
+    depth, id_img = rasterize_np(tris.astype(np.float32), ids, intr_t.fu, intr_t.fv,
+                                 intr_t.ppu, intr_t.ppv, intr_t.width, intr_t.height,
+                                 cull_backfaces=True)
+    frame = np.empty((intr_t.height, intr_t.width, 3), np.float32)
+    frame[:] = (40, 120, 190)
+    for k, (_, _, colour) in enumerate(items):
+        frame[id_img == k + 1] = colour
+    frame = frame * gain + rng.integers(-noise, noise + 1, frame.shape)
+    colour = np.clip(np.rint(frame), 0, 255).astype(np.uint8)
+    if depth_scale is None:
+        return colour, None
+    return colour, np.round(np.where(np.isfinite(depth), depth, 2.0)
+                            / depth_scale).astype(np.uint16)
 
 
 def host_frames(intr_t, items, n_frames: int = HOST_FRAMES, seed: int = 20):
     """Colour (H, W, 3) uint8 and depth (H, W) uint16 frames of ``items`` (body-frame
-    triangles, a function of the frame giving the camera-frame pose, colour), rendered
-    by the port's host rasterizer on the background of the flagship frames, with noise."""
-    from m3t_tpu_torch.ops.raster import rasterize_np
-
-    colours, depths = [], []
+    triangles, a function of the frame giving the camera-frame pose, colour)."""
     rng = np.random.default_rng(seed)
-    for f in range(n_frames):
-        tris = np.concatenate([t @ pose(f)[:3, :3].T + pose(f)[:3, 3] for t, pose, _ in items])
-        ids = np.repeat(np.arange(1, len(items) + 1), [len(t) for t, _, _ in items])
-        depth, id_img = rasterize_np(tris, ids, intr_t.fu, intr_t.fv, intr_t.ppu,
-                                     intr_t.ppv, intr_t.width, intr_t.height,
-                                     cull_backfaces=True)
-        frame = np.empty((intr_t.height, intr_t.width, 3), np.int16)
-        frame[:] = (40, 120, 190)
-        for k, (_, _, colour) in enumerate(items):
-            frame[id_img == k + 1] = colour
-        frame += rng.integers(-8, 9, frame.shape).astype(np.int16)
-        colours.append(np.clip(frame, 0, 255).astype(np.uint8))
-        depths.append(np.round(np.where(np.isfinite(depth), depth, 2.0) / DEPTH_SCALE)
-                      .astype(np.uint16))
-    return colours, depths
+    frames = [render_frame(intr_t, [(t, pose(f), colour) for t, pose, colour in items], rng,
+                           depth_scale=DEPTH_SCALE) for f in range(n_frames)]
+    return [c for c, _ in frames], [d for _, d in frames]
 
 
 def still(position):
@@ -2456,10 +2489,921 @@ def check_host_card_against_cpu(label, graph, inp, models, n_steps: int = 2,
                 cpu_steps_s=cpu_s, twin_mismatches=[])
 
 
-def kernel_line(shapes, paths):
+# ----------------------------------------------------------------------------------------
+# Phase 11: the evaluators and their entry points, on synthetic datasets in the published
+# layouts, written with the port's PNG writer
+# ----------------------------------------------------------------------------------------
+
+EVAL_RBOT_FRAMES = 10      # 11r: frames per RBOT sequence (the dataset's 1000, cut)
+EVAL_FRAMES = 5            # 11y keyframes per sequence; 11k, 11o tracked frames
+EVAL_HOST_FRAMES = 3       # 11h: frames of each host-mode run
+EVAL_CPU_RBOT_FRAMES = 5   # 11x: frames of the RBOT subset (the CPU's scene checks are slow)
+EVAL_RBOT_SEQUENCES = ("a_regular", "b_dynamiclight", "c_noisy", "d_occlusion")
+EVAL_RBOT_NOISE = {"a_regular": 6, "b_dynamiclight": 6, "c_noisy": 24, "d_occlusion": 6}
+EVAL_YCB_SEQUENCES = (48, 49)
+EVAL_YCB_BODIES = ("002_master_chef_can", "003_cracker_box", "005_tomato_soup_can")
+EVAL_YCB_DEPTH_SCALE = 0.0001
+EVAL_COLOURS = ((170, 60, 40), (60, 170, 60), (150, 50, 160))
+# Region models of the RBOT bodies (the evaluator's own sphere radius and depth offsets;
+# n_divides 1 (42 views) at image_size 800, where the reference takes n_divides 4 at
+# 2000), and the region and depth models of the other datasets' bodies.
+EVAL_RBOT_MODEL = dict(sphere_radius=0.8, n_divides=1, n_points=200,
+                       max_radius_depth_offset=0.01, stride_depth_offset=0.002,
+                       image_size=800)
+EVAL_MODEL = dict(n_divides=1, n_points=200, image_size=400)
+EVAL_PARTED_ALLOWED = 1   # 11x: batch entries per case that may part, each witnessed
+SUCCESS_T, SUCCESS_R = 0.05, 5.0 * np.pi / 180.0  # the RBOT criterion, every 11x frame
+
+
+def eval_meshes() -> dict:
+    """The procedural meshes of phase 11's bodies (meters, body frame, 80 triangles per
+    sphere): two clusters of overlapping spheres of different sizes, four and three, with
+    no symmetry, so that a silhouette fixes their pose (an ellipsoid's or a cube's mirror
+    symmetries let monocular region tracking drift, and a sphere's rotation wanders), and
+    a smaller three-sphere cluster for RBOT's occluder, squirrel_small."""
+    from m3t_tpu_torch.utils import procedural
+
+    def spheres(spec):
+        parts = [procedural.icosphere(1, r) for r, _ in spec]
+        offsets = np.cumsum([0] + [len(v) for v, _ in parts[:-1]])
+        return (np.concatenate([v + np.float32(c) for (v, _), (_, c) in zip(parts, spec)])
+                .astype(np.float32), np.concatenate([t + o for (_, t), o in zip(parts, offsets)]))
+
+    return {"quad": spheres([(0.035, (0.0, 0.0, 0.0)), (0.03, (0.05, 0.0, 0.01)),
+                             (0.025, (-0.02, 0.045, -0.01)), (0.02, (0.0, -0.04, 0.03))]),
+            "tri": spheres([(0.04, (-0.03, -0.01, 0.0)), (0.028, (0.045, 0.015, 0.0)),
+                            (0.022, (0.0, 0.05, 0.02))]),
+            "small": spheres([(0.025, (0.0, 0.0, 0.0)), (0.018, (0.03, 0.01, 0.0)),
+                              (0.014, (0.0, 0.03, 0.012))])}
+
+
+def eval_pose(translation, rotvec=(0.0, 0.0, 0.0)) -> np.ndarray:
+    from scipy.spatial.transform import Rotation
+
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, :3] = Rotation.from_rotvec(rotvec).as_matrix()
+    pose[:3, 3] = translation
+    return pose
+
+
+class FrameWriter:
+    """Renders frames (render_frame), writes them with the port's PNG writer and reads
+    each back with its reader, which must return the array written."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.files, self.read_s, self.read_frames = 0, 0.0, 0
+
+    def render(self, intr, items, noise: int = 6, gain: float = 1.0, depth_scale=None):
+        """render_frame of ``items`` (vertices, triangles, camera-frame pose, colour)."""
+        return render_frame(intr, [(v[t], pose, colour) for v, t, pose, colour in items],
+                            self.rng, noise, gain, depth_scale)
+
+    def write(self, path: Path, image: np.ndarray) -> None:
+        from m3t_tpu_torch.utils import png
+
+        path.parent.mkdir(parents=True, exist_ok=True)
+        png.write_png(path, image)
+        begin = time.perf_counter()
+        back = png.read_png(path)
+        if image.shape == (512, 640, 3):
+            self.read_s += time.perf_counter() - begin
+            self.read_frames += 1
+        if back.dtype != image.dtype or not np.array_equal(back, image):
+            raise AssertionError(f"11w: {path} reads back different from the frame written")
+        self.files += 1
+
+
+def pose_rows(poses, scale: float = 1.0) -> str:
+    """Rows of 9 row-major rotation values and 3 translation values (times scale)."""
+    return "\n".join(" ".join(f"{x:.9f}" for x in list(p[:3, :3].reshape(-1))
+                              + list(p[:3, 3] * scale)) for p in poses) + "\n"
+
+
+def write_rbot(root: Path, names, sequences, n_frames: int, writer: FrameWriter) -> dict:
+    """11w: an RBOT dataset (<root>/<body>/<body>.obj in mm, <body>/frames/<sequence>
+    <index:04d>.png, poses_first.txt and poses_second.txt in mm) at RBOT_INTRINSICS.
+    Every body follows poses_first; squirrel_small follows poses_second in front of it
+    in d_occlusion.  Bodies alternate between two meshes, and bodies of one mesh share
+    their frames (hard links)."""
+    from m3t_tpu_torch.eval.rbot_evaluator import OCCLUSION_BODY_NAME, RBOT_INTRINSICS
+    from m3t_tpu_torch.utils.obj_loader import save_obj
+
+    meshes = eval_meshes()
+    first = [eval_pose((-0.01 + 0.002 * i, 0.005, 0.55), (0.3, 0.4 + 0.02 * i, 0.1 + 0.01 * i))
+             for i in range(n_frames + 1)]
+    second = [eval_pose((-0.10 + 0.008 * i, 0.02, 0.42)) for i in range(n_frames + 1)]
+    for file, poses in (("poses_first.txt", first), ("poses_second.txt", second)):
+        (root / file).write_text("# R11 R12 R13 R21 R22 R23 R31 R32 R33 tx ty tz\n"
+                                 + pose_rows(poses, 1000.0))
+    mesh_of = {name: ("quad", "tri")[k % 2] for k, name in enumerate(names)}
+    mesh_of[OCCLUSION_BODY_NAME] = "small"
+    for name, kind in mesh_of.items():
+        (root / name).mkdir(parents=True, exist_ok=True)
+        v, t = meshes[kind]
+        save_obj(str(root / name / f"{name}.obj"), v * 1000.0, t)
+    small = meshes["small"]
+    for kind in sorted(set(mesh_of.values()) - {"small"}):
+        v, t = meshes[kind]
+        for seq in sequences:
+            for i in range(n_frames):
+                items = [(v, t, first[i], EVAL_COLOURS[0])]
+                if seq == "d_occlusion":
+                    items.append((*small, second[i], EVAL_COLOURS[1]))
+                gain = 1.0 + 0.25 * np.sin(i) if seq == "b_dynamiclight" else 1.0
+                colour, _ = writer.render(RBOT_INTRINSICS, items, EVAL_RBOT_NOISE[seq], gain)
+                writer.write(root / "_frames" / kind / f"{seq}{i:04d}.png", colour)
+    for name in names:
+        (root / name / "frames").mkdir(exist_ok=True)
+        for seq in sequences:
+            for i in range(n_frames):
+                os.link(root / "_frames" / mesh_of[name] / f"{seq}{i:04d}.png",
+                        root / name / "frames" / f"{seq}{i:04d}.png")
+    return mesh_of
+
+
+def quaternion_rows(poses) -> str:
+    from scipy.spatial.transform import Rotation
+
+    rows = []
+    for p in poses:
+        q = Rotation.from_matrix(p[:3, :3]).as_quat()  # x y z w
+        rows.append(f"{q[3]} {q[0]} {q[1]} {q[2]} {p[0, 3]} {p[1, 3]} {p[2, 3]}")
+    return "\n".join(rows) + "\n"
+
+
+def write_ycb(root: Path, ext: Path, writer: FrameWriter) -> dict:
+    """11w: a YCB-Video dataset (<root>/data/<seq:04d>/<frame:06d>-color.png and
+    -depth.png, 16-bit at depth scale 0.0001, image_sets/keyframe.txt, models/<body>/
+    textured.obj) with the ground truth and the detector's poses of every keyframe
+    (<ext>/poses/{gt,cosypose}/<seq:04d>_<body>.txt), at YCB_INTRINSICS: three bodies
+    side by side per sequence; the detector 4 mm off in x."""
+    from m3t_tpu_torch.eval.ycb_evaluator import YCB_INTRINSICS
+    from m3t_tpu_torch.utils.obj_loader import save_obj
+
+    meshes = eval_meshes()
+    mesh_of = dict(zip(EVAL_YCB_BODIES, ("quad", "tri", "quad")))
+    for name, kind in mesh_of.items():
+        (root / "models" / name).mkdir(parents=True, exist_ok=True)
+        save_obj(str(root / "models" / name / "textured.obj"), *meshes[kind])
+    keyframes = []
+    for s, seq in enumerate(EVAL_YCB_SEQUENCES):
+        poses = {name: [eval_pose((-0.15 + 0.15 * k + 0.002 * i, 0.01 * s, 0.65 + 0.03 * k),
+                                  (0.0, 0.015 * i, 0.3 * k)) for i in range(EVAL_FRAMES)]
+                 for k, name in enumerate(EVAL_YCB_BODIES)}
+        for i in range(EVAL_FRAMES):
+            items = [(*meshes[mesh_of[name]], poses[name][i], EVAL_COLOURS[k])
+                     for k, name in enumerate(EVAL_YCB_BODIES)]
+            colour, depth = writer.render(YCB_INTRINSICS, items,
+                                          depth_scale=EVAL_YCB_DEPTH_SCALE)
+            directory = root / "data" / f"{seq:04d}"
+            writer.write(directory / f"{i + 1:06d}-color.png", colour)
+            writer.write(directory / f"{i + 1:06d}-depth.png", depth)
+            keyframes.append(f"{seq:04d}/{i + 1:06d}")
+        for name in EVAL_YCB_BODIES:
+            for folder, offset in (("gt", 0.0), ("cosypose", 0.004)):
+                (ext / "poses" / folder).mkdir(parents=True, exist_ok=True)
+                detected = [p.copy() for p in poses[name]]
+                for p in detected:
+                    p[0, 3] += offset
+                (ext / "poses" / folder / f"{seq:04d}_{name}.txt").write_text(
+                    quaternion_rows(detected))
+    (root / "image_sets").mkdir(exist_ok=True)
+    (root / "image_sets" / "keyframe.txt").write_text("\n".join(keyframes) + "\n")
+    return mesh_of
+
+
+RTB_INTR = dict(fu=600.0, fv=600.0, ppu=319.5, ppv=239.5, width=640, height=480)
+RTB_ARM = 0.13
+
+
+def rtb_config(directory: Path) -> None:
+    """<object>/model/tracker_config/config.yaml (the COMBINED mode's generator config):
+    a two-link revolute structure (the four-sphere cluster and, 0.13 m along its x, the
+    three-sphere cluster on a joint about z) with region and depth modalities on loader
+    colour and depth cameras: tests/test_evaluators_extra.py's RTB configuration with
+    depth added."""
+    def matrix(pose):
+        data = ", ".join(f"{v:g}" for v in np.asarray(pose).reshape(-1))
+        return f"!!opencv-matrix\n  rows: 4\n  cols: 4\n  dt: f\n  data: [{data}]"
+
+    intrinsics = "intrinsics:\n" + "".join(
+        f"  {key}: {RTB_INTR[name]}\n" for key, name in (
+            ("f_u", "fu"), ("f_v", "fv"), ("pp_x", "ppu"), ("pp_y", "ppv"),
+            ("width", "width"), ("height", "height")))
+    loader = 'load_index: 0\nn_leading_zeros: 0\nload_image_type: "png"\n'
+    files = {
+        "color_camera.yaml": f'%YAML:1.2\nload_directory: "."\n{intrinsics}'
+                             f'image_name_pre: "color_"\n{loader}',
+        "depth_camera.yaml": f'%YAML:1.2\nload_directory: "."\n{intrinsics}'
+                             f'depth_scale: 0.001\nimage_name_pre: "depth_"\n{loader}',
+        "child_link.yaml": f"%YAML:1.2\nbody2joint_pose: "
+                           f"{matrix(eval_pose((RTB_ARM, 0.0, 0.0)))}\n"
+                           "free_directions: [0, 0, 1, 0, 0, 0]\n",
+        "detector.yaml": f"%YAML:1.2\nlink2world_pose: {matrix(np.eye(4))}\n",
+    }
+    model_yaml = '%YAML:1.2\nmodel_path: "INFER_FROM_NAME"\n' + "".join(
+        f"{k}: {v}\n" for k, v in EVAL_MODEL.items())
+    config = ["%YAML:1.2\nBody:\n"]
+    for name in ("parent", "child"):
+        files[f"{name}.yaml"] = ('%YAML:1.2\ngeometry_path: "INFER_FROM_NAME"\n'
+                                 "geometry_unit_in_meter: 1.0\n"
+                                 "geometry_counterclockwise: 1\ngeometry_enable_culling: 1\n")
+        files[f"{name}_region_model.yaml"] = files[f"{name}_depth_model.yaml"] = model_yaml
+        config.append(f'  - name: "{name}"\n    metafile_path: "{name}.yaml"\n')
+    for cls, camera in (("LoaderColorCamera", "color_camera"),
+                        ("LoaderDepthCamera", "depth_camera")):
+        config.append(f'{cls}:\n  - name: "{camera}"\n    metafile_path: "{camera}.yaml"\n')
+    for cls, kind in (("RegionModel", "region"), ("DepthModel", "depth")):
+        config.append(f"{cls}:\n")
+        for name in ("parent", "child"):
+            config.append(f'  - name: "{name}_{kind}_model"\n'
+                          f'    metafile_path: "{name}_{kind}_model.yaml"\n'
+                          f'    body: "{name}"\n')
+    for cls, kind, camera in (("RegionModality", "region", "color_camera"),
+                              ("DepthModality", "depth", "depth_camera")):
+        config.append(f"{cls}:\n")
+        for name in ("parent", "child"):
+            config.append(f'  - name: "{name}_{kind}_modality"\n    body: "{name}"\n'
+                          f'    {camera}: "{camera}"\n'
+                          f'    {kind}_model: "{name}_{kind}_model"\n')
+    config.append(
+        'Link:\n  - name: "child_link"\n    metafile_path: "child_link.yaml"\n'
+        '    body: "child"\n'
+        '    modalities: ["child_region_modality", "child_depth_modality"]\n'
+        '  - name: "parent_link"\n    body: "parent"\n'
+        '    modalities: ["parent_region_modality", "parent_depth_modality"]\n'
+        '    child_links: ["child_link"]\n'
+        'Optimizer:\n  - name: "structure_optimizer"\n    root_link: "parent_link"\n'
+        'StaticDetector:\n  - name: "detector"\n    metafile_path: "detector.yaml"\n'
+        '    optimizer: "structure_optimizer"\n'
+        'Tracker:\n  - name: "tracker"\n    optimizers: ["structure_optimizer"]\n'
+        '    detectors: ["detector"]\n')
+    files["config.yaml"] = "".join(config)
+    directory.mkdir(parents=True, exist_ok=True)
+    for name, text in files.items():
+        (directory / name).write_text(text)
+
+
+def write_rtb(root: Path, writer: FrameWriter) -> None:
+    """11w: an RTB dataset: <root>/two_link/model/tracker_config (rtb_config), and per
+    sequence <root>/two_link/easy/<seq:03d>/rgb/color_<i>.png, depth_ground_truth/
+    depth_<i>.png (1 mm) and poses_gt/{parent,child}.txt (rows of 9 + 3, world frame =
+    camera frame): the structure turning its joint by 0.04 rad per frame."""
+    from m3t_tpu_torch.common import Intrinsics
+    from m3t_tpu_torch.utils.obj_loader import save_obj
+
+    meshes = eval_meshes()
+    config = root / "two_link" / "model" / "tracker_config"
+    rtb_config(config)
+    save_obj(str(config / "parent.obj"), *meshes["quad"])
+    save_obj(str(config / "child.obj"), *meshes["tri"])
+    intr = Intrinsics(**RTB_INTR)
+    for seq in (0, 1):
+        base = root / "two_link" / "easy" / f"{seq:03d}"
+        parent = [eval_pose((-0.08 + 0.03 * seq + 0.002 * i, -0.02, 0.6), (0.0, 0.0, 0.2 * seq))
+                  for i in range(EVAL_FRAMES + 1)]
+        child = [p @ eval_pose((0.0, 0.0, 0.0), (0.0, 0.0, 0.04 * i))
+                 @ eval_pose((RTB_ARM, 0.0, 0.0)) for i, p in enumerate(parent)]
+        for i in range(EVAL_FRAMES + 1):
+            colour, depth = writer.render(intr, [(*meshes["quad"], parent[i], EVAL_COLOURS[0]),
+                                                 (*meshes["tri"], child[i], EVAL_COLOURS[1])],
+                                          depth_scale=0.001)
+            writer.write(base / "rgb" / f"color_{i}.png", colour)
+            writer.write(base / "depth_ground_truth" / f"depth_{i}.png", depth)
+        (base / "poses_gt").mkdir(parents=True, exist_ok=True)
+        (base / "poses_gt" / "parent.txt").write_text(pose_rows(parent))
+        (base / "poses_gt" / "child.txt").write_text(pose_rows(child))
+
+
+def write_opt(root: Path, writer: FrameWriter) -> None:
+    """11w: an OPT dataset in the generic layout at OPT_INTRINSICS (1920x1080):
+    <root>/Model3D/quad/quad.obj, 3D/seq1/color/<i:04d>.png, depth/<i:04d>.png
+    (1 mm) from 1, and 3D/seq1/quad.txt (rows of 9 + 3)."""
+    from m3t_tpu_torch.eval.opt_evaluator import OPT_INTRINSICS
+    from m3t_tpu_torch.utils.obj_loader import save_obj
+
+    mesh = eval_meshes()["quad"]
+    (root / "Model3D" / "quad").mkdir(parents=True, exist_ok=True)
+    save_obj(str(root / "Model3D" / "quad" / "quad.obj"), *mesh)
+    seq = root / "3D" / "seq1"
+    poses = [eval_pose((0.02 + 0.002 * i, -0.01, 0.6), (0.1, 0.015 * i, 0.0))
+             for i in range(EVAL_FRAMES + 1)]
+    for i in range(EVAL_FRAMES):
+        colour, depth = writer.render(OPT_INTRINSICS, [(*mesh, poses[i], EVAL_COLOURS[2])],
+                                      depth_scale=0.001)
+        writer.write(seq / "color" / f"{i + 1:04d}.png", colour)
+        writer.write(seq / "depth" / f"{i + 1:04d}.png", depth)
+    (seq / "quad.txt").write_text(pose_rows(poses))
+
+
+def write_choi(ext: Path, writer: FrameWriter) -> None:
+    """11w: a Choi sequence at CHOI_INTRINSICS: <ext>/models/kinect_box.obj and
+    <ext>/seq_synth_kinect_box_kitchen/color<i:04d>.png, depth<i:04d>.png (0.1 mm) from
+    0, with poses_gt.txt (rows of 9 + 3)."""
+    from m3t_tpu_torch.eval.choi_evaluator import CHOI_INTRINSICS
+    from m3t_tpu_torch.utils.obj_loader import save_obj
+
+    mesh = eval_meshes()["quad"]
+    (ext / "models").mkdir(parents=True, exist_ok=True)
+    save_obj(str(ext / "models" / "kinect_box.obj"), *mesh)
+    seq = ext / "seq_synth_kinect_box_kitchen"
+    poses = [eval_pose((-0.01, 0.02 - 0.0015 * i, 0.55), (0.0, 0.0, 0.02 * i))
+             for i in range(EVAL_FRAMES + 1)]
+    for i in range(EVAL_FRAMES):
+        colour, depth = writer.render(CHOI_INTRINSICS, [(*mesh, poses[i], EVAL_COLOURS[0])],
+                                      depth_scale=0.0001)
+        writer.write(seq / f"color{i:04d}.png", colour)
+        writer.write(seq / f"depth{i:04d}.png", depth)
+    (seq / "poses_gt.txt").write_text(pose_rows(poses))
+
+
+def make_eval_model(spec: dict) -> None:
+    """Generates one model (run in a process of its own by prepare_eval_models): a Body
+    from spec["obj"] as the evaluators load it and a region or depth model of it."""
+    from m3t_tpu_torch.body import Body
+    from m3t_tpu_torch.depth_model import DepthModel
+    from m3t_tpu_torch.region_model import RegionModel
+
+    body = Body(spec["body"], geometry_path=spec["obj"],
+                geometry_unit_in_meter=spec["unit"], geometry_counterclockwise=True,
+                geometry_enable_culling=spec["culling"])
+    if not body.SetUp():
+        raise RuntimeError(f"body {spec['body']} failed to set up")
+    cls = RegionModel if spec["kind"] == "region" else DepthModel
+    if not cls(f"{spec['body']}_{spec['kind']}", body, spec["path"],
+               **spec["params"]).SetUp():
+        raise RuntimeError(f"model {spec['path']} failed to set up")
+
+
+def prepare_eval_models(specs, targets) -> float:
+    """Phase 11's distinct models, one process each, all started together; then each
+    copied under the names of every body with its mesh and settings (a model's cache
+    key is its parameters and its body's geometry, not its name).  Returns seconds."""
+    import shutil
+
+    begin = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    procs = [subprocess.Popen([sys.executable, "-c",
+                               f"import chip_smoke; chip_smoke.make_eval_model({spec!r})"],
+                              cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for spec in specs]
+    outs = [proc.communicate(timeout=600)[0] for proc in procs]
+    failed = [(spec["path"], out[-2000:]) for spec, proc, out in zip(specs, procs, outs)
+              if proc.returncode != 0]
+    if failed:
+        raise AssertionError(f"11w: model generation failed: {failed}")
+    for source, destinations in targets.items():
+        for destination in destinations:
+            Path(destination).parent.mkdir(parents=True, exist_ok=True)
+            shutil.copyfile(source, destination)
+    return time.perf_counter() - begin
+
+
+def write_eval_datasets(root: Path, rbot_names) -> dict:
+    """11w: every dataset of phase 11 under root, and their models; returns the
+    directories, the frame counts and the seconds."""
+    begin = time.perf_counter()
+    writer = FrameWriter(seed=31)
+    ds = {name: root / name for name in ("rbot", "rbot_ext", "ycb", "ycb_ext", "rtb",
+                                         "opt", "opt_ext", "choi", "choi_ext", "models")}
+    for directory in ds.values():
+        directory.mkdir(parents=True, exist_ok=True)
+    rbot_mesh = write_rbot(ds["rbot"], rbot_names, EVAL_RBOT_SEQUENCES, EVAL_RBOT_FRAMES,
+                           writer)
+    ycb_mesh = write_ycb(ds["ycb"], ds["ycb_ext"], writer)
+    write_rtb(ds["rtb"], writer)
+    write_opt(ds["opt"], writer)
+    write_choi(ds["choi_ext"], writer)
+    written_s = time.perf_counter() - begin
+    specs, targets = [], {}
+    for kind in ("quad", "tri", "small"):
+        names = [n for n, k in rbot_mesh.items() if k == kind]
+        path = str(ds["models"] / f"rbot_{kind}.npz")
+        specs.append(dict(body=names[0], obj=str(ds["rbot"] / names[0] / f"{names[0]}.obj"),
+                          unit=0.001, culling=False, kind="region", path=path,
+                          params=EVAL_RBOT_MODEL))
+        targets[path] = [ds["rbot_ext"] / f"{n}_model.npz" for n in names]
+    config = ds["rtb"] / "two_link" / "model" / "tracker_config"
+    for kind, link in (("quad", "parent"), ("tri", "child")):
+        names = [n for n, k in ycb_mesh.items() if k == kind]
+        for model in ("region", "depth"):
+            path = str(ds["models"] / f"{kind}_{model}.npz")
+            specs.append(dict(body=names[0],
+                              obj=str(ds["ycb"] / "models" / names[0] / "textured.obj"),
+                              unit=1.0, culling=True, kind=model, path=path,
+                              params=EVAL_MODEL))
+            # The generator's INFER_FROM_NAME model path: <name>_rmodel.npz, _dmodel.npz.
+            targets[path] = ([ds["ycb_ext"] / "models" / f"{n}_{model}_model.npz"
+                              for n in names]
+                             + [config / f"{link}_{model}_model_{model[0]}model.npz"])
+            if kind == "quad":
+                targets[path] += [ds["opt_ext"] / f"quad_{model}_model.npz",
+                                  ds["choi_ext"] / f"kinect_box_{model}_model.npz"]
+    models_s = prepare_eval_models(specs, targets)
+    result = dict(files=writer.files, write_and_check_s=written_s, models_s=models_s,
+                  distinct_models=len(specs),
+                  reader_ms_per_640x512_bgr=writer.read_s / max(writer.read_frames, 1) * 1e3)
+    log(f"11w: {writer.files} PNG frames written and read back equal in {written_s:.1f} s "
+        f"(the reader {result['reader_ms_per_640x512_bgr']:.2f} ms per 640x512 BGR frame), "
+        f"{len(specs)} models generated in parallel in {models_s:.1f} s")
+    return ds, result
+
+
+def nudged_poses(poses):
+    """Poses (..., 4, 4) with rotation and translation moved by a relative WITNESS_NUDGE."""
+    poses = np.array(poses, np.float32)
+    poses[..., :3, :] *= np.float32(1.0 + WITNESS_NUDGE)
+    return poses
+
+
+def rbot_args(ds, names, sequences, device) -> list:
+    """The RBOT entry point's arguments for phase 11's dataset: the occlusion sequence's
+    partner modelled and region checking on, the cut models and frame count."""
+    return [str(ds["rbot"]), str(ds["rbot_ext"]), "--bodies", *names,
+            "--sequences", *sequences, "--model-occlusions", "--region-checking",
+            "--n-frames", str(EVAL_RBOT_FRAMES), "--model-divides", "1",
+            "--model-points", "200", "--model-image-size", "800", "--device", device]
+
+
+def rbot_case(ds, names, sequences, fused=True, n_frames=EVAL_RBOT_FRAMES):
+    """make(device, nudge) -> (evaluator, patches): the RBOT evaluator as the entry point
+    builds it; nudged, its ground-truth poses move by WITNESS_NUDGE."""
+    from m3t_tpu_torch.eval import rbot_evaluator
+    from m3t_tpu_torch.examples import evaluate_rbot_dataset as entry
+
+    def make(device, nudge=False):
+        ev = entry.make_evaluator(entry.parse_args(rbot_args(ds, names, sequences, device)))
+        ev.use_fused_pipeline = fused
+        ev.n_frames = n_frames
+        read = rbot_evaluator.read_poses_rbot
+        return ev, ([(rbot_evaluator, "read_poses_rbot",
+                      lambda *a: nudged_poses(read(*a)))] if nudge else [])
+    return make
+
+
+def ycb_case(ds, sequences=EVAL_YCB_SEQUENCES, fused=True, n_keyframes=None):
+    """The YCB-Video evaluator in the reference configuration (evaluate_ycb_dataset.py)
+    with phase 11's cut models; nudged, the ground-truth and detector poses move."""
+    from m3t_tpu_torch.eval import ycb_evaluator
+
+    def make(device, nudge=False):
+        ev = ycb_evaluator.YCBEvaluator(
+            "ycb", str(ds["ycb"]), str(ds["ycb_ext"]), list(sequences),
+            {seq: list(EVAL_YCB_BODIES) for seq in sequences}, device=device)
+        ev.use_fused_pipeline = fused
+
+        def region_modality(m):
+            m.n_lines_max, m.scales, m.standard_deviations = 200, [7, 4, 2], [25.0, 15.0, 10.0]
+
+        def depth_modality(m):
+            m.n_points_max, m.considered_distances = 200, [0.07, 0.05, 0.04]
+
+        def tracker(t):
+            t.n_corr_iterations, t.n_update_iterations = 4, 2
+
+        def model(m):
+            for key, value in EVAL_MODEL.items():
+                setattr(m, key, value)
+
+        ev.region_modality_setter, ev.depth_modality_setter = region_modality, depth_modality
+        ev.tracker_setter = tracker
+        ev.region_model_setter = ev.depth_model_setter = model
+        ev.SetUp()
+        if n_keyframes is not None:
+            ev.keyframes = {s: k[:n_keyframes] for s, k in ev.keyframes.items()}
+        read = ycb_evaluator.read_quaternion_poses
+
+        def nudged_read(path):
+            poses, valid = read(path)
+            return nudged_poses(poses), valid
+        return ev, ([(ycb_evaluator, "read_quaternion_poses", nudged_read)]
+                    if nudge else [])
+    return make
+
+
+def rtb_case(ds, sequences=(0, 1), fused=True, n_rows=None):
+    """The RTB evaluator in the reference configuration (6 x 2 iterations) over phase 11's
+    structure; n_rows cuts the ground truth (and so the frames); nudged, it moves."""
+    from m3t_tpu_torch.eval import rtb_evaluator
+
+    def make(device, nudge=False):
+        ev = rtb_evaluator.RTBEvaluator("rtb", str(ds["rtb"]), str(ds["rtb"]), ["two_link"],
+                                        ["easy"], ["depth_ground_truth"], list(sequences),
+                                        device=device)
+        ev.use_fused_pipeline = fused
+
+        def tracker(t):
+            t.n_corr_iterations, t.n_update_iterations = 6, 2
+
+        ev.tracker_setter = tracker
+        read = rtb_evaluator.RTBEvaluator._load_gt_poses
+
+        def load(gt_dir, body_names):
+            gt = read(gt_dir, body_names)
+            return {name: (nudged_poses(p) if nudge else p)[:n_rows] for name, p in gt.items()}
+        return ev, [(ev, "_load_gt_poses", load)]
+    return make
+
+
+def serve_case(ds, dataset: str, fused=True):
+    """The OPT or Choi evaluator in its reference configuration (evaluate_opt_dataset.py,
+    evaluate_choi_dataset.py) with phase 11's cut models; nudged, its ground truth (and
+    so its detector's pose) moves."""
+    from m3t_tpu_torch.eval import choi_evaluator, opt_evaluator
+
+    def make(device, nudge=False):
+        if dataset == "opt":
+            ev = opt_evaluator.OPTEvaluator("opt", str(ds["opt"]), str(ds["opt_ext"]),
+                                            ["quad"], sequence_names=["seq1"],
+                                            device=device)
+            scales, stds = [6, 4, 1], [15.0, 5.0, 1.5]
+            distances, depth_stds = [0.05, 0.02, 0.01], [0.035, 0.035, 0.025]
+            read = opt_evaluator.read_matrix_poses
+            patches = [(opt_evaluator, "read_matrix_poses",
+                        lambda path: nudged_poses(read(path)))]
+        else:
+            ev = choi_evaluator.ChoiEvaluator("choi", str(ds["choi"]), str(ds["choi_ext"]),
+                                              ["kinect_box"], device=device)
+            scales, stds, distances, depth_stds = [2, 1], [5.0], [0.01], [0.01, 0.001]
+            read = choi_evaluator.ChoiEvaluator._read_gt_poses
+            patches = [(ev, "_read_gt_poses", lambda d: nudged_poses(read(d)))]
+        ev.use_fused_pipeline = fused
+
+        def region_modality(m):
+            m.n_lines_max, m.scales, m.standard_deviations = 200, scales, stds
+
+        def depth_modality(m):
+            m.n_points_max, m.use_depth_scaling, m.stride_length = 200, False, 0.005
+            m.considered_distances, m.standard_deviations = distances, depth_stds
+
+        def model(m):
+            for key, value in EVAL_MODEL.items():
+                setattr(m, key, value)
+
+        ev.region_modality_setter, ev.depth_modality_setter = region_modality, depth_modality
+        ev.region_model_setter = ev.depth_model_setter = model
+        return ev, (patches if nudge else [])
+    return make
+
+
+@contextlib.contextmanager
+def patched(patches):
+    saved = [(owner, name, owner.__dict__.get(name, None), name in owner.__dict__)
+             for owner, name, _ in patches]
+    for owner, name, value in patches:
+        setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        for owner, name, value, had in reversed(saved):
+            if had:
+                setattr(owner, name, value)
+            else:
+                delattr(owner, name)
+
+
+class ScoredPoses:
+    """Stands in for an evaluator module's ``metrics``: every call passes through, and
+    the pose and ground truth of each scoring call are kept in order."""
+
+    SCORED = {"translation_error": 0, "add_error": 1}  # name -> index of the pose
+
+    def __init__(self, module):
+        self._module, self.pairs = module, []
+
+    def __getattr__(self, name):
+        fn = getattr(self._module, name)
+        if name not in self.SCORED:
+            return fn
+        at = self.SCORED[name]
+
+        def scored(*args, **kwargs):
+            self.pairs.append((np.array(args[at], np.float64),
+                               np.array(args[at + 1], np.float64)))
+            return fn(*args, **kwargs)
+        return scored
+
+
+@contextlib.contextmanager
+def launches_per_call(owner, name):
+    """The kernel launches of each call of owner.<name> made inside the block, and its
+    milliseconds (``ms``: from the call to the end of its device work; the evaluators
+    read the poses right after it anyway)."""
+    counters, real, per_call = launch_counters(), getattr(owner, name), []
+
+    def counted(*args, **kwargs):
+        before = {n: fn.launches for n, fn in counters.items()}
+        begin = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        call = {n: fn.launches - before[n] for n, fn in counters.items()}
+        per_call.append(dict(call, ms=(time.perf_counter() - begin) * 1e3))
+        return out
+
+    setattr(owner, name, counted)
+    try:
+        yield per_call
+    finally:
+        setattr(owner, name, real)
+
+
+def run_eval(label, make, device, nudge=False) -> dict:
+    """One evaluation: its results, the poses it scored and its seconds; no model may
+    be generated during it (phase 11's are all prepared)."""
+    ev, patches = make(device, nudge)
+    module = sys.modules[type(ev).__module__]
+    spy = ScoredPoses(module.metrics)
+    out = io.StringIO()
+    with patched(patches + [(module, "metrics", spy)]), contextlib.redirect_stdout(out):
+        begin = time.perf_counter()
+        results = ev.Evaluate()
+        seconds = time.perf_counter() - begin
+    if "Start generating" in out.getvalue():
+        raise AssertionError(f"{label} on {device}: a model was generated during the run")
+    return dict(results=results, pairs=spy.pairs, seconds=seconds, text=out.getvalue())
+
+
+def score_leaves(results, prefix="") -> dict:
+    """The numbers of an evaluator's results, by path, without times and curves."""
+    leaves = {}
+    for key, value in results.items():
+        path = f"{prefix}/{key}"
+        if isinstance(value, dict):
+            leaves.update(score_leaves(value, path))
+        elif isinstance(value, (int, float)) and "time" not in path:
+            leaves[path] = float(value)
+    return leaves
+
+
+def frame_success(pose, gt) -> bool:
+    from m3t_tpu_torch.eval import metrics
+
+    return metrics.tracking_success(pose, gt, SUCCESS_T, SUCCESS_R)
+
+
+# The fused cycles that the evaluators and the serve backend call, by the position of
+# their state argument.
+EVAL_CYCLES = {"tracking_cycle": 4, "tracking_cycle_rgbd": 8, "tracking_cycle_kinematic": 5}
+
+
+@contextlib.contextmanager
+def cycle_calls(replay=None):
+    """Every call of the pipeline's fused cycles inside the block, as (name, args,
+    kwargs, result).  With ``replay`` (the calls of an earlier run), call k starts from
+    the state (and the occluder poses) of that run's call k, moved to this call's
+    device: each cycle of the two runs starts from equal states, as in phase 7."""
+    from m3t_tpu_torch import pipeline
+
+    real = {name: getattr(pipeline, name) for name in EVAL_CYCLES}
+    calls = []
+
+    def wrap(name):
+        at = EVAL_CYCLES[name]
+
+        def cycle(*args, **kwargs):
+            args = list(args)
+            if replay is not None:
+                _, given, given_kwargs, _ = replay[len(calls)]
+                dev = args[at][0].device
+                args[at] = type(args[at])(*(t.to(dev) for t in given[at]))
+                if kwargs.get("occluder_poses") is not None:
+                    kwargs["occluder_poses"] = given_kwargs["occluder_poses"].to(dev)
+            out = real[name](*args, **kwargs)
+            calls.append((name, args, kwargs, out))
+            return out
+        return cycle
+
+    for name in EVAL_CYCLES:
+        setattr(pipeline, name, wrap(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(pipeline, name, fn)
+
+
+def state_diffs(a, b) -> np.ndarray:
+    """The largest difference of each batch entry over every field of two states."""
+    return np.max([(x.cpu() - y.cpu()).abs().reshape(x.shape[0], -1).amax(1).numpy()
+                   for x, y in zip(a, b)], axis=0)
+
+
+def compare_eval(label, make) -> dict:
+    """11x: the evaluation on the card and on the CPU on the same files, each fused cycle
+    of the card's run started from the state that the CPU's run gave that cycle
+    (cycle_calls).  Per batch entry (a run, a hidden partner, a body of a run, or a
+    structure), every cycle's state (poses or joint poses, histograms) within
+    PHASE7_ATOL, the same success flag in every scored frame, and the scores within
+    PHASE7_ATOL.  An entry parts where a cycle's state differs beyond PHASE7_ATOL; at
+    most EVAL_PARTED_ALLOWED entries may part, each only in a cycle where the CPU, run
+    again from its own state nudged by a relative WITNESS_NUDGE, parts from itself at
+    that entry (a rounding-boundary event that the CPU meets alone).  Returns the
+    comparison, with ``failed`` set where it does not hold (the caller fails after
+    every case)."""
+    from m3t_tpu_torch import pipeline
+
+    with cycle_calls() as cpu_calls:
+        cpu = run_eval(label, make, "cpu")
+    with cycle_calls(replay=cpu_calls) as card_calls:
+        card = run_eval(label, make, "cuda")
+    if len(card_calls) != len(cpu_calls) or len(card["pairs"]) != len(cpu["pairs"]):
+        raise AssertionError(f"11x {label}: {len(card_calls)} cycles and {len(card['pairs'])} "
+                             f"scored poses on the card, {len(cpu_calls)} and "
+                             f"{len(cpu['pairs'])} on the CPU")
+    worst, parted, witnessed, unexplained = None, {}, {}, []
+    for k, ((name, _, _, got), (_, cpu_args, cpu_kwargs, want)) in enumerate(
+            zip(card_calls, cpu_calls)):
+        diffs = state_diffs(got, want)
+        worst = diffs if worst is None else np.maximum(worst, diffs)
+        events = np.flatnonzero(diffs > PHASE7_ATOL).tolist()
+        if not events:
+            continue
+        witness_args = list(cpu_args)
+        state = cpu_args[EVAL_CYCLES[name]]
+        witness_args[EVAL_CYCLES[name]] = type(state)(
+            torch.as_tensor(nudged_poses(state[0].numpy())), *state[1:])
+        moved = state_diffs(getattr(pipeline, name)(*witness_args, **cpu_kwargs), want)
+        for entry in events:
+            parted.setdefault(entry, []).append(k)
+            if moved[entry] > PHASE7_ATOL:
+                witnessed.setdefault(entry, []).append(k)
+            else:
+                unexplained.append((entry, k, float(diffs[entry]), float(moved[entry])))
+            log(f"11x {label}: entry {entry} parted in cycle {k} by {diffs[entry]:.3e}; the "
+                f"CPU from its state nudged moves it by {moved[entry]:.3e}")
+    flags = [k for k, ((pa, ga), (pb, gb)) in enumerate(zip(card["pairs"], cpu["pairs"]))
+             if frame_success(pa, ga) != frame_success(pb, gb)]
+    leaves = {dev: score_leaves(run["results"]) for dev, run in (("card", card), ("cpu", cpu))}
+    counts = [k for k in leaves["cpu"] if k.rsplit("/", 1)[-1].startswith("n_")
+              and leaves["card"].get(k) != leaves["cpu"][k]]
+    score_diff = max((abs(leaves["card"].get(k, np.inf) - v) for k, v in leaves["cpu"].items()),
+                     default=0.0)
+    failed = bool(flags or counts or unexplained or len(parted) > EVAL_PARTED_ALLOWED
+                  or (not parted and score_diff > PHASE7_ATOL))
+    result = dict(failed=failed, cycles=len(cpu_calls), entries=len(worst),
+                  scored_poses=len(cpu["pairs"]), max_abs_state_diff=float(worst.max()),
+                  max_abs_score_diff=float(score_diff), parted=parted,
+                  parted_allowed=EVAL_PARTED_ALLOWED, witness_parted=witnessed,
+                  unexplained=unexplained, flag_mismatches=flags, count_mismatches=counts,
+                  card_s=card["seconds"], cpu_s=cpu["seconds"])
+    log(f"11x {label}: card vs CPU: {json.dumps(result)}")
+    return result
+
+
+def card_eval(label, make, cycle_owner, cycle_name, want_every_call=()) -> dict:
+    """One evaluation on the card with every kernel launch counted from 0 and peak memory
+    read: the launches in all, and in each call of cycle_owner.<cycle_name> (the fused
+    cycle, or the tracker's step), each of which must launch every kernel named in
+    want_every_call."""
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    with launches_per_call(cycle_owner, cycle_name) as per_call:
+        run = run_eval(label, make, "cuda")
+    launches = {n: fn.launches for n, fn in counters.items()}
+    missing = [(k, name) for k, call in enumerate(per_call) for name in want_every_call
+               if call[name] <= 0]
+    call_ms = [call.pop("ms") for call in per_call]
+    if not per_call or missing:
+        raise AssertionError(f"{label}: {len(per_call)} calls of {cycle_name}; calls "
+                             f"without a kernel that each must launch: {missing}")
+    run.update(launches=launches, calls=len(per_call), call_ms=call_ms,
+               launches_per_call={n: [c[n] for c in per_call] for n in launches},
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return run
+
+
+def run_phase11() -> dict:
+    """Phase 11: the evaluators and their entry points on the card (see the module's
+    docstring).  Returns the "eval" record of the JSON line."""
+    import shutil
+    import tempfile
+
+    from m3t_tpu_torch import pipeline
+    from m3t_tpu_torch.eval import metrics
+    from m3t_tpu_torch.examples.evaluate_rbot_dataset import ALL_BODIES
+
+    begin = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="m3t_eval_"))
+    names = ALL_BODIES[:18]
+    try:
+        ds, datasets = write_eval_datasets(root, names)
+        out = {"datasets": datasets}
+        # 11r: RBOT at the width of its evaluation: 18 bodies x 4 sequences and the
+        # occlusion sequence's hidden partners, B = 90, through the entry point's
+        # configuration; then the entry point itself in a process of its own.
+        run = card_eval("11r rbot", rbot_case(ds, names, EVAL_RBOT_SEQUENCES), pipeline,
+                        "tracking_cycle", ("sample_lines", "bin_counts", "query_eval"))
+        res = run["results"]
+        n_runs = len(res["per_run"])
+        rbot = dict(batch=n_runs + len(names), runs=n_runs, frames=EVAL_RBOT_FRAMES,
+                    tracking_success=res["tracking_success"],
+                    mean_cycle_time_s=res["mean_cycle_time_s"],
+                    ms_per_frame=res["mean_cycle_time_s"] * n_runs * 1e3,
+                    launches=run["launches"],
+                    launches_per_frame={n: v / EVAL_RBOT_FRAMES
+                                        for n, v in run["launches"].items()},
+                    cycle_launches_per_frame={n: sorted(set(v)) for n, v in
+                                              run["launches_per_call"].items()},
+                    cycle_ms=run["call_ms"],
+                    peak_memory_bytes=run["peak_memory_bytes"], seconds=run["seconds"])
+        if n_runs != len(names) * len(EVAL_RBOT_SEQUENCES) or res["tracking_success"] < 0.9:
+            raise AssertionError(f"11r: {n_runs} runs, tracking success "
+                                 f"{res['tracking_success']}")
+        log(f"11r: {json.dumps(rbot)}")
+        begin_entry = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "m3t_tpu_torch.examples.evaluate_rbot_dataset",
+             *rbot_args(ds, names, EVAL_RBOT_SEQUENCES, "cuda")],
+            cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+            timeout=600)
+        last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+        rbot["entry_point"] = dict(rc=proc.returncode, last_line=last,
+                                   seconds=time.perf_counter() - begin_entry)
+        if proc.returncode != 0 or last != f"tracking success: {res['tracking_success']:.4f}":
+            raise AssertionError(f"11r: the entry point exited {proc.returncode} and printed "
+                                 f"{last!r} (in process {res['tracking_success']:.4f}): "
+                                 f"{proc.stderr[-3000:]}")
+        log(f"11r: python -m m3t_tpu_torch.examples.evaluate_rbot_dataset printed "
+            f"{last!r} in {rbot['entry_point']['seconds']:.1f} s")
+        out["rbot"] = rbot
+        # 11y, 11k, 11o: YCB-Video fused RGB-D, RTB fused kinematic with depth, OPT and
+        # Choi through the serve path.
+        fused = {
+            "ycb": (ycb_case(ds), pipeline, "tracking_cycle_rgbd",
+                    ("sample_lines", "bin_counts", "sample_windows"), "add_auc", 0.8),
+            "rtb": (rtb_case(ds), pipeline, "tracking_cycle_kinematic",
+                    ("sample_lines", "bin_counts", "sample_windows"), "add_auc", 0.8),
+            "opt": (serve_case(ds, "opt"), metrics, "execute_tracking_step_maybe_fused",
+                    ("sample_lines", "bin_counts", "sample_windows"), "auc", 0.7),
+            "choi": (serve_case(ds, "choi"), metrics, "execute_tracking_step_maybe_fused",
+                     ("sample_lines", "bin_counts", "sample_windows"), None, None)}
+        for label, (make, owner, name, want, score, floor) in fused.items():
+            run = card_eval(f"11 {label}", make, owner, name, want)
+            res = run["results"]
+            record = dict(launches=run["launches"], calls=run["calls"], call_ms=run["call_ms"],
+                          seconds=run["seconds"], peak_memory_bytes=run["peak_memory_bytes"],
+                          scores=score_leaves(res))
+            if label in ("opt", "choi"):
+                per = res["per_run"] if label == "opt" else res["per_body"]
+                times = next(iter(per.values()))["execution_times"]
+                record["fused_steps"] = times["calculate_correspondences"] == 0.0
+                record["mean_step_s"] = times["complete_cycle"]
+                if not record["fused_steps"]:
+                    raise AssertionError(f"11o {label}: the steps did not serve fused")
+            if label == "choi":
+                worst = max(v for k, v in score_leaves(res).items() if "/rmse_" in k)
+                if not worst < 10.0:
+                    raise AssertionError(f"11o choi: RMSE up to {worst} mm or deg")
+            elif res[score] < floor:
+                raise AssertionError(f"11 {label}: {score} {res[score]} < {floor}")
+            out[label] = record
+            log(f"11 {label}: {json.dumps(record)}")
+        # 11h: RBOT, YCB-Video and RTB on the host path, a few frames each.
+        counters = launch_counters()
+        host = {}
+        for label, make in (
+                ("rbot", rbot_case(ds, names[:1], ["a_regular"], fused=False,
+                                   n_frames=EVAL_HOST_FRAMES)),
+                ("ycb", ycb_case(ds, EVAL_YCB_SEQUENCES[:1], fused=False,
+                                 n_keyframes=EVAL_HOST_FRAMES)),
+                ("rtb", rtb_case(ds, (0,), fused=False, n_rows=EVAL_HOST_FRAMES + 1))):
+            before = {n: fn.launches for n, fn in counters.items()}
+            run = run_eval(f"11h {label}", make, "cuda")
+            leaves = score_leaves(run["results"])
+            host[label] = dict(seconds=run["seconds"], scored_poses=len(run["pairs"]),
+                               launches={n: fn.launches - before[n]
+                                         for n, fn in counters.items()},
+                               scores={k: v for k, v in leaves.items() if k.count("/") == 1})
+            if not run["pairs"] or not all(np.isfinite(p).all() for p, _ in run["pairs"]):
+                raise AssertionError(f"11h {label}: no finite scored poses")
+            log(f"11h {label}: {json.dumps(host[label])}")
+        out["host"] = host
+        # 11x: card against CPU on the same files.
+        out["card_vs_cpu"] = {
+            "rbot": compare_eval("rbot", rbot_case(ds, names[:2], ["a_regular", "d_occlusion"],
+                                                   n_frames=EVAL_CPU_RBOT_FRAMES)),
+            "ycb": compare_eval("ycb", ycb_case(ds)),
+            "rtb": compare_eval("rtb", rtb_case(ds)),
+            "opt": compare_eval("opt", serve_case(ds, "opt")),
+            "choi": compare_eval("choi", serve_case(ds, "choi"))}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if "cv2" in sys.modules:
+        raise AssertionError("phase 11 imported cv2")
+    out["phase11_s"] = time.perf_counter() - begin
+    log(f"phase 11 took {out['phase11_s']:.1f} s")
+    return out
+
+
+def kernel_line(shapes, paths, evaluation):
     """The kernels JSON entries: times and bounds per flagship cycle of the kernel's
-    path (the sum over the cycle's calls), launches from that path's counted run, and
-    the launches of phase 10's host path (``host_path_launches``: it launches none)."""
+    path (the sum over the cycle's calls), launches from that path's counted run, the
+    launches of phase 10's host path (``host_path_launches``: it launches none) and of
+    each fused evaluation of phase 11 (``eval_launches``)."""
     kernels = []
     for name, source, replaces, path in (
             ("sample_lines", REGION_SOURCE, "m3t_tpu/ops/region_fast.py:232", "region"),
@@ -2482,7 +3426,9 @@ def kernel_line(shapes, paths):
                 s["bound_ms"] * s["per_cycle"] for s in rows if s["bound_by"] == by)),
             library_ms=None if None in library else per_cycle("library_ms"),
             host_path_launches=sum(paths[p]["kernel_launches"]
-                                   for p in ("host_occluded", "host_structures"))))
+                                   for p in ("host_occluded", "host_structures")),
+            eval_launches={label: evaluation[label]["launches"][name]
+                           for label in ("rbot", "ycb", "rtb", "opt", "choi")}))
     return kernels
 
 
@@ -2669,10 +3615,17 @@ def main() -> int:
         card_vs_cpu[label] = check_host_card_against_cpu(label, graph, inp, models)
     phase10_s = time.perf_counter() - phase10_begin
     log(f"phase 10 took {phase10_s:.1f} s")
+    # Phase 11: the evaluators and their entry points on synthetic datasets (11w), RBOT
+    # at B=90 (11r), YCB-Video, RTB, OPT and Choi (11y, 11k, 11o), the host modes (11h),
+    # and card against CPU on the same files (11x).
+    log("phase 11: the evaluators")
+    evaluation = run_phase11()
     log(f"held on the CPU only, for want of cv2 on this machine: {CV2_ONLY}")
     disagree = {label: case for label, case in card_vs_cpu.items()
                 if len(case["parted"]) > case["parted_allowed"] or case["twin_mismatches"]
                 or case.get("beyond_bounds") or case.get("unexplained")}
+    disagree.update({f"11x {label}": case
+                     for label, case in evaluation["card_vs_cpu"].items() if case["failed"]})
     if disagree:
         raise AssertionError(f"card and CPU disagree beyond atol {PHASE7_ATOL}: {disagree}")
     dryrun = run_dryrun()
@@ -2680,9 +3633,9 @@ def main() -> int:
     print(json.dumps({"kernel_shapes": shapes}))
     print(json.dumps({"paths": paths, "card_vs_cpu": card_vs_cpu, "dryrun": dryrun,
                       "card": card, "model_generation_s": generation_s,
-                      "phase10_s": phase10_s}))
+                      "phase10_s": phase10_s, "eval": evaluation}))
     print(card)
-    print(json.dumps({"kernels": kernel_line(shapes, paths)}))
+    print(json.dumps({"kernels": kernel_line(shapes, paths, evaluation)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

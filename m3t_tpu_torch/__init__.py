@@ -30,6 +30,15 @@ torch.backends.cudnn.allow_tf32 = False
 
 _LAZY = {
     "Intrinsics": "m3t_tpu_torch.common",
+    "adjoint": "m3t_tpu_torch.common",
+    "pose_inverse": "m3t_tpu_torch.common",
+    "pose_variation": "m3t_tpu_torch.common",
+    "project": "m3t_tpu_torch.common",
+    "skew": "m3t_tpu_torch.common",
+    "so3_exp": "m3t_tpu_torch.common",
+    "so3_log": "m3t_tpu_torch.common",
+    "transform_points": "m3t_tpu_torch.common",
+    "xcotx": "m3t_tpu_torch.common",
     "Body": "m3t_tpu_torch.body",
     "Camera": "m3t_tpu_torch.camera",
     "ColorCamera": "m3t_tpu_torch.camera",

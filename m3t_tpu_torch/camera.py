@@ -3,7 +3,8 @@
 Frames stay host numpy arrays, as in the JAX package: colour images (H, W, 3) uint8 in
 BGR order (so the histogram index matches color_histograms.cpp:61-69), depth images
 (H, W) uint16 with ``depth_scale`` meters per unit.  Whoever reads a frame moves it to
-its device.  The disk-replay cameras import ``cv2`` only inside ``UpdateImage``.
+its device.  The disk-replay cameras read and save PNG frames without ``cv2``
+(``utils/png.py``); other image types import ``cv2`` where they are read or saved.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import os
 import numpy as np
 
 from m3t_tpu_torch.common import Intrinsics, np_pose_inverse
-from m3t_tpu_torch.utils import yaml_io
+from m3t_tpu_torch.utils import png, yaml_io
 
 
 class Camera:
@@ -58,12 +59,15 @@ class Camera:
 
     def SaveImageIfDesired(self) -> None:  # noqa: N802
         if self.save_images and self.image is not None:
-            import cv2
-
             path = os.path.join(
                 str(self.save_directory),
                 f"{self.name}_image_{self.save_index}.{self.save_image_type}")
-            cv2.imwrite(path, self.image)
+            if self.save_image_type.lower() == "png":
+                png.write_png(path, self.image)
+            else:
+                import cv2
+
+                cv2.imwrite(path, self.image)
             self.save_index += 1
 
 
@@ -202,10 +206,15 @@ class _LoaderCameraMixin:
         return True
 
     def _read_frame(self):
-        import cv2
-
         path = self._frame_path()
-        image = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+        if self.load_image_type.lower() == "png":
+            if os.path.isfile(path):
+                return png.read_png(path)
+            image = None
+        else:
+            import cv2
+
+            image = cv2.imread(path, cv2.IMREAD_UNCHANGED)
         if image is None:
             print(f"Could not read image {path}")
         return image

@@ -1,4 +1,4 @@
-"""Core pose math (port of m3t_tpu/common.py:28-155).
+"""Core pose math (port of m3t_tpu/common.py:28-254).
 
 Poses are ``(..., 4, 4)`` float32 tensors; twists are ``[w_x, w_y, w_z, t_x, t_y, t_z]``
 (rotation first), and a pose variation is ``Trans(t) @ Rot(exp(skew(w)))``.
@@ -6,6 +6,7 @@ Poses are ``(..., 4, 4)`` float32 tensors; twists are ``[w_x, w_y, w_z, t_x, t_y
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -119,6 +120,31 @@ def adjoint(pose):
     return torch.cat([top, bottom], dim=-2)
 
 
+def transform_points(pose, points):
+    """Apply (..., 4, 4) poses to (..., N, 3) points."""
+    return points @ pose[..., :3, :3].transpose(-1, -2) + pose[..., None, :3, 3]
+
+
+def rotate_vectors(pose, vectors):
+    """Rotate (..., N, 3) vectors by the rotation of (..., 4, 4) poses."""
+    return vectors @ pose[..., :3, :3].transpose(-1, -2)
+
+
+def project(intrinsics: Intrinsics, points_f_camera):
+    """Project camera-frame points (..., 3) to pixel coordinates (u, v)."""
+    z = points_f_camera[..., 2]
+    u = points_f_camera[..., 0] * intrinsics.fu / z + intrinsics.ppu
+    v = points_f_camera[..., 1] * intrinsics.fv / z + intrinsics.ppv
+    return torch.stack([u, v], dim=-1)
+
+
+def unproject(intrinsics: Intrinsics, uv, depth):
+    """Camera-frame points (..., 3) of pixels (..., 2) at the given depths (...)."""
+    x = (uv[..., 0] - intrinsics.ppu) * depth / intrinsics.fu
+    y = (uv[..., 1] - intrinsics.ppv) * depth / intrinsics.fv
+    return torch.stack([x, y, depth], dim=-1)
+
+
 def np_pose_inverse(pose: np.ndarray) -> np.ndarray:
     """Inverse of a (4, 4) rigid pose on the host, float32 (m3t_tpu/common.py:194)."""
     pose = np.asarray(pose, np.float32)
@@ -181,3 +207,18 @@ def set_up_object_ptrs(ptrs: list) -> bool:
             print(f"Failed to set up {type(p).__name__} {p.name}")
             return False
     return True
+
+
+@dataclasses.dataclass
+class Component:
+    """Base of the named framework components: constructor, setters, ``SetUp()``, then
+    ``set_up`` is True (m3t_tpu/common.py:240-254)."""
+
+    name: str
+    metafile_path: str | None = None
+
+    def __post_init__(self):
+        self.set_up = False
+
+    def SetUp(self) -> bool:  # noqa: N802 (reference API parity)
+        raise NotImplementedError

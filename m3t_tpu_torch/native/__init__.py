@@ -1,5 +1,6 @@
-"""Host library for model generation: the z-buffer rasterizer (``rasterizer.cpp``) and
-the contour tracer (``contours.cpp``), built by ``g++`` at first use.
+"""Host library: the z-buffer rasterizer (``rasterizer.cpp``) and the contour tracer
+(``contours.cpp``) of model generation, and the PNG scanline unfilter (``png.cpp``) of
+the frame reader (``utils/png.py``), built by ``g++`` at first use.
 
 The flags are the JAX package's (``m3t_tpu/native/__init__.py``) letter for letter:
 ``-O3 -march=native`` lets GCC contract the rasterizer's edge functions into fused
@@ -20,7 +21,7 @@ import subprocess
 from pathlib import Path
 
 _DIR = Path(__file__).resolve().parent
-SOURCES = (_DIR / "rasterizer.cpp", _DIR / "contours.cpp")
+SOURCES = (_DIR / "rasterizer.cpp", _DIR / "contours.cpp", _DIR / "png.cpp")
 BUILD_DIR = _DIR.parent / "_build"
 FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 
@@ -66,4 +67,6 @@ def library() -> ctypes.CDLL:
     lib.m3t_find_contours.restype = ctypes.c_longlong
     lib.m3t_find_contours.argtypes = [ptr, i32, i32, ptr, ctypes.c_longlong, ptr, i32,
                                       ptr]
+    lib.m3t_png_unfilter.restype = ctypes.c_longlong
+    lib.m3t_png_unfilter.argtypes = [ptr, i32, ctypes.c_longlong, i32, ptr]
     return lib

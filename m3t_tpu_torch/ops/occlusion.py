@@ -38,13 +38,14 @@ KIMAGE_SIZE_SAFETY_MARGIN = 1.05  # renderer.cpp:352
 
 
 class SceneBody(NamedTuple):
-    """A body of a scene on the host: its mesh in the body frame and its ids."""
+    """A body of a scene on the host: its mesh in the body frame and its ids.  A
+    :class:`m3t_tpu_torch.body.Body` has the same attributes and stands in for one."""
 
     vertices: np.ndarray  # (N, 3) float32, body frame
     triangles: np.ndarray  # (T, 3) int vertex indices, CCW seen from outside
     body_id: int
     region_id: int
-    enable_culling: bool = True
+    geometry_enable_culling: bool = True
 
     @property
     def maximum_body_diameter(self) -> float:
@@ -152,7 +153,7 @@ def build_scene_geometry(scenes: Sequence[Sequence[SceneBody]], referenced=None,
             owners.append(np.full(len(tv), o, np.int32))
             ids.append(np.full(len(tv), (int(body.body_id) << 8) | int(body.region_id),
                                np.int32))
-            culls.append(np.full(len(tv), bool(body.enable_culling), bool))
+            culls.append(np.full(len(tv), bool(body.geometry_enable_culling), bool))
         tri_list.append(np.concatenate(tris))
         owner_list.append(np.concatenate(owners))
         id_list.append(np.concatenate(ids))

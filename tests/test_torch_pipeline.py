@@ -361,8 +361,12 @@ def test_port_imports_neither_jax_nor_reference():
         "import m3t_tpu_torch.optimizer, m3t_tpu_torch.detector, m3t_tpu_torch.refiner\n"
         "import m3t_tpu_torch.publisher, m3t_tpu_torch.subscriber\n"
         "import m3t_tpu_torch.tracker, m3t_tpu_torch.fused_serve\n"
-        "import m3t_tpu_torch.utils.visualization\n"
+        "import m3t_tpu_torch.utils.visualization, m3t_tpu_torch.utils.png\n"
+        "import m3t_tpu_torch.eval, m3t_tpu_torch.examples.evaluate_rbot_dataset\n"
         "for name in m3t_tpu_torch._LAZY: getattr(m3t_tpu_torch, name)\n"
+        "for name in ('adjoint', 'pose_inverse', 'pose_variation', 'project', 'skew',\n"
+        "             'so3_exp', 'so3_log', 'transform_points', 'xcotx'):\n"
+        "    assert getattr(m3t_tpu_torch, name) is getattr(m3t_tpu_torch.common, name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'm3t_tpu'))\n"
         "assert not bad, bad\n"
         "import torch\n"
