@@ -107,6 +107,17 @@ def rdiv(a: float, x):
     return torch.div(torch.tensor(a, dtype=x.dtype), x)
 
 
+def div_const(x, n: int):
+    """``x / n`` for a Python number ``n`` as jitted JAX computes it: XLA rewrites a
+    division by a constant as a product with the constant's float32 reciprocal.  The
+    two differ by an ulp, which decides a trunc that lands on an integer: with depth
+    scaling the window diameter 2 * considered_distance * fu is z-free, and at fu = 600
+    the 0.05 m scale's 60 px over 6 strides truncates 10 + 1 to 10 or 11 by the last bit
+    of z * (fu / z), where the product gives 11 for every z."""
+    recip = torch.div(torch.tensor(1.0, dtype=x.dtype), torch.tensor(float(n), dtype=x.dtype))
+    return x * recip.to(x.device)
+
+
 def gather_u16(images, body, rows, cols):
     """``images[body, rows, cols]`` of (B, H, W) uint16 images as int32.
 
@@ -158,7 +169,7 @@ def measured_occlusion_window(radius: float, use_depth_scaling: bool, z_safe, cu
 def window_start(diameter, max_n_strides: int, cu, cv):
     """Unclamped window corner, rounded diameter and stride (each (B, P) int32) of a
     strided window of ``diameter`` pixels around (cu, cv)."""
-    stride = _trunc(diameter / max_n_strides + 1.0)
+    stride = _trunc(div_const(diameter, max_n_strides) + 1.0)
     n_strides = _trunc(diameter / stride.to(torch.float32) + 0.5)
     rounded_diameter = n_strides * stride
     rounded_radius = 0.5 * rounded_diameter.to(torch.float32)

@@ -215,7 +215,7 @@ def test_sample_windows_expanded_frame_matches_materialised(inputs):
                        tdf.sample_windows(shared.contiguous(), *args))
 
 
-def _jax_correspondences(inp, jcfg, measure, presampled):
+def _jax_correspondences(inp, jcfg, measure, presampled, cd=CD, jit=False):
     cropT, cu, cv = _jax_crops(inp["depth"], inp["poses"])
     pre = mpre = None
     if presampled:
@@ -228,15 +228,16 @@ def _jax_correspondences(inp, jcfg, measure, presampled):
             FU, FV, PPU, PPV, W, H)
     points = jdn.DepthViewPoints(jnp.asarray(inp["centers"]), jnp.asarray(inp["normals"]),
                                  jnp.asarray(inp["offsets"]), jnp.asarray(inp["offsets"]))
-    return jax.vmap(
+    batched = jax.vmap(
         lambda pts, pose, img, pr, mp: jdn.calculate_correspondences(
-            jcfg, CD, pts, jnp.int32(P - 3), pose, img, FU, FV, PPU, PPV, W, H,
+            jcfg, cd, pts, jnp.int32(P - 3), pose, img, FU, FV, PPU, PPV, W, H,
             jnp.float32(DEPTH_SCALE), jnp.asarray(True), measure_occlusions=measure,
-            presampled=pr, measured_presampled=mp)
-    )(points, jnp.asarray(inp["poses"]), jnp.asarray(inp["depth"]), pre, mpre)
+            presampled=pr, measured_presampled=mp))
+    return (jax.jit(batched) if jit else batched)(
+        points, jnp.asarray(inp["poses"]), jnp.asarray(inp["depth"]), pre, mpre)
 
 
-def _torch_correspondences(inp, tcfg, measure, presampled):
+def _torch_correspondences(inp, tcfg, measure, presampled, cd=CD):
     cu, cv = _corners(inp["depth"], inp["poses"])
     centers, poses, depth = _t(inp["centers"]), _t(inp["poses"]), _t(inp["depth"])
     pre = mpre = None
@@ -249,7 +250,7 @@ def _torch_correspondences(inp, tcfg, measure, presampled):
     points = tdn.DepthViewPoints(centers, _t(inp["normals"]), _t(inp["offsets"]),
                                  _t(inp["offsets"]))
     return tdn.calculate_correspondences(
-        tcfg, CD, points, P - 3, poses, depth, FU, FV, PPU, PPV, W, H,
+        tcfg, cd, points, P - 3, poses, depth, FU, FV, PPU, PPV, W, H,
         DEPTH_SCALE, torch.ones(B, dtype=torch.bool), measure_occlusions=measure,
         presampled=pre, measured_presampled=mpre)
 
@@ -264,6 +265,28 @@ def test_calculate_correspondences_match(inputs, measure, presampled, use_depth_
     valid = np.asarray(want.valid)
     np.testing.assert_array_equal(got.valid.numpy(), valid)
     assert 20 < valid.sum() < valid.size
+    np.testing.assert_allclose(got.correspondence_center_f_camera.numpy(),
+                               np.asarray(want.correspondence_center_f_camera),
+                               rtol=0, atol=1e-6)
+
+
+def test_correspondence_windows_on_a_whole_stride_match_jitted_jax(inputs):
+    """With depth scaling the search window's diameter 2 * considered_distance * fu is
+    free of z: 60 px at 0.2 m and fu 150, over int(0.2 / 0.032 + 0.5) = 6 strides, so
+    its stride 60 / 6 + 1 truncates on an integer.  Jitted JAX (every cycle and modality
+    of the JAX package) divides by the constant 6 as a product with its float32
+    reciprocal, which gives 11 for every point; a true quotient gives 10 where z * (fu /
+    z) rounds below 60."""
+    # A surface within the windows' depth range (z +- 0.2 z) of most points.
+    depth = np.random.default_rng(5).integers(480, 520, size=(B, H, W)).astype(np.uint16)
+    inp = dict(inputs, depth=depth)
+    jcfg = jdn.DepthConfig(n_points_max=P, use_depth_scaling=True, stride_length=0.032)
+    tcfg = tdn.DepthConfig(n_points_max=P, use_depth_scaling=True, stride_length=0.032)
+    want = _jax_correspondences(inp, jcfg, False, False, cd=0.2, jit=True)
+    got = _torch_correspondences(inp, tcfg, False, False, cd=0.2)
+    valid = np.asarray(want.valid)
+    np.testing.assert_array_equal(got.valid.numpy(), valid)
+    assert valid.sum() > valid.size // 4
     np.testing.assert_allclose(got.correspondence_center_f_camera.numpy(),
                                np.asarray(want.correspondence_center_f_camera),
                                rtol=0, atol=1e-6)
