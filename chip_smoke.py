@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
   1. the card: name and power limit from nvidia-smi;
   0m. model generation on the host: bench.py's region and depth models of the sphere,
      all 162 views, built by the port (Body, RegionModel/DepthModel.SetUp(), the g++
-     host library's rasterizer and contour tracer) with no cache file, timed, and held
+     host library's rasterizer and contour tracer) with no cache file, in two processes
+     started together, each timed in its process, and held
      equal to the committed m3t_tpu_torch/data npz (every array and the checksum); the
      phases below stack them with from_models, not from the npz;
   2. build the Hopper kernels from m3t_tpu_torch/csrc and hold each against its plain
@@ -80,8 +81,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      both region scene checks and the RGB-D cycle with all four; the YCB cycle with
      texture terms; and the kinematic cycle with scenes and the kinematic RGB-D cycle
      (joint poses and histograms).  In each of the last three, one body (structure) may
-     part beyond 1e-4 at a rounding boundary of the plain arithmetic; it is logged by
-     number (check_card_against_cpu).  Phase 7 runs every case before it fails on any.
+     part beyond 1e-4 at a rounding boundary of the plain arithmetic, two in the
+     kinematic RGB-D cycle; each is logged by number (check_card_against_cpu).  Phase 7
+     runs every case before it fails on any.
      The card's masks must drop region lines and depth points against the same
      correspondences without the wall's measured occlusions, and without the cube's
      scene checks;
@@ -170,11 +172,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
          started on both devices from the CPU's state (fused_serve.read_graph_state and
          load_graph_state: joint poses, link poses, histograms), poses and histograms
          within atol 1e-4 entry by entry (a body or a structure); at most one entry per
-         case may part, within 1e-2 in pose and 1e-3 in histograms, logged by name and
-         step, and only where a second CPU graph, started every step from the CPU's
-         state with every link pose moved by a relative 1e-7 (at step 0, its detector's
-         pose), parts from the CPU at the same entry and step: a rounding-boundary event
-         of the plain arithmetic, which the CPU meets alone.
+         case may part, within 1e-2 in pose and 1e-3 in histograms (the occluded
+         graph's histogram_b: 3e-3), logged by name and step, and only where a second
+         CPU graph, started every step from the CPU's state with every link pose moved
+         by a relative 1e-7 (at step 0, its detector's pose), parts from the CPU at the
+         same entry and step: a rounding-boundary event of the plain arithmetic, which
+         the CPU meets alone.
   11. the evaluators (m3t_tpu_torch/eval) and their entry points on synthetic datasets in
      the published layouts, in a temporary directory, each frame rendered by the port's
      host rasterizer, written by its PNG writer and read back equal by its reader; the
@@ -240,11 +243,23 @@ Phases (any failure exits non-zero; no phase catches its own failure):
          study's first row (the RBOT studies over 2 bodies x a_regular and d_occlusion,
          5 frames), each fused cycle from the CPU's state, every kernel call of the card's
          run equal to its twin, scored and final poses and printed scores within 1e-4,
-         partings as 11x's; one cycle of the replay may part without a witness within
-         STATE_PARTED_BOUNDS (a located trunc, run_phase12);
+         partings as 11x's;
      12o. optimization_time --max-chain 20 --n-runs 50: its table (host time: the
          Optimizer's numpy Newton step).
      cv2 must not have been imported.
+  13. the benchmark runner, python -m m3t_tpu_torch.bench (bench.py's counterpart), in
+     its seven modes (region, --rgbd, --occlusion, --kinematic, --kinematic-rgbd, --ycb,
+     --latency), on bench.py's own workloads (its kinematic structure, which never
+     moves, and its random YCB texture terms included):
+     13b. python -m m3t_tpu_torch.bench [--<mode>] --iters 10 --windows 2 as a
+         subprocess per mode, one after the other: exit 0 and a last line with
+         bench.py's keys and a finite value > 0, logged beside the card's name and power
+         limit;
+     13k. each mode's workload through bench.build_workload at B=512 (--latency at 1, 8
+         and 64), every kernel launch counted from 0 over StartModality and 3 cycles and
+         held per cycle against BENCH_LAUNCHES, every kernel call held against its
+         plain twin (twin_checked); the largest translation error to the rendered pose
+         (of the parent link, the only one rendered) is logged and not asserted.
 The last two lines are the kernels JSON and {"ok": true, "device": {...}}.  With
 --profile, one window each of region, RGB-D, occlusion-path, kinematic, kinematic RGB-D,
 RGB-D scan step, multi-camera and multi-camera kinematic cycles is also traced with
@@ -257,9 +272,11 @@ operation are written to TABLE_FILE and to TABLE_FILE with "_rgbd", "_occlusion"
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import io
 import json
+import multiprocessing
 import os
 import re
 import shutil
@@ -364,32 +381,55 @@ def texture_matches(rng, n_bodies: int, pose0, intr_t, k: int = 128, radius: flo
     return points, uv.astype(np.float32), rng.random((n_bodies, k)) > 0.3
 
 
-def generate_models():
-    """Phase 0m: bench.py's region and depth models (bench.py:124-127, 205-206: the
-    sphere of radius 0.06 m, n_subdiv 2, n_divides 2 (162 views), 200 points,
-    image_size 800), generated by the port on this machine's CPU with no cache file
-    present, each asserted equal to the committed npz in m3t_tpu_torch/data, every
-    array and the checksum.  Returns the two set-up models and the seconds of each."""
-    from m3t_tpu_torch import pipeline
+BENCH_MODELS = {"region": ("bench_model", "bench_sphere_region_model.npz"),
+                "depth": ("bench_depth_model", "bench_sphere_depth_model.npz")}
+
+
+def bench_model(kind: str, path: str):
+    """bench.py's region or depth model of the sphere (bench.py:124-127, 205-206: radius
+    0.06 m, n_subdiv 2, n_divides 2 (162 views), 200 points, image_size 800) through its
+    cache file at path, generated there when the file is absent."""
     from m3t_tpu_torch.depth_model import DepthModel
     from m3t_tpu_torch.region_model import RegionModel
     from m3t_tpu_torch.utils import procedural
 
+    body = procedural.sphere_body("bench_sphere", radius=0.06, n_subdiv=2)
+    cls = RegionModel if kind == "region" else DepthModel
+    model = cls(BENCH_MODELS[kind][0], body, path, n_divides=2, n_points=N_POINTS,
+                image_size=800)
+    if not model.SetUp():
+        raise AssertionError(f"{BENCH_MODELS[kind][0]} failed to set up")
+    return model
+
+
+def generate_bench_model(kind: str, path: str) -> float:
+    """Phase 0m in a worker process: bench_model(kind, path) with no cache file present;
+    returns the seconds it took."""
+    Path(path).unlink(missing_ok=True)
+    begin = time.perf_counter()
+    bench_model(kind, path)
+    return time.perf_counter() - begin
+
+
+def generate_models():
+    """Phase 0m: bench.py's region and depth models, generated by the port on this
+    machine's CPU with no cache file present, one worker process each, both started
+    together, each asserted equal to the committed npz in m3t_tpu_torch/data, every
+    array and the checksum.  Returns the two set-up models (read back from the generated
+    files) and the seconds each generation took in its process."""
+    from m3t_tpu_torch import pipeline
+
     data = Path(pipeline.__file__).parent / "data"
     out_dir = Path(pipeline.__file__).parent / "_build" / "generated"
     out_dir.mkdir(parents=True, exist_ok=True)
-    body = procedural.sphere_body("bench_sphere", radius=0.06, n_subdiv=2)
+    paths = {kind: str(out_dir / file) for kind, (_, file) in BENCH_MODELS.items()}
+    with concurrent.futures.ProcessPoolExecutor(
+            len(paths), mp_context=multiprocessing.get_context("spawn")) as pool:
+        took = dict(zip(paths, pool.map(generate_bench_model, paths, paths.values())))
     models, seconds = [], {}
-    for cls, name, file in ((RegionModel, "bench_model", "bench_sphere_region_model.npz"),
-                            (DepthModel, "bench_depth_model", "bench_sphere_depth_model.npz")):
-        path = out_dir / file
-        path.unlink(missing_ok=True)
-        model = cls(name, body, str(path), n_divides=2, n_points=N_POINTS, image_size=800)
-        begin = time.perf_counter()
-        if not model.SetUp():
-            raise AssertionError(f"{name} failed to set up")
-        seconds[name] = time.perf_counter() - begin
-        with np.load(path) as got, np.load(data / file) as want:
+    for kind, (name, file) in BENCH_MODELS.items():
+        seconds[name] = took[kind]
+        with np.load(paths[kind]) as got, np.load(data / file) as want:
             if sorted(got.files) != sorted(want.files):
                 raise AssertionError(f"{file}: arrays {got.files} against {want.files}")
             differ = [k for k in want.files
@@ -397,6 +437,7 @@ def generate_models():
         if differ:
             raise AssertionError(f"generated {file} differs from the committed one in "
                                  f"{differ}")
+        model = bench_model(kind, paths[kind])
         log(f"phase 0m: {name} generated in {seconds[name]:.1f} s, "
             f"{model.orientations.shape[0]} views, equal to the committed {file}")
         models.append(model)
@@ -2466,14 +2507,14 @@ def check_render_windows(inp, models, n_passes: int = 3):
 
 
 def check_host_card_against_cpu(label, graph, inp, models, n_steps: int = 2,
-                                parted_allowed: int = 1):
+                                parted_allowed: int = 1, bounds=HOST_PARTED_BOUNDS):
     """Phase 10x: the graph on the card and on the CPU, detection and the starting
     step at frame 0, then a tracking step per frame, each step started on both devices
     from the CPU's state (fused_serve.read_graph_state / load_graph_state: joint poses,
     link poses, histograms).  Poses and histograms compared after the starting step and
     every step, batch entry by batch entry (a body, or a structure of two links);
     at most ``parted_allowed`` entries may part beyond PHASE7_ATOL, each within
-    HOST_PARTED_BOUNDS, logged by name and step.  A witness graph on the CPU starts every
+    ``bounds``, logged by name and step.  A witness graph on the CPU starts every
     step from the CPU's state nudged (its detectors' poses at step 0); a card entry that
     parts where the witness does not part from the CPU is unexplained, and fails."""
     from m3t_tpu_torch import fused_serve
@@ -2515,7 +2556,7 @@ def check_host_card_against_cpu(label, graph, inp, models, n_steps: int = 2,
             if any(d > PHASE7_ATOL for d in event.values()):
                 parted.setdefault(name, []).append(i)
                 log(f"{label}: {name} parted at step {i}: max abs diff {event}")
-                if any(event[n] > b for n, b in HOST_PARTED_BOUNDS.items()):
+                if any(event[n] > b for n, b in bounds.items()):
                     beyond.append((name, i, event))
                 if i not in witnessed.get(name, []):
                     unexplained.append((name, i, event))
@@ -2525,7 +2566,7 @@ def check_host_card_against_cpu(label, graph, inp, models, n_steps: int = 2,
         fused_serve.load_graph_state(witness, nudged(state))
     log(f"{label}: card vs CPU, {len(names)} entries of {per_entry} link(s), {n_steps} "
         f"steps from equal states: max abs diff {worst}; parted {parted} (allowed "
-        f"{parted_allowed}, bounds {HOST_PARTED_BOUNDS}); the CPU nudged by a relative "
+        f"{parted_allowed}, bounds {bounds}); the CPU nudged by a relative "
         f"{WITNESS_NUDGE} parts from the CPU at {witnessed}; unexplained {unexplained}; "
         f"CPU steps {cpu_s:.1f} s")
     return dict(max_abs_diff=worst, parted=parted, parted_allowed=parted_allowed,
@@ -3249,7 +3290,7 @@ def compare_eval(label, make) -> dict:
     return compare_runs(f"11x {label}", lambda device: run_eval(label, make, device))
 
 
-def compare_runs(label, run, unwitnessed_allowed=0) -> dict:
+def compare_runs(label, run) -> dict:
     """11x and 12x: run(device) -> dict(results, pairs, seconds) on the card and on the
     CPU on the same files, each fused cycle of the card's run started from the state
     that the CPU's run gave that cycle (cycle_calls), every kernel call of the card's
@@ -3261,12 +3302,10 @@ def compare_runs(label, run, unwitnessed_allowed=0) -> dict:
     beyond PHASE7_ATOL; at most EVAL_PARTED_ALLOWED entries may part, each by no more
     than STATE_PARTED_BOUNDS in each field, and only in a cycle where the CPU, run again
     from its own state nudged by a relative WITNESS_NUDGE, parts from itself at that
-    entry (a rounding-boundary event that the CPU meets alone), or in at most
-    ``unwitnessed_allowed`` cycles (a rounding-boundary event that the nudge does not
-    reach, as phase 7 allows one); once an entry parted, the scored poses may differ by
-    STATE_PARTED_BOUNDS' pose bound and the scores by PARTED_SCORE_ATOL.  Returns the
-    comparison, with ``failed`` set where it does not hold (the caller fails after
-    every case)."""
+    entry (a rounding-boundary event that the CPU meets alone); once an entry parted,
+    the scored poses may differ by STATE_PARTED_BOUNDS' pose bound and the scores by
+    PARTED_SCORE_ATOL.  Returns the comparison, with ``failed`` set where it does not
+    hold (the caller fails after every case)."""
     from m3t_tpu_torch import pipeline
 
     with cycle_calls() as cpu_calls:
@@ -3278,7 +3317,7 @@ def compare_runs(label, run, unwitnessed_allowed=0) -> dict:
         raise AssertionError(f"{label}: {len(card_calls)} cycles and {len(card['pairs'])} "
                              f"scored poses on the card, {len(cpu_calls)} and "
                              f"{len(cpu['pairs'])} on the CPU")
-    worst, parted, witnessed, bounded, unexplained = np.zeros(0), {}, {}, [], []
+    worst, parted, witnessed, unexplained = np.zeros(0), {}, {}, []
     for k, ((name, _, _, got), (_, cpu_args, cpu_kwargs, want)) in enumerate(
             zip(card_calls, cpu_calls)):
         diffs = state_diffs(got, want)
@@ -3297,8 +3336,6 @@ def compare_runs(label, run, unwitnessed_allowed=0) -> dict:
             within = all(d <= bound for d, bound in zip(fields[:, entry], STATE_PARTED_BOUNDS))
             if within and moved[entry] > PHASE7_ATOL:
                 witnessed.setdefault(entry, []).append(k)
-            elif within:
-                bounded.append((entry, k, float(diffs[entry])))
             else:
                 unexplained.append((entry, k, float(diffs[entry]), float(moved[entry])))
             log(f"{label}: entry {entry} parted in cycle {k} by {diffs[entry]:.3e} (by "
@@ -3316,7 +3353,7 @@ def compare_runs(label, run, unwitnessed_allowed=0) -> dict:
     score_atol = PARTED_SCORE_ATOL if parted else PHASE7_ATOL
     pose_atol = STATE_PARTED_BOUNDS[0] if parted else PHASE7_ATOL
     failed = bool(flags or counts or unexplained or mismatches
-                  or len(bounded) > unwitnessed_allowed or len(parted) > EVAL_PARTED_ALLOWED
+                  or len(parted) > EVAL_PARTED_ALLOWED
                   or score_diff > score_atol or pose_diff > pose_atol)
     result = dict(failed=failed, cycles=len(cpu_calls), entries=len(worst),
                   scored_poses=len(cpu["pairs"]),
@@ -3324,8 +3361,7 @@ def compare_runs(label, run, unwitnessed_allowed=0) -> dict:
                   max_abs_pose_diff=pose_diff, max_abs_score_diff=float(score_diff),
                   pose_atol=pose_atol, score_atol=score_atol,
                   parted=parted, parted_allowed=EVAL_PARTED_ALLOWED,
-                  witness_parted=witnessed, unwitnessed_bounded=bounded,
-                  unwitnessed_allowed=unwitnessed_allowed, unexplained=unexplained,
+                  witness_parted=witnessed, unexplained=unexplained,
                   flag_mismatches=flags, count_mismatches=counts,
                   kernel_calls=len(kernel_calls), twin_mismatches=mismatches,
                   card_s=card["seconds"], cpu_s=cpu["seconds"])
@@ -4091,12 +4127,7 @@ def run_phase12(root: Path, ds) -> dict:
         return dict(results={}, seconds=run["seconds"],
                     pairs=[(run["pose"], recorded_pose(REC_FRAMES - 1))])
 
-    # One cycle of the replay parts at a rounding boundary that the CPU's nudge does not
-    # reach: the trunc of one line's distribution index of 256 flips
-    # (ops/region_fast.py:513, gradient_hessian_cl), the plain arithmetic before it
-    # 3.1e-5 apart on the two devices (NVIDIA H100 80GB HBM3, 700 W).
-    out["card_vs_cpu"] = {"recorded": compare_runs("12x recorded", replayed,
-                                                   unwitnessed_allowed=1),
+    out["card_vs_cpu"] = {"recorded": compare_runs("12x recorded", replayed),
                           **compare_studies(ds, names)}
     out["optimization_time"] = run_optimization_time()
     if "cv2" in sys.modules:
@@ -4106,13 +4137,115 @@ def run_phase12(root: Path, ds) -> dict:
     return out
 
 
-def kernel_line(shapes, paths, evaluation, phase12):
+# Phase 13: the benchmark runner, python -m m3t_tpu_torch.bench, bench.py's counterpart.
+BENCH_FLAGS = {"region": (), "rgbd": ("--rgbd",), "occlusion": ("--occlusion",),
+               "kinematic": ("--kinematic",), "kinematic_rgbd": ("--kinematic-rgbd",),
+               "ycb": ("--ycb",), "latency": ("--latency",)}
+# The keys of bench.py's printed JSON objects (bench.py:187-198, 407-415), and the
+# runner's "device".
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "spread", "windows", "unstable",
+              "device"}
+BENCH_LATENCY_KEYS = {"metric", "value", "unit", "vs_baseline", "latency_ms_per_cycle",
+                      "spread_ms_per_cycle", "unstable", "device"}
+BENCH_TIMEOUT_S = 240.0
+BENCH_CYCLES = 3  # 13k: cycles after StartModality
+# 13k: kernel launches per cycle of each bench mode (the kinematic modes start from
+# uniform histograms: no StartModality launch).
+BENCH_LAUNCHES = {
+    "region": {"sample_lines": 6, "bin_counts": 2},
+    "rgbd": {"sample_lines": 6, "bin_counts": 2, "sample_windows": 5},
+    "ycb": {"sample_lines": 5, "bin_counts": 2, "sample_windows": 12},
+    "occlusion": {"sample_lines": 6, "bin_counts": 2, "query_eval": 5},
+    "kinematic": {"sample_lines": 6, "bin_counts": 2, "query_eval": 5},
+    "kinematic_rgbd": {"sample_lines": 6, "bin_counts": 2, "sample_windows": 5,
+                       "query_eval": 5},
+    "latency": {"sample_lines": 6, "bin_counts": 2}}
+
+
+def run_bench_cli(mode: str, card: str) -> dict:
+    """13b: python -m m3t_tpu_torch.bench in mode with --iters 10 --windows 2 as a
+    subprocess: exit 0 and a last stdout line with bench.py's keys and a finite, positive
+    value."""
+    argv = [sys.executable, "-m", "m3t_tpu_torch.bench", *BENCH_FLAGS[mode], "--iters",
+            "10", "--windows", "2"]
+    begin = time.perf_counter()
+    proc = subprocess.run(argv, cwd=Path(__file__).resolve().parent, capture_output=True,
+                          text=True, timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - begin
+    if proc.returncode != 0:
+        raise AssertionError(f"13b {mode}: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = BENCH_LATENCY_KEYS if mode == "latency" else BENCH_KEYS
+    if set(result) != want or not (np.isfinite(result["value"]) and result["value"] > 0):
+        raise AssertionError(f"13b {mode}: printed {result}")
+    log(f"13b {mode} ({card}): {json.dumps(result)} in {seconds:.1f} s")
+    return dict(result=result, seconds=seconds)
+
+
+def run_bench_workload(mode: str) -> dict:
+    """13k: bench mode's workload through build_workload at B=512 (latency at 1, 8 and
+    64), its kernel launches counted from 0 over StartModality and BENCH_CYCLES cycles
+    and held per cycle against BENCH_LAUNCHES, every kernel call against its twin
+    (twin_checked); the largest translation error is logged, not asserted (bench.py's
+    structure never moves and its YCB texture terms match random pixels)."""
+    from m3t_tpu_torch import bench, pipeline
+
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    with twin_checked(f"13k {mode}") as checked:
+        works = bench.build_workload(mode, N_BODIES, "cuda")
+        states = []
+        for work in works:
+            state = work.state
+            for _ in range(BENCH_CYCLES):
+                state = work.cycle(state)
+            work.sync(state)
+            states.append(state)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    kinematic = mode.startswith("kinematic")
+    want = {name: len(works) * (BENCH_CYCLES * BENCH_LAUNCHES[mode].get(name, 0)
+                                + (0 if kinematic else
+                                   {"sample_lines": 1, "bin_counts": 2}.get(name, 0)))
+            for name in counters}
+    if launches != want:
+        raise AssertionError(f"13k {mode}: kernel launches {launches}, expected {want}")
+    target = np.array([0.0, 0.0, 0.6])
+    errors = []
+    for work, state in zip(works, states):
+        if kinematic:
+            poses = pipeline.kinematic_body_poses(work.inputs["kin"], state)[:, 0]
+        else:
+            poses = state.body2camera_pose
+        errors.append(float(np.linalg.norm(poses[:, :3, 3].cpu().numpy() - target,
+                                           axis=1).max()))
+    out = dict(bodies=[work.body_frames for work in works], cycles=BENCH_CYCLES,
+               launches=launches, kernel_calls=checked["kernel_calls"],
+               max_translation_error_m=max(errors))
+    log(f"13k {mode}: {json.dumps(out)}")
+    return out
+
+
+def run_phase13(card: str) -> dict:
+    """Phase 13: the benchmark runner in all seven modes, as a user runs it (13b) and
+    through build_workload with its launches and twins held (13k)."""
+    begin = time.perf_counter()
+    out = {"cli": {mode: run_bench_cli(mode, card) for mode in BENCH_FLAGS},
+           "workloads": {mode: run_bench_workload(mode) for mode in BENCH_FLAGS}}
+    out["phase13_s"] = time.perf_counter() - begin
+    log(f"phase 13 took {out['phase13_s']:.1f} s")
+    return out
+
+
+def kernel_line(shapes, paths, evaluation, phase12, phase13):
     """The kernels JSON entries: times and bounds per flagship cycle of the kernel's
     path (the sum over the cycle's calls), launches from that path's counted run, the
     launches of phase 10's host path (``host_path_launches``: it launches none), of
-    each fused evaluation of phase 11 (``eval_launches``) and of each entry point's run
+    each fused evaluation of phase 11 (``eval_launches``), of each entry point's run
     in phase 12 (``phase12_launches``: the replay fused and on the host path, the
-    generated tracker, and each study's two rows)."""
+    generated tracker, and each study's two rows) and of each bench mode's workload in
+    phase 13 (``bench_launches``: StartModality and BENCH_CYCLES cycles)."""
     kernels = []
     for name, source, replaces, path in (
             ("sample_lines", REGION_SOURCE, "m3t_tpu/ops/region_fast.py:232", "region"),
@@ -4144,7 +4277,9 @@ def kernel_line(shapes, paths, evaluation, phase12):
                 "12g run_generated_tracker":
                     phase12["generated"]["run_generated_tracker"]["launches"][name],
                 **{f"12p {label}": study["launches"][name]
-                   for label, study in phase12["studies"].items()}}))
+                   for label, study in phase12["studies"].items()}},
+            bench_launches={mode: work["launches"][name]
+                            for mode, work in phase13["workloads"].items()}))
     return kernels
 
 
@@ -4306,7 +4441,10 @@ def main() -> int:
             ("rgbd with scene checks", scene, rgbd_cycle("rgbd_pcfg"), 0),
             ("ycb with texture", inp, rgbd_cycle("ycb_pcfg"), 1),
             ("kinematic with scenes", kin, kinematic_cycle("pcfg"), 1),
-            ("kinematic rgbd", kin, kinematic_cycle("rgbd_pcfg"), 1),
+            # Two structures part in cycle 1 since the divisions that reach a trunc or a
+            # comparison round as jitted JAX's do (structure 1 before), the second by
+            # 1.0866e-4 in histogram_b (NVIDIA H100 80GB HBM3, 700 W).
+            ("kinematic rgbd", kin, kinematic_cycle("rgbd_pcfg"), 2),
             # Phase 8x: the scale-out paths at B=8 (S=4) and C=2.  The articulated case
             # carries twice the link views of "kinematic rgbd" and may part, as it does,
             # at one named structure per camera.
@@ -4326,9 +4464,16 @@ def main() -> int:
                                              models, "has constraints")
     paths["host_occluded"]["normal_image"] = check_normal_image(inp, models)
     paths["host_occluded"]["render_windows"] = check_render_windows(inp, models)
-    for label, graph in (("host occluded", occluded_scene_graph),
-                         ("host structures", structure_graph)):
-        card_vs_cpu[label] = check_host_card_against_cpu(label, graph, inp, models)
+    # The occluded graph's witnessed parting at host_optimizer2, step 0, moves histogram_b
+    # by 2.6374e-3 on the card and 2.6374e-3 on the nudged CPU (NVIDIA H100 80GB HBM3,
+    # 700 W), since the divisions that reach a trunc or a comparison round as jitted
+    # JAX's do: its histogram_b bound is 3e-3.
+    for label, graph, bounds in (
+            ("host occluded", occluded_scene_graph,
+             dict(HOST_PARTED_BOUNDS, histogram_b=3e-3)),
+            ("host structures", structure_graph, HOST_PARTED_BOUNDS)):
+        card_vs_cpu[label] = check_host_card_against_cpu(label, graph, inp, models,
+                                                         bounds=bounds)
     phase10_s = time.perf_counter() - phase10_begin
     log(f"phase 10 took {phase10_s:.1f} s")
     # Phase 11: the evaluators and their entry points on synthetic datasets (11w), RBOT
@@ -4345,6 +4490,10 @@ def main() -> int:
         phase12 = run_phase12(root, ds)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    # Phase 13: the benchmark runner in its seven modes, as subprocesses (13b) and
+    # through build_workload with every launch and kernel call held (13k).
+    log("phase 13: the benchmark runner")
+    phase13 = run_phase13(card)
     log(f"held on the CPU only, for want of cv2 on this machine: {CV2_ONLY}")
     disagree = {label: case for label, case in card_vs_cpu.items()
                 if len(case["parted"]) > case["parted_allowed"] or case["twin_mismatches"]
@@ -4360,9 +4509,11 @@ def main() -> int:
     print(json.dumps({"kernel_shapes": shapes}))
     print(json.dumps({"paths": paths, "card_vs_cpu": card_vs_cpu, "dryrun": dryrun,
                       "card": card, "model_generation_s": generation_s,
-                      "phase10_s": phase10_s, "eval": evaluation, "phase12": phase12}))
+                      "phase10_s": phase10_s, "eval": evaluation, "phase12": phase12,
+                      "phase13": phase13}))
     print(card)
-    print(json.dumps({"kernels": kernel_line(shapes, paths, evaluation, phase12)}))
+    print(json.dumps({"kernels": kernel_line(shapes, paths, evaluation, phase12,
+                                             phase13)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

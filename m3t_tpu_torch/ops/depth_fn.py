@@ -12,13 +12,18 @@ is ``vmap``-ed by its pipeline; here the batch of bodies is a leading dimension:
 Numerics: every expression keeps the JAX source's operation order.  A Python number
 divided by a tensor goes through :func:`rdiv`, which rounds once as JAX does
 (``Tensor.__rtruediv__`` multiplies by the reciprocal), so window positions, which are
-``trunc`` of such quotients, agree exactly.
+``trunc`` of such quotients, agree exactly.  A division by a Python number whose quotient
+reaches a trunc or a comparison goes through :func:`div_const` where the JAX function
+holds it as a constant and :func:`div_value` where JAX traces it; these helpers are
+shared by the region functions and the pipeline.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 KMAX_N_OCCLUSION_STRIDES = 5  # depth_modality.h:113
@@ -107,15 +112,30 @@ def rdiv(a: float, x):
     return torch.div(torch.tensor(a, dtype=x.dtype), x)
 
 
-def div_const(x, n: int):
-    """``x / n`` for a Python number ``n`` as jitted JAX computes it: XLA rewrites a
+def div_const(x, n: float):
+    """``x / n`` for a Python number ``n`` as jitted JAX computes it where ``n`` is a
+    constant of the jitted function (a literal or a static config field): XLA rewrites a
     division by a constant as a product with the constant's float32 reciprocal.  The
     two differ by an ulp, which decides a trunc that lands on an integer: with depth
     scaling the window diameter 2 * considered_distance * fu is z-free, and at fu = 600
     the 0.05 m scale's 60 px over 6 strides truncates 10 + 1 to 10 or 11 by the last bit
-    of z * (fu / z), where the product gives 11 for every z."""
-    recip = torch.div(torch.tensor(1.0, dtype=x.dtype), torch.tensor(float(n), dtype=x.dtype))
-    return x * recip.to(x.device)
+    of z * (fu / z), where the product gives 11 for every z.  (A plain ``x / n`` divides
+    on the CPU and, on CUDA, multiplies by 1 / n taken in double and rounded to float32,
+    which can differ where n is not a float32 value.)"""
+    return x * float(np.float32(1.0) / np.float32(n))
+
+
+@functools.lru_cache(maxsize=256)
+def _device_scalar(c: float, dtype, device):
+    return torch.full((), c, dtype=dtype, device=device)
+
+
+def div_value(x, c: float):
+    """``x / c`` for a Python number ``c`` rounded once on every device, as JAX divides
+    by a value it traces (the intrinsics, the depth scale): PyTorch on CUDA multiplies
+    by the reciprocal of a Python-number divisor, one rounding more, but divides by a
+    divisor on the device, which is made once per (value, dtype, device)."""
+    return x / _device_scalar(float(c), x.dtype, x.device)
 
 
 def gather_u16(images, body, rows, cols):
@@ -284,7 +304,7 @@ def calculate_correspondences(
         threshold = cfg.measured_occlusion_threshold
         if cfg.use_depth_scaling:
             threshold = threshold * z
-        min_depth = (z - points.measured_depth_offset - threshold) / depth_scale
+        min_depth = div_value(z - points.measured_depth_offset - threshold, depth_scale)
         if measured_presampled is not None:
             d, sample_ok = measured_presampled
         else:
@@ -324,8 +344,8 @@ def calculate_correspondences(
     cd, diameter = correspondence_diameter(cfg, considered_distance, z, z_safe, fu)
     u_min, v_min, u_max, v_max, stride = window_bounds(diameter, k_max, cu, cv,
                                                         width, height)
-    min_depth_value = torch.clamp((z - cd) / depth_scale, max=0.0)
-    max_depth_value = (z + cd) / depth_scale
+    min_depth_value = torch.clamp(div_value(z - cd, depth_scale), max=0.0)
+    max_depth_value = div_value(z + cd, depth_scale)
 
     n_samples = k_max + 1
     d, sample_ok, uu, vv = window_samples(
@@ -339,8 +359,8 @@ def calculate_correspondences(
     ok = sample_ok & in_range
 
     d_m = d * depth_scale
-    px = (uu[..., None, :].to(torch.float32) - ppu) * d_m / fu
-    py = (vv[..., :, None].to(torch.float32) - ppv) * d_m / fv
+    px = div_value((uu[..., None, :].to(torch.float32) - ppu) * d_m, fu)
+    py = div_value((vv[..., :, None].to(torch.float32) - ppv) * d_m, fv)
     dx = px - c[..., 0, None, None]
     dy = py - c[..., 1, None, None]
     dz = d_m - c[..., 2, None, None]

@@ -32,6 +32,7 @@ import torch
 from m3t_tpu_torch.ops import _cuda
 from m3t_tpu_torch.ops._cuda import require as _require
 from m3t_tpu_torch.ops import region_fn as rfn
+from m3t_tpu_torch.ops.depth_fn import div_const, rdiv
 from m3t_tpu_torch.ops.region_fn import MeasuredOcclusionInputs, RegionConfig
 
 # Parameter-row indices of the staircase kernel input (region_fast.py:45-50).
@@ -411,7 +412,7 @@ def line_geometry(cfg: RegionConfig, scale: int, points: ViewPointsCL, n_lines,
             use_occlusions = use_occlusions & handle_occlusions[:, None]
         valid = torch.where(use_occlusions, valid_with, valid)
 
-    normal_component_to_scale = torch.abs(normal_p) / fscale
+    normal_component_to_scale = div_const(torch.abs(normal_p), fscale)
     delta_r = (torch.floor(center_p - ll_minus_1_half + 0.5) + ll_minus_1_half
                - center_p) / safe_normal_p
 
@@ -498,8 +499,8 @@ def gradient_hessian_cl(cfg: RegionConfig, lines: DataLinesCL, pose,
     c = rot @ lines.center_f_body + pose[:, :3, 3, None]            # (B, 3, LP)
     x, y, z = c[:, 0], c[:, 1], c[:, 2]
     z_safe = torch.where(z != 0, z, torch.ones_like(z))
-    fu_z = fu / z_safe
-    fv_z = fv / z_safe
+    fu_z = rdiv(fu, z_safe)
+    fv_z = rdiv(fv, z_safe)
     xfu_z = x * fu_z
     yfv_z = y * fv_z
     delta_cs = (lines.normal_u * (xfu_z + ppu - lines.center_u)

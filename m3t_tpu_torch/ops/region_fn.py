@@ -143,7 +143,8 @@ def _measured_occlusion_free(cfg: RegionConfig, center_f_body, depth_offset,
 
     meter_to_pixel = depth_fn.rdiv(occ.fu, z_safe)
     diameter = 2.0 * cfg.measured_occlusion_radius * meter_to_pixel
-    min_depth = (z - depth_offset - cfg.measured_occlusion_threshold) / occ.depth_scale
+    min_depth = depth_fn.div_value(z - depth_offset - cfg.measured_occlusion_threshold,
+                                   occ.depth_scale)
 
     if occ.presampled is not None:
         d, sample_ok = occ.presampled
@@ -201,8 +202,8 @@ def _region_check_grid(cfg: RegionConfig, fscale: float, center_u, center_v, nor
     """Sample strides of IsDynamicLineRegionSufficient (cpp:1293-1341): (fg_u, fg_v, bg_u,
     bg_v (B, L, K) int32 clipped pixels, bg_inb (B, L, K) bool)."""
     focused_min_cd = cfg.min_continuous_distance * fscale * chk.scale        # (B,)
-    focused_stride = torch.clamp((focused_min_cd - KREGION_OFFSET) / KN_REGION_STRIDE,
-                                 min=0.0)
+    focused_stride = torch.clamp(
+        depth_fn.div_const(focused_min_cd - KREGION_OFFSET, KN_REGION_STRIDE), min=0.0)
     fcu = 0.5 + (center_u - chk.corner_u[:, None]) * chk.scale[:, None]
     fcv = 0.5 + (center_v - chk.corner_v[:, None]) * chk.scale[:, None]
 
@@ -486,7 +487,7 @@ def calculate_correspondences(
         seg_f = torch.where(nz, seg_f / safe, half)
         seg_b = torch.where(nz, seg_b / safe, half)
 
-    normal_component_to_scale = torch.abs(normal_p) / fscale
+    normal_component_to_scale = depth_fn.div_const(torch.abs(normal_p), fscale)
     delta_r = (torch.floor(center_p - ll_minus_1_half + 0.5) + ll_minus_1_half
                - center_p) / safe_normal_p
 
@@ -672,7 +673,7 @@ def dynamic_region_distance(cfg: RegionConfig, center_u, center_v, normal_u, nor
     scale = chk.scale[:, None, None]                                        # (B, 1, 1)
     focused_stride = stride * scale
     delta_start = depth_fn.rdiv(KREGION_OFFSET, chk.scale) - cfg.unconsidered_line_length
-    i_start = torch.clamp(_trunc(delta_start / stride + 1.0), min=0)        # (B,)
+    i_start = torch.clamp(_trunc(depth_fn.div_const(delta_start, stride) + 1.0), min=0)
     i_start_f = i_start.to(torch.float32)[:, None, None]
 
     offset = cfg.unconsidered_line_length + i_start_f * stride

@@ -352,7 +352,8 @@ def _adaptive_n_lines(pcfg: PipelineConfig, model: RegionModelArrays, poses, bod
     body, idx = _closest_view(model.orientations, poses, body)
     contour_length = model.contour_lengths[body, idx]
     if pcfg.reference_contour_length > 0.0:
-        ratio = torch.clamp(contour_length / pcfg.reference_contour_length, max=1.0)
+        ratio = torch.clamp(depth_fn.div_const(contour_length, pcfg.reference_contour_length),
+                            max=1.0)
     else:
         mcl = model.max_contour_length[body]
         ratio = torch.where(mcl > 0,

@@ -316,6 +316,23 @@ def test_wrappers_refuse_noncontiguous_cuda_inputs(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [6.0, 3.6, 0.001, 520.0])
+def test_divisions_give_the_cpus_bits(cuda_device, c):
+    """depth_fn.div_const, div_value and rdiv give on the card the bits they give on the
+    CPU, which are jitted JAX's (tests/test_torch_divisions.py); a plain division by a
+    Python number does not: PyTorch on CUDA multiplies by its reciprocal, taken in double
+    and rounded to float32."""
+    from m3t_tpu_torch.ops import depth_fn
+
+    x = torch.as_tensor(np.random.default_rng(0).uniform(0, 100, 1 << 20).astype(np.float32))
+    z = torch.as_tensor(np.random.default_rng(1).uniform(0.2, 2, 1 << 20).astype(np.float32))
+    for fn in (depth_fn.div_const, depth_fn.div_value):
+        assert torch.equal(fn(x.to(cuda_device), c).cpu(), fn(x, c))
+    assert torch.equal(depth_fn.rdiv(c, z.to(cuda_device)).cpu(), depth_fn.rdiv(c, z))
+    assert not torch.equal((x.to(cuda_device) / c).cpu(), x / c)
+
+
+@pytest.mark.cuda
 def test_cycle_on_card_matches_cpu(cuda_device):
     states = {}
     for dev in ("cpu", cuda_device):

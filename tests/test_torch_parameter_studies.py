@@ -1,5 +1,8 @@
 """Parity tests: the port's parameter studies (m3t_tpu_torch/examples/parameter_study*.py)
-against the JAX package's scripts under examples/, on the CPU.
+against the JAX package's scripts under examples/, on the CPU: parameter_study.py's RBOT
+mode and the RBOT and YCB-Video studies here, the OPT, Choi and RTB studies in
+tests/test_torch_parameter_studies_datasets.py (two files, so that two test workers
+share them).
 
 Each study runs through both packages' main() on the mini datasets of
 tests/test_evaluators.py, tests/test_evaluators_extra.py and tests/test_torch_evaluators.py
@@ -10,36 +13,51 @@ row took aside), and every scored pose within 1e-4.  Two faults of the JAX studi
 shown in both packages (ROADMAP Queue C).
 """
 
-import importlib
 import json
 
 import numpy as np
 import pytest
 
 from tests.test_evaluators import _build_mini_rbot, _build_mini_ycb
-from tests.test_evaluators_extra import _build_mini_rtb
-from tests.test_torch_evaluators import MetricSpy, _build_mini_choi, _build_mini_opt
 from tests.test_torch_examples import (N_FRAMES, _assert_same_lines, _assert_same_poses,
                                        _both, _evaluator_patches, _jax_script,
                                        _port_script, _run)
 
+YCB_DEPTH_SCALE = 0.0001
 
-def _rbot_patches(tmp_path):
-    intr, n = _build_mini_rbot(tmp_path, N_FRAMES)
+
+@pytest.fixture(scope="module")
+def rbot_dataset(tmp_path_factory):
+    """The mini RBOT dataset, shared by the RBOT studies: the models the first study
+    generates in it are read from the cache by the next."""
+    root = tmp_path_factory.mktemp("rbot")
+    intr, n = _build_mini_rbot(root, N_FRAMES)
+    return root, intr, n
+
+
+@pytest.fixture(scope="module")
+def ycb_dataset(tmp_path_factory):
+    """The mini YCB-Video dataset, shared by the YCB studies."""
+    root = tmp_path_factory.mktemp("ycb")
+    return root, _build_mini_ycb(root, N_FRAMES, YCB_DEPTH_SCALE)
+
+
+def _rbot_patches(rbot_dataset):
+    _, intr, n = rbot_dataset
     patches, spies = _evaluator_patches("rbot_evaluator", "RBOTEvaluator", intr=intr,
                                         pipeline={}, n_frames=n)
     return patches, spies
 
 
-def test_parameter_study_rbot_sweeps_nothing_in_both_packages(tmp_path, monkeypatch,
+def test_parameter_study_rbot_sweeps_nothing_in_both_packages(rbot_dataset, monkeypatch,
                                                                capsys):
     """The reference fault of examples/parameter_study.py (ROADMAP Queue C): the RBOT
     evaluator's fused path, its default, builds its cycle from pipeline_config alone and
     never calls region_modality_setter, so a two-value n_lines_max grid prints the same
     score for both rows, from equal scored poses, in JAX and in the port alike."""
-    patches, spies = _rbot_patches(tmp_path)
-    argv = ["rbot", str(tmp_path), str(tmp_path), "--bodies", "ball",
-            "--param", "n_lines_max", "[60, 200]"]
+    patches, spies = _rbot_patches(rbot_dataset)
+    root = str(rbot_dataset[0])
+    argv = ["rbot", root, root, "--bodies", "ball", "--param", "n_lines_max", "[60, 200]"]
     got, want = _both("parameter_study", argv, monkeypatch, capsys, patches)
     _assert_same_lines(got, want)
     rows = [line for line in got if " -> " in line]
@@ -81,17 +99,18 @@ RBOT_MINI_GRID = {"region_modality.n_histogram_bins": [16],
     pytest.param(dict(RBOT_MINI_GRID, **{"region_modality.n_lines_max": [100, 200]}),
                  id="mini grid swept", marks=pytest.mark.slow),
     pytest.param({}, id="published grid", marks=pytest.mark.slow)])
-def test_parameter_study_rbot_dataset_fused_matches_jax(tmp_path, monkeypatch, capsys,
+def test_parameter_study_rbot_dataset_fused_matches_jax(rbot_dataset, monkeypatch, capsys,
                                                          grid):
     """parameter_study_rbot_dataset.py --fused --quick, its pipeline_config built from
     the grid field for field: the same printed rows and scored poses.  Swept over
     n_lines_max, the rows' poses differ: this path takes the grid, unlike
     parameter_study.py's."""
-    patches, spies = _rbot_patches(tmp_path)
+    patches, spies = _rbot_patches(rbot_dataset)
     for pkg, patch in _study_grid("parameter_study_rbot_dataset", monkeypatch,
                                   **grid).items():
         patches[pkg].append(patch)
-    argv = [str(tmp_path), str(tmp_path), "--bodies", "ball", "--sequences", "a_regular",
+    root = str(rbot_dataset[0])
+    argv = [root, root, "--bodies", "ball", "--sequences", "a_regular",
             "--fused", "--quick", "--n-frames", str(N_FRAMES)]
     got, want = _both("parameter_study_rbot_dataset", argv, monkeypatch, capsys, patches)
     _assert_same_lines(got, want)
@@ -103,35 +122,35 @@ def test_parameter_study_rbot_dataset_fused_matches_jax(tmp_path, monkeypatch, c
             spies["torch"].pairs[:half], spies["torch"].pairs[half:]))
 
 
-def _ycb_dataset(tmp_path):
-    depth_scale = 0.0001
-    intr = _build_mini_ycb(tmp_path, N_FRAMES, depth_scale)
-    return _evaluator_patches("ycb_evaluator", "YCBEvaluator", intr=intr,
-                              pipeline={"depth": True}, depth_scale=depth_scale)
+def _ycb_patches(ycb_dataset):
+    return _evaluator_patches("ycb_evaluator", "YCBEvaluator", intr=ycb_dataset[1],
+                              pipeline={"depth": True}, depth_scale=YCB_DEPTH_SCALE)
 
 
-def test_parameter_study_ycb_dataset_matches_jax(tmp_path, monkeypatch, capsys):
+def test_parameter_study_ycb_dataset_matches_jax(ycb_dataset, monkeypatch, capsys):
     """parameter_study_ycb_dataset.py on the mini YCB-Video dataset (its fused path, the
     default), BODY_NAMES bound to the dataset's one body in both packages."""
-    patches, spies = _ycb_dataset(tmp_path)
+    patches, spies = _ycb_patches(ycb_dataset)
     for pkg, (module, _, _) in _study_grid("parameter_study_ycb_dataset",
                                            monkeypatch).items():
         patches[pkg].append((module, "BODY_NAMES", ["ball"]))
-    argv = [str(tmp_path), str(tmp_path / "external"), "--sequences", "1"]
+    root = ycb_dataset[0]
+    argv = [str(root), str(root / "external"), "--sequences", "1"]
     got, want = _both("parameter_study_ycb_dataset", argv, monkeypatch, capsys, patches)
     _assert_same_lines(got, want)
     assert got[-1].startswith("best add_auc: ")
     _assert_same_poses(spies)
 
 
-def test_parameter_study_ycb_needs_every_body_in_both_packages(tmp_path, monkeypatch,
+def test_parameter_study_ycb_needs_every_body_in_both_packages(ycb_dataset, monkeypatch,
                                                                 capsys):
     """A fault of examples/parameter_study_ycb_dataset.py (ROADMAP Queue C): every
     sequence tracks every one of the 21 BODY_NAMES ("let missing files skip", says its
     comment), so on a dataset without one of their models the study fails at its
     first body, in JAX and in the port alike."""
-    patches, _ = _ycb_dataset(tmp_path)
-    argv = [str(tmp_path), str(tmp_path / "external"), "--sequences", "1"]
+    patches, _ = _ycb_patches(ycb_dataset)
+    root = ycb_dataset[0]
+    argv = [str(root), str(root / "external"), "--sequences", "1"]
     errors = {}
     for pkg in ("jax", "torch"):
         with pytest.raises(Exception) as error:
@@ -139,55 +158,3 @@ def test_parameter_study_ycb_needs_every_body_in_both_packages(tmp_path, monkeyp
         errors[pkg] = (type(error.value), str(error.value))
     assert errors["torch"] == errors["jax"]
     assert "002_master_chef_can" in errors["torch"][1]
-
-
-def test_parameter_study_opt_dataset_matches_jax(tmp_path, monkeypatch, capsys):
-    """parameter_study_opt_dataset.py on the mini OPT dataset laid out as the published
-    OPT sequences (3D/<body[:2]>_<pattern>_<orientation>/, column-major ground truth in
-    3D/poses/), where the depth camera sits at the published depth-to-colour pose, so
-    that the tracker serves on the host path in both packages."""
-    intr = _build_mini_opt(tmp_path, N_FRAMES)
-    (tmp_path / "3D" / "seq1").rename(tmp_path / "3D" / "ba_tr_1_b")
-    poses = np.loadtxt(tmp_path / "3D" / "ba_tr_1_b" / "ball.txt").reshape(-1, 12)
-    columns = [np.concatenate([p[:9].reshape(3, 3), p[9:, None]], 1).T.reshape(-1)
-               for p in poses]
-    (tmp_path / "3D" / "poses").mkdir()
-    np.savetxt(tmp_path / "3D" / "poses" / "ba_tr_1_b.txt", np.array(columns), fmt="%.9f")
-    patches, spies = _evaluator_patches("opt_evaluator", "OPTEvaluator", intr=intr)
-    argv = [str(tmp_path), str(tmp_path), "--bodies", "ball", "--orientations", "b",
-            "--patterns", "tr_1"]
-    got, want = _both("parameter_study_opt_dataset", argv, monkeypatch, capsys, patches)
-    _assert_same_lines(got, want)
-    assert "fused cycle unavailable (depth camera extrinsics differ" in got[1]
-    assert got[2].startswith("ba_tr_1_b ball: AUC = ")
-    _assert_same_poses(spies)
-
-
-def test_parameter_study_choi_dataset_matches_jax(tmp_path, monkeypatch, capsys):
-    """parameter_study_choi_dataset.py on the mini Choi sequence: neg_mean_rmse_mm and
-    mean_rmse_mm printed alike."""
-    intr = _build_mini_choi(tmp_path, N_FRAMES)
-    patches, spies = _evaluator_patches("choi_evaluator", "ChoiEvaluator", intr=intr)
-    argv = [str(tmp_path), str(tmp_path), "--bodies", "ball"]
-    got, want = _both("parameter_study_choi_dataset", argv, monkeypatch, capsys, patches)
-    _assert_same_lines(got, want)
-    assert "mean_rmse_mm = " in got[-2]
-    _assert_same_poses(spies)
-
-
-def test_parameter_study_rtb_dataset_matches_jax(tmp_path, monkeypatch, capsys):
-    """parameter_study_rtb_dataset.py on the mini RTB structure (its fused kinematic
-    path): the grids reach the generated modalities through tracker_setter."""
-    _build_mini_rtb(tmp_path)
-    patches = {}
-    spies = {}
-    for pkg, prefix in (("jax", "m3t_tpu.eval"), ("torch", "m3t_tpu_torch.eval")):
-        module = importlib.import_module(f"{prefix}.rtb_evaluator")
-        spies[pkg] = MetricSpy(module.metrics)
-        patches[pkg] = [(module, "metrics", spies[pkg])]
-    argv = [str(tmp_path), str(tmp_path), "--objects", "miniobj", "--difficulties", "easy",
-            "--depths", "gt_depth", "--sequences", "0"]
-    got, want = _both("parameter_study_rtb_dataset", argv, monkeypatch, capsys, patches)
-    _assert_same_lines(got, want)
-    assert got[-1].startswith("best add_auc: ")
-    _assert_same_poses(spies)

@@ -181,6 +181,31 @@ def test_line_geometry_matches(scene, scale):
                                    rtol=1e-6, atol=1e-6, err_msg=name)
 
 
+@pytest.mark.parametrize("scale", [6, 7])
+def test_line_geometry_scale_quotient_matches_jitted_jax(scene, scale, monkeypatch):
+    """normal_component_to_scale = |normal_p| / scale, whose ulp decides the distribution
+    index trunc of gradient_hessian_cl, bit for bit as jitted JAX computes it (XLA
+    multiplies by the float32 reciprocal of the constant scale); a plain division
+    differs on some of these lines."""
+    s = scene
+    intr, (fu, fv, ppu, ppv) = s["intr"], s["intr4"]
+    _, _, cu, cv = s["jcrop"]
+    jcfg = s["jpcfg"]
+    jgeo = jax.jit(jax.vmap(lambda p, po, u, v: jrf.line_geometry(
+        jcfg.cfg, scale, p, jnp.int32(L), po, fu, fv, ppu, ppv, intr.width, intr.height,
+        u, v, jcfg.crop_size, jcfg.lp)))(s["jpoints"], jnp.asarray(s["pose"])[None], cu, cv)
+    want = np.asarray(jgeo.normal_component_to_scale)
+    _, tgeo = _geometries(s, scale)
+    # Jitted JAX may round the normalized normal another way (XLA's rsqrt): the lines
+    # whose normal_p is the same bits on both sides.
+    same = _n(tgeo.normal_p) == np.asarray(jgeo.normal_p)
+    assert same.sum() > L // 2
+    np.testing.assert_array_equal(_n(tgeo.normal_component_to_scale)[same], want[same])
+    monkeypatch.setattr(trf, "div_const", lambda x, n: x / n)
+    _, plain = _geometries(s, scale)
+    assert (_n(plain.normal_component_to_scale)[same] != want[same]).any()
+
+
 @pytest.mark.parametrize("scale", [6, 2, 1])
 def test_sample_lines_ratio_matches(scene, scale):
     s = scene

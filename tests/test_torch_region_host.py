@@ -20,8 +20,10 @@ import numpy as np
 import pytest
 import torch
 
+from m3t_tpu import region_modality as jregion_modality
 from m3t_tpu.ops import histogram as jhist
 from m3t_tpu.ops import region_fn as jrfn
+from m3t_tpu_torch.ops import depth_fn as tdn
 from m3t_tpu_torch.ops import region_fn as trfn
 from tests import fixtures
 
@@ -144,6 +146,36 @@ def test_calculate_correspondences_matches_jax(scene, scale, measured, handle, r
         _assert_lines_close(got, want, b)
         n_valid.append(int(got.valid[b].sum()))
     assert min(n_valid) > 10, n_valid
+
+
+def test_scale_quotient_matches_jitted_jax(scene, monkeypatch):
+    """normal_component_to_scale = |normal_p| / scale at scale 3 (a static argument of
+    the JAX modality's jit), bit for bit as jitted JAX computes it: XLA multiplies by the
+    float32 reciprocal of the constant; a plain division differs on some lines."""
+    cfg_j, cfg_t = jrfn.RegionConfig(**CFG_KW), trfn.RegionConfig(**CFG_KW)
+    want = [jregion_modality._correspondences_jit(
+        cfg_j, 3, INTR.width, INTR.height, False, False, False, scene["points"],
+        jnp.int32(N_LINES), jnp.asarray(scene["poses"][b]), jnp.asarray(scene["frame"]),
+        *scene["hist"], F32, jnp.asarray(True), None, None, None,
+        *cfg_j.function_lookups()) for b in range(2)]
+
+    def got():
+        return trfn.calculate_correspondences(
+            cfg_t, 3, _torch_points(scene["points"]), N_LINES, _t(scene["poses"]),
+            _t(np.stack([scene["frame"]] * 2)), *(_t(np.stack([h, h])) for h in scene["hist"]),
+            *map(float, F32), INTR.width, INTR.height, True)
+
+    lines = got()
+    # Jitted JAX may round the normalized normals another way (XLA's rsqrt): the lines
+    # whose normals are the same bits on both sides (|normal_p| is the larger of the two).
+    same = np.stack([(lines.normal_u[b].numpy() == np.asarray(want[b].normal_u))
+                     & (lines.normal_v[b].numpy() == np.asarray(want[b].normal_v))
+                     for b in range(2)])
+    want = np.stack([np.asarray(w.normal_component_to_scale) for w in want])
+    assert same.sum() > N_LINES
+    np.testing.assert_array_equal(lines.normal_component_to_scale.numpy()[same], want[same])
+    monkeypatch.setattr(tdn, "div_const", lambda x, n: x / n)
+    assert (got().normal_component_to_scale.numpy()[same] != want[same]).any()
 
 
 def test_occlusions_and_region_check_drop_lines(scene):

@@ -220,7 +220,7 @@ def test_package_imports_without_cv2_sdks_or_jax():
         "need = {'m3t_tpu_torch.' + m for m in ('constraint', 'soft_constraint',\n"
         "        'renderer_geometry', 'renderer', 'texture_modality', 'utils.features',\n"
         "        'viewer', 'hardware_camera', 'generator', 'utils.ref_model_io',\n"
-        "        'utils.timing', 'utils.benchtime')}\n"
+        "        'utils.timing', 'utils.benchtime', 'bench')}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
         "             and m.split('.')[0] in ('cv2', 'pyk4a', 'pyrealsense2', 'jax',\n"
