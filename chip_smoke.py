@@ -36,8 +36,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      its inputs ask for (query_work);
   3. the flagship region cycle, bench.py's default workload: B=512 bodies, 640x512
      frames, 200 lines, scales {6,4,2,1}, 5 correspondence x 2 update iterations,
-     histogram adaptation, the sphere model of phase 0m, run eagerly through
-     initialize_histograms and tracking_cycle;
+     histogram adaptation, the sphere model of phase 0m, through initialize_histograms
+     and tracking_cycle, graphed (its first cycle captures the CUDA graph);
   4. the flagship RGB-D (ICG) cycle, bench.py --rgbd: phase 3 plus 200 depth points per
      body on a depth frame rendered at the initial pose (depth scale 1 mm, depth
      intrinsics equal to the colour ones), through tracking_cycle_rgbd;
@@ -260,6 +260,25 @@ Phases (any failure exits non-zero; no phase catches its own failure):
          held per cycle against BENCH_LAUNCHES, every kernel call held against its
          plain twin (twin_checked); the largest translation error to the rendered pose
          (of the parent link, the only one rendered) is logged and not asserted.
+  14. the fused cycles graphed (m3t_tpu_torch.graphs, the port's jax.jit: one CUDA graph
+     per static key) against their eager twins (disable_graphs), on each bench mode's
+     workload at B=512 (S=256: region, --rgbd, --ycb, --occlusion, --kinematic,
+     --kinematic-rgbd), phase 8s's RGB-D scan step, --latency at B=1, 8 and 64 and phase
+     9l's serve graphs (region and RGB-D, one body; an eager and a graphed copy in
+     lockstep): 3 eager cycles (steps), then a graphed one from the state each eager one
+     started from, the first capturing the graph, every graphed state equal to the eager
+     one bit for bit; kernel launches per cycle of both forms and per replay as
+     BENCH_LAUNCHES; capture seconds and graphs per path; each form's peak memory; ms per
+     cycle of both forms in windows taken in turns (eager, graph, graph, eager; 5 cycles
+     at B=512, 20 at the smaller batches and in serve); and one torch.profiler window of
+     each form of the region and kinematic RGB-D cycles (device busy ms, idle share).
+Every phase runs the fused cycles graphed, the form a user gets, but where it records
+kernel calls to hold them against their twins (phase 2's recorded calls, 7, 8x, 9x,
+10's count, 11x, 12r, 12g and 12p's twin checks, 12x, 13k: recorded_launches) or counts
+aten operations (phases 4-6k's depth-frame reads): a graph's replay calls no wrapper
+and dispatches no operation, so those cycles run eagerly (disable_graphs).  12r also
+replays its recording graphed, held by its launches.  Every path of phases 3-9 starts
+with clear_graphs, so that its peak memory holds its own graph only.
 The last two lines are the kernels JSON and {"ok": true, "device": {...}}.  With
 --profile, one window each of region, RGB-D, occlusion-path, kinematic, kinematic RGB-D,
 RGB-D scan step, multi-camera and multi-camera kinematic cycles is also traced with
@@ -274,6 +293,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import gc
 import io
 import json
 import multiprocessing
@@ -734,7 +754,11 @@ def launch_counters():
 @contextlib.contextmanager
 def recorded_launches():
     """Every kernel wrapper call made inside the block, in order, as (name, args, kwargs,
-    result) (the callers look the wrappers up in their module at each call)."""
+    result) (the callers look the wrappers up in their module at each call).  The fused
+    cycles run eagerly inside the block (disable_graphs): a graph's replay calls no
+    wrapper, so only an eager cycle's kernel calls can be recorded."""
+    from m3t_tpu_torch import graphs
+
     modules, kernels = kernel_modules(), launch_counters()
     calls = []
 
@@ -751,7 +775,8 @@ def recorded_launches():
     for name, module in modules.items():
         setattr(module, name, records[name])
     try:
-        yield calls
+        with graphs.disable_graphs():
+            yield calls
     finally:
         for name, module in modules.items():
             setattr(module, name, kernels[name])
@@ -934,6 +959,8 @@ def depth_frame_reads(inp, cycle, tensors) -> int:
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves
 
+    from m3t_tpu_torch import graphs
+
     bt, state = tensors
     frame = bt["depth_images"].untyped_storage().data_ptr()
 
@@ -950,7 +977,8 @@ def depth_frame_reads(inp, cycle, tensors) -> int:
                 self.n += 1
             return out
 
-    with Count() as count:
+    # Eagerly: a graph's replay dispatches no aten operation.
+    with graphs.disable_graphs(), Count() as count:
         cycle(inp, bt, state)
     torch.cuda.synchronize()
     return count.n
@@ -1213,6 +1241,9 @@ def run_path(label, inp, cycle, want_per_cycle, want_at_init, n_windows=3,
              cycles_per_window=5, n_warmup=2):
     """Phases 3-6k, 8c and 8k: StartModality and the path's cycles at B=512, with every
     kernel launch counted from 0, and the steady cycles timed."""
+    from m3t_tpu_torch import graphs
+
+    graphs.clear_graphs()  # the path's peak memory holds its own graph only
     dev = torch.device("cuda")
     bt = inp["kind"].batch(inp, N_BODIES, dev)
     counters = launch_counters()
@@ -1256,6 +1287,34 @@ def run_path(label, inp, cycle, want_per_cycle, want_at_init, n_windows=3,
     return result, (bt, state)
 
 
+def traced(step, state, n_steps: int, eager: bool = False):
+    """torch.profiler over n_steps of step(state) -> state (eager: inside
+    disable_graphs): the events' key averages and the traced wall seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from m3t_tpu_torch import graphs
+
+    torch.cuda.synchronize()
+    with graphs.disable_graphs() if eager else contextlib.nullcontext(), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        begin = time.perf_counter()
+        for _ in range(n_steps):
+            state = step(state)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - begin
+    return prof.key_averages(), wall_s
+
+
+def device_us(event) -> float:
+    return getattr(event, "self_device_time_total", getattr(event, "self_cuda_time_total", 0))
+
+
+def kernel_rows(events) -> list:
+    """The kernels' own rows: device time counted once, not again on the aten:: rows that
+    launched them."""
+    return [e for e in events if str(e.device_type).endswith("CUDA")]
+
+
 def profile_file(table_file: Path, suffix: str) -> Path:
     """--profile's TABLE_FILE with a path's suffix before its own."""
     return table_file.with_name(f"{table_file.stem}{suffix}{table_file.suffix}")
@@ -1266,24 +1325,9 @@ def profile_cycles(label, inp, cycle, tensors, table_file: Path, ms_per_cycle: f
     """--profile: device busy time and kernel time by name over a traced window.  The
     idle share is given against the traced wall time and against ms_per_cycle, the
     untraced time (tracing slows the host, which this cycle waits on)."""
-    from torch.profiler import ProfilerActivity, profile
-
     bt, state = tensors
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        begin = time.perf_counter()
-        for _ in range(n_cycles):
-            state = cycle(inp, bt, state)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - begin
-    events = prof.key_averages()
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-
-    # Count device time once: on the kernels' own rows, not again on the aten:: rows
-    # that launched them.
-    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    events, wall_s = traced(lambda state: cycle(inp, bt, state), state, n_cycles)
+    kernels = kernel_rows(events)
     busy_us = sum(device_us(e) for e in kernels)
     top = sorted(kernels, key=device_us, reverse=True)[:15]
     sort_key = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
@@ -1663,8 +1707,9 @@ def run_scan(label, inp, rgbd: bool, want_per_step, want_at_init, n_windows: int
     the other frames of N_BODIES sequences, once to warm up and once per timed window,
     every kernel launch counted from 0; every pose of every step within 5 mm of the
     sphere in that frame."""
-    from m3t_tpu_torch import parallel
+    from m3t_tpu_torch import graphs, parallel
 
+    graphs.clear_graphs()
     bt = sequences_batch(inp, N_BODIES, torch.device("cuda"))
     counters = launch_counters()
     torch.cuda.synchronize()
@@ -1880,8 +1925,9 @@ def run_serve(label, inp, seq, models, n_bodies: int, rgbd: bool, want_per_step:
     the starting step), every body within 5 mm of the sphere in the last frame; then the
     timed windows of further steps on the replayed frames, and (breakdown) one window
     more with the backend's parts timed apart."""
-    from m3t_tpu_torch import fused_serve, pipeline
+    from m3t_tpu_torch import fused_serve, graphs, pipeline
 
+    graphs.clear_graphs()
     n_frames = len(seq["scan_colour"])
     counters = launch_counters()
     torch.cuda.synchronize()
@@ -3730,14 +3776,17 @@ def step_summary(steps: dict) -> dict:
 def run_recorded(root: Path, ds, writer: FrameWriter) -> dict:
     """12r: the recording, then its replay fused and on the host path (launches per
     tracking step as phase 9l's, none in the starting step; none on the host path; every
-    kernel call equal to its twin), each tracked body within 5 mm of the last frame's
+    kernel call equal to its twin, which runs the cycles eagerly), and fused once more
+    graphed (held by its launches), each tracked body within 5 mm of the last frame's
     pose."""
     directory = record_sequence(root, writer)
     files = replay_files(root, ds)
     out = {}
     for label, host_path, want in (("fused", False, STEP_LAUNCHES),
-                                   ("host_path", True, dict.fromkeys(STEP_LAUNCHES, 0))):
-        with twin_checked(f"12r {label}") as checked:
+                                   ("host_path", True, dict.fromkeys(STEP_LAUNCHES, 0)),
+                                   ("fused graphed", False, STEP_LAUNCHES)):
+        with (contextlib.nullcontext({"kernel_calls": 0}) if label == "fused graphed"
+              else twin_checked(f"12r {label}")) as checked:
             run = replay(directory, files, host_path)
         summary = step_summary(run["steps"])
         record = dict(summary, rc=run["rc"], seconds=run["seconds"],
@@ -4117,7 +4166,7 @@ def run_phase12(root: Path, ds) -> dict:
     names = ALL_BODIES[:18]
     writer = FrameWriter(seed=43)
     recorded = run_recorded(root, ds, writer)
-    out = {"recorded": {k: recorded[k] for k in ("fused", "host_path")},
+    out = {"recorded": {k: recorded[k] for k in ("fused", "host_path", "fused graphed")},
            "generated": run_generated(root, recorded, ds)}
     opt_published_layout(ds, writer)
     out["studies"] = run_studies(ds, names)
@@ -4238,6 +4287,189 @@ def run_phase13(card: str) -> dict:
     return out
 
 
+# Phase 14: the fused cycles graphed (m3t_tpu_torch.graphs, the port's jax.jit) against
+# their eager twins.
+GRAPH_CYCLES = 3  # 14: eager cycles, and as many graphed ones from their states
+GRAPH_FORMS = ("eager", "graph", "graph", "eager")  # 14: the timed windows, in turns
+
+
+def graph_windows(step, state, steps_per_window: int):
+    """14: ms per step of both forms in windows taken in turns (GRAPH_FORMS), each of
+    steps_per_window steps from state and ended by a synchronize."""
+    from m3t_tpu_torch import graphs
+
+    ms = {"eager": [], "graph": []}
+    for form in GRAPH_FORMS:
+        current = state
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        with graphs.disable_graphs() if form == "eager" else contextlib.nullcontext():
+            for _ in range(steps_per_window):
+                current = step(current)
+        torch.cuda.synchronize()
+        ms[form].append((time.perf_counter() - begin) / steps_per_window * 1e3)
+    return ms
+
+
+def device_share(step, state, n_steps: int = 3, eager: bool = False) -> dict:
+    """14: a traced window of n_steps steps of one form: wall and device-busy ms per
+    step (the kernels' own rows) and the idle share."""
+    events, wall_s = traced(step, state, n_steps, eager)
+    busy_us = sum(device_us(e) for e in kernel_rows(events))
+    return dict(wall_ms_per_step=wall_s / n_steps * 1e3,
+                device_busy_ms_per_step=busy_us / n_steps / 1e3,
+                device_idle_share=1.0 - busy_us / 1e6 / wall_s)
+
+
+def unequal_fields(got, want) -> dict:
+    """The fields of two states (or tuples of tensors) that are not equal bit for bit,
+    with their largest difference."""
+    names = getattr(want, "_fields", range(len(want)))
+    return {str(n): float((g.double() - w.double()).abs().max())
+            for n, g, w in zip(names, got, want) if not torch.equal(g, w)}
+
+
+def eager_and_graphed(label, card, step, state, want_per_step: dict,
+                      steps_per_window: int, fields=tuple, windows=None,
+                      profiled: bool = False) -> dict:
+    """14: GRAPH_CYCLES eager steps from state, then a graphed step from the state each
+    eager step started from (the first captures the graph, the others replay it), every
+    graphed state equal to the eager one bit for bit (fields(state): its tensors); the
+    kernel launches of both forms per step (want_per_step), the graphs captured and
+    their seconds, each form's peak memory, ms per step of both forms in turns
+    (graph_windows, or windows()), and (profiled) each form's device busy time and idle
+    share."""
+    from m3t_tpu_torch import graphs
+
+    counters = launch_counters()
+
+    def measured(run):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = {n: c.launches for n, c in counters.items()}
+        out = run()
+        torch.cuda.synchronize()
+        return (out, {n: c.launches - before[n] for n, c in counters.items()},
+                torch.cuda.max_memory_allocated())
+
+    def eager_chain():
+        states = [state]
+        with graphs.disable_graphs():
+            for _ in range(GRAPH_CYCLES):
+                states.append(step(states[-1]))
+        return states
+
+    graphs.clear_graphs()
+    gc.collect()  # the last path's tensors go before this one's peak memory is read
+    eager, eager_launches, eager_peak = measured(eager_chain)
+    graphed, graph_launches, graph_peak = measured(lambda: [step(s) for s in eager[:-1]])
+    unequal = {}
+    for i, (g, e) in enumerate(zip(graphed, eager[1:])):
+        if unequal_fields(fields(g), fields(e)):
+            unequal[i + 1] = unequal_fields(fields(g), fields(e))
+    infos = graphs.captured()
+    want = {n: GRAPH_CYCLES * want_per_step.get(n, 0) for n in counters}
+    per_replay = {n: sum(i.launches.get(n, 0) for i in infos) for n in counters}
+    if unequal or eager_launches != want or graph_launches != want \
+            or per_replay != {n: want_per_step.get(n, 0) for n in counters}:
+        raise AssertionError(f"14 {label} ({card}): graphed steps unequal to eager "
+                             f"{unequal}; launches eager {eager_launches}, graphed "
+                             f"{graph_launches}, per replay {per_replay}, expected {want}")
+    ms = windows() if windows else graph_windows(step, eager[-1], steps_per_window)
+    eager_ms, graph_ms = statistics.mean(ms["eager"]), statistics.mean(ms["graph"])
+    out = dict(path=label, card=card, equal_steps=GRAPH_CYCLES, launches_per_step=per_replay,
+               graphs=len(infos), capture_s=sum(i.capture_s for i in infos),
+               warmup_s=sum(i.warmup_s for i in infos),
+               peak_memory_bytes={"eager": eager_peak, "graph": graph_peak},
+               ms_per_step={"eager": eager_ms, "graph": graph_ms},
+               window_ms_per_step=ms, steps_per_window=steps_per_window,
+               eager_over_graph=eager_ms / graph_ms)
+    if profiled:
+        out["profile"] = {form: device_share(step, eager[-1], eager=form == "eager")
+                          for form in ("eager", "graph")}
+    log(f"14 {label} ({card}): {json.dumps(out)}")
+    graphs.clear_graphs()
+    return out
+
+
+def serve_graphed(label, card, inp, seq, models, rgbd: bool, steps_per_window: int = 20):
+    """14: phase 9l's serve graph (one body), twice: one copy steps eagerly and the
+    other graphed, in lockstep, each step from the same graph state (fused_serve.
+    read_graph_state and load_graph_state: the link's pose and the histograms; the
+    cameras, which read their next frame at every step, advance alike in the two
+    copies), held as eager_and_graphed holds a cycle; then ms per loop iteration of the
+    graphed copy (cameras, consistent poses, the tracking step, as phase 9 times it) in
+    turns, the frames replayed on."""
+    from m3t_tpu_torch import fused_serve, graphs
+
+    n_frames = len(seq["scan_colour"])
+    copies, frame = {}, {}
+    for form in ("eager", "graph"):
+        copies[form] = serve_graph(inp, seq, models, 1, rgbd, "cuda")
+        frame[form] = n_frames
+        with graphs.disable_graphs(), contextlib.redirect_stdout(io.StringIO()):
+            if not (copies[form].SetUp() and copies[form].RunTrackerProcess(
+                    execute_detection=True, start_tracking=True, max_iterations=n_frames)):
+                raise AssertionError(f"14 {label}: the serve graph failed to start")
+
+    def step(graph_state):
+        form = "graph" if graphs.graphs_enabled() else "eager"
+        fused_serve.load_graph_state(copies[form], graph_state)
+        serve_steps(copies[form], frame[form], 1)
+        frame[form] += 1
+        return fused_serve.read_graph_state(copies[form])
+
+    def fields(graph_state):
+        (link,), ((hist_f, hist_b),) = (graph_state["links"].values(),
+                                        graph_state["histograms"].values())
+        return tuple(torch.as_tensor(np.asarray(a)) for a in (link[2], hist_f, hist_b))
+
+    def windows():
+        ms, srv = {"eager": [], "graph": []}, copies["graph"]
+        for form in GRAPH_FORMS:
+            with graphs.disable_graphs() if form == "eager" else contextlib.nullcontext():
+                total, _ = serve_steps(srv, frame["graph"], steps_per_window)
+            ms[form].append(total / steps_per_window * 1e3)
+            frame["graph"] += steps_per_window
+        return ms
+
+    want = dict(STEP_LAUNCHES, sample_windows=5 if rgbd else 0)
+    return eager_and_graphed(label, card, step,
+                             fused_serve.read_graph_state(copies["eager"]), want,
+                             steps_per_window, fields=fields, windows=windows)
+
+
+def run_phase14(card: str, inp, seq, models) -> dict:
+    """Phase 14: every bench mode's workload at B=512 (S=256), the RGB-D scan step of
+    phase 8s, --latency at B=1, 8 and 64 and the serve graphs of phase 9l, each through
+    eager_and_graphed (region and kinematic RGB-D profiled)."""
+    from m3t_tpu_torch import bench
+
+    begin = time.perf_counter()
+    out = {}
+    for mode in ("region", "rgbd", "ycb", "occlusion", "kinematic", "kinematic_rgbd"):
+        (work,) = bench.build_workload(mode, N_BODIES, "cuda")
+        out[mode] = eager_and_graphed(mode, card, work.cycle, work.state,
+                                      BENCH_LAUNCHES[mode], 5,
+                                      profiled=mode in ("region", "kinematic_rgbd"))
+        del work
+    bt = sequences_batch(seq, N_BODIES, torch.device("cuda"))
+    out["scan_rgbd_step"] = eager_and_graphed(
+        "scan_rgbd_step", card, lambda state: scan_step_cycle(seq, bt, state),
+        sequences_start(seq, bt), dict(BENCH_LAUNCHES["rgbd"]), 5)
+    del bt
+    for work in bench.build_workload("latency", N_BODIES, "cuda"):
+        out[f"latency_B{work.body_frames}"] = eager_and_graphed(
+            f"latency B={work.body_frames}", card, work.cycle, work.state,
+            BENCH_LAUNCHES["latency"], 20)
+    for rgbd in (False, True):
+        label = "serve_latency_rgbd" if rgbd else "serve_latency"
+        out[label] = serve_graphed(label, card, inp, seq, models, rgbd)
+    out["phase14_s"] = time.perf_counter() - begin
+    log(f"phase 14 took {out['phase14_s']:.1f} s ({card})")
+    return out
+
+
 def kernel_line(shapes, paths, evaluation, phase12, phase13):
     """The kernels JSON entries: times and bounds per flagship cycle of the kernel's
     path (the sum over the cycle's calls), launches from that path's counted run, the
@@ -4295,6 +4527,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
+    from m3t_tpu_torch import graphs
     from m3t_tpu_torch.ops import _cuda
 
     card = subprocess.run(
@@ -4310,10 +4543,21 @@ def main() -> int:
                                         "error")):
             log(f"ptxas: {line.strip()}")
 
+    seconds = {}  # host seconds of each stretch of phases, logged as each ends
+    mark = [time.perf_counter()]
+
+    def took(label):
+        now = time.perf_counter()
+        seconds[label] = now - mark[0]
+        mark[0] = now
+        log(f"{label} took {seconds[label]:.1f} s")
+
     models, generation_s = generate_models()
     inp = flagship_inputs("cuda", N_BODIES, models)
     kin = kinematic(inp)
+    took("phases 1, 0m and the kernels' build")
     shapes = check_kernels(inp, kin)
+    took("phase 2")
     region_launches = {"sample_lines": 6, "bin_counts": 2, "sample_windows": 0,
                        "query_eval": 0}
     at_init = {"sample_lines": 1, "bin_counts": 2}
@@ -4364,6 +4608,7 @@ def main() -> int:
             profile_cycles(label, path_inp, cycle, tensors[label],
                            profile_file(args.profile, suffix), paths[label]["ms_per_cycle"])
     del tensors
+    took("phases 3-6k")
     # Phase 8: the scale-out paths, a frame of its own per (sequence, step) and per
     # (body, camera); each path's tensors go before the next path runs, so that its peak
     # memory is its own.  8s: the sequence scans, one tracking cycle per step.
@@ -4399,6 +4644,7 @@ def main() -> int:
                        phase8, profile_file(args.profile, "_kinematic_multicamera"),
                        paths["kinematic_multicamera"]["ms_per_cycle"])
     del phase8
+    took("phase 8 but 8x and 8d")
     # Phase 9: the reference-shaped serve path, Tracker.RunTrackerProcess through the
     # fused serve backend: the region and RGB-D graphs at B=512 (9s, 9d) and at B=1
     # (9l), each step beside the bare cycle of the same path (phases 3 and 4).
@@ -4420,6 +4666,7 @@ def main() -> int:
             f"ExecuteTrackingStep, {paths[label]['ms_per_step']:.3f} ms per loop iteration "
             f"at B={bodies}" + (f", bare cycle {paths[bare]['ms_per_cycle']:.3f} ms"
                                 if bare else " (live-camera budget 33 ms)"))
+    took("phase 9 but 9x")
     card_vs_cpu = {"region": check_card_against_cpu("region", inp, region_cycle)}
     # 9x: the serve graphs at B=8, and at B=1, the batch at which 9l launches the kernels.
     for n_bodies, prefix in ((8, "serve"), (1, "serve latency")):
@@ -4454,6 +4701,7 @@ def main() -> int:
              len(kmc["cam2ref"]))):
         card_vs_cpu[label] = check_card_against_cpu(label, path_inp, cycle,
                                                     parted_allowed=parted_allowed)
+    took("phases 7, 8x and 9x")
     # Phase 10: the host path through RunTrackerProcess, an occluded scene with every
     # scene check (10o) and articulated structures with constraints (10k), then the
     # same graphs on the card against the CPU (10x).
@@ -4482,6 +4730,7 @@ def main() -> int:
     # Phase 12: the other entry points of examples/ on phase 11's datasets: a recorded
     # sequence (12r), generated trackers (12g), the parameter studies (12p), card against
     # CPU (12x) and the optimizer timing (12o).
+    graphs.clear_graphs()
     root = Path(tempfile.mkdtemp(prefix="m3t_eval_"))
     try:
         log("phase 11: the evaluators")
@@ -4492,8 +4741,12 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     # Phase 13: the benchmark runner in its seven modes, as subprocesses (13b) and
     # through build_workload with every launch and kernel call held (13k).
+    graphs.clear_graphs()
     log("phase 13: the benchmark runner")
     phase13 = run_phase13(card)
+    # Phase 14: the fused cycles graphed (the port's jax.jit) against their eager twins.
+    log("phase 14: graphed against eager")
+    phase14 = run_phase14(card, inp, seq, models)
     log(f"held on the CPU only, for want of cv2 on this machine: {CV2_ONLY}")
     disagree = {label: case for label, case in card_vs_cpu.items()
                 if len(case["parted"]) > case["parted_allowed"] or case["twin_mismatches"]
@@ -4504,13 +4757,15 @@ def main() -> int:
                      for label, case in phase12["card_vs_cpu"].items() if case["failed"]})
     if disagree:
         raise AssertionError(f"card and CPU disagree beyond atol {PHASE7_ATOL}: {disagree}")
+    took("phases 10-14 and the disagreement check")
     dryrun = run_dryrun()
+    took("phase 8d")
 
     print(json.dumps({"kernel_shapes": shapes}))
     print(json.dumps({"paths": paths, "card_vs_cpu": card_vs_cpu, "dryrun": dryrun,
                       "card": card, "model_generation_s": generation_s,
                       "phase10_s": phase10_s, "eval": evaluation, "phase12": phase12,
-                      "phase13": phase13}))
+                      "phase13": phase13, "phase14": phase14, "seconds": seconds}))
     print(card)
     print(json.dumps({"kernels": kernel_line(shapes, paths, evaluation, phase12,
                                              phase13)}))

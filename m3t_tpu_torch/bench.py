@@ -49,7 +49,9 @@ Timing follows bench.py: two synchronized warm-up cycles (one per latency batch)
 windows of ``max(iters // windows, 3)`` cycles, each ending in a device synchronize and a
 host read of the poses (the joint poses in the kinematic modes), through
 utils/benchtime.py's median-of-windows policy.  bench.py's whole-run sanity floors are
-TPU rates that apply only on a TPU, so the floor here is 0.  The cycles run eagerly.
+TPU rates that apply only on a TPU, so the floor here is 0.  The cycles are graphed, as
+bench.py's are jitted: the first warm-up cycle captures the CUDA graph (graphs.py), as
+bench.py's compiles, and the timed cycles replay it.
 """
 
 from __future__ import annotations

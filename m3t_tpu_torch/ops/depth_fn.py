@@ -26,6 +26,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from m3t_tpu_torch import graphs
+
 KMAX_N_OCCLUSION_STRIDES = 5  # depth_modality.h:113
 
 
@@ -127,6 +129,10 @@ def div_const(x, n: float):
 
 @functools.lru_cache(maxsize=256)
 def _device_scalar(c: float, dtype, device):
+    if graphs.capturing():
+        # A graph's capture follows its warm-up, which made every scalar it divides by;
+        # one made here would be filled only when the graph replays.
+        raise RuntimeError(f"div_value: the divisor {c} was not made before the capture")
     return torch.full((), c, dtype=dtype, device=device)
 
 
@@ -134,8 +140,11 @@ def div_value(x, c: float):
     """``x / c`` for a Python number ``c`` rounded once on every device, as JAX divides
     by a value it traces (the intrinsics, the depth scale): PyTorch on CUDA multiplies
     by the reciprocal of a Python-number divisor, one rounding more, but divides by a
-    divisor on the device, which is made once per (value, dtype, device)."""
-    return x / _device_scalar(float(c), x.dtype, x.device)
+    divisor on the device, which is made once per (value, dtype, device).  A graph
+    that reads the divisor holds it (graphs.hold), so that the cache cannot free it."""
+    divisor = _device_scalar(float(c), x.dtype, x.device)
+    graphs.hold(divisor)
+    return x / divisor
 
 
 def gather_u16(images, body, rows, cols):

@@ -234,6 +234,23 @@ def soft_constraint_terms(model: KinematicModel, body2camera):
     return g_add, h_add
 
 
+def _solve(a, b):
+    """Batched LU solve with partial pivoting, no error check (a singular system gives a
+    non-finite result).  On the card it takes cuBLAS's batched LU for any batch: for
+    more than 16 systems PyTorch's default takes MAGMA's, which waits on the host and so
+    cannot be captured in a CUDA graph (graphs.py), and the eager and graphed cycles
+    must compute alike.  PyTorch's choice of library is process-wide: it is set for
+    this call and put back."""
+    if a.device.type != "cuda":
+        return torch.linalg.solve_ex(a, b, check_errors=False).result
+    preferred = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        return torch.linalg.solve_ex(a, b, check_errors=False).result
+    finally:
+        torch.backends.cuda.preferred_linalg_library(preferred)
+
+
 def update_structures(model: KinematicModel, joint2parent, gradients, hessians,
                       tikhonov_rotation: float, tikhonov_translation: float):
     """One Newton step for S structures, soft constraints included
@@ -241,8 +258,8 @@ def update_structures(model: KinematicModel, joint2parent, gradients, hessians,
 
     joint2parent is (S, NL, 4, 4); gradients (S, NL, 6) and hessians (S, NL, 6, 6) are
     the per-link modality sums in the body frame (link.cpp:184-193).  The (NL*6 + NC*6)^2 KKT systems are solved in
-    one batched call, and nothing is copied from the host, so the host never waits on
-    the device here; a step that is not finite (a singular system) becomes zero.
+    one batched call (_solve), and nothing is copied from the host, so the host never
+    waits on the device here; a step that is not finite (a singular system) becomes zero.
     Returns the updated joint2parent (S, NL, 4, 4)."""
     s, nl = model.parent.shape
     nc = model.c_link1.shape[1]
@@ -288,7 +305,7 @@ def update_structures(model: KinematicModel, joint2parent, gradients, hessians,
                           torch.where(row_active, diag[:, d:], one[:, d:])], dim=-1))
     b = b * torch.cat([col_free, row_active], dim=-1)
 
-    theta = torch.linalg.solve_ex(a, b[..., None], check_errors=False).result[..., 0]
+    theta = _solve(a, b[..., None])[..., 0]
     theta = torch.where(torch.isfinite(theta).all(dim=-1, keepdim=True), theta,
                         torch.zeros_like(theta))
     theta_links = theta[:, :d].reshape(s, nl, 6) * model.free * lv[..., None]

@@ -6,12 +6,14 @@ cycles of both over a mesh of processes).
 
 One :func:`tracking_cycle` (or :func:`tracking_cycle_rgbd`) call runs every
 correspondence x update iteration plus the histogram adaptation for a batch of
-independent bodies, eagerly (the JAX package jits the same function).
-:func:`tracking_cycle_kinematic` runs the same loop over the links of S structures,
-its Newton step the batched KKT solve of ops/kinematics.py.  The cycles of
-:func:`make_sharded_cycle` and :func:`make_sharded_kinematic_cycle` run it over every
-(body, camera), their step summing each body's camera terms first.  Hot-path
-structure:
+independent bodies.  :func:`tracking_cycle_kinematic` runs the same loop over the links
+of S structures, its Newton step the batched KKT solve of ops/kinematics.py.  Where the
+JAX package jits these three, the port graphs them (graphs.graphed, ``pcfg`` static):
+on the card each replays one CUDA graph per static key, and on the CPU it runs eagerly.
+The cycles of :func:`make_sharded_cycle` and :func:`make_sharded_kinematic_cycle` run
+the loop over every (body, camera), their step summing each body's camera terms first;
+they run eagerly, because their camera sum is a torch.distributed all_reduce inside
+the cycle.  Hot-path structure:
 
   1. per body: crop the image once around the projected body origin and convert it to
      flat histogram-bin indices;
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 import torch.distributed
 
+from m3t_tpu_torch import graphs
 from m3t_tpu_torch.common import pose_variation, resolve_device
 from m3t_tpu_torch.ops import depth_fast, depth_fn, occlusion, texture_fn
 from m3t_tpu_torch.ops import histogram as hist_ops
@@ -666,6 +669,15 @@ class _Poses(NamedTuple):
     step: Callable  # (dof, gradient (B, 6), hessian (B, 6, 6)) -> dof
 
 
+def _per_entry(value, n: int, device):
+    """A per-batch-entry input (a scalar, or a tensor that broadcasts to (n,)) as an
+    (n,) tensor on device, with torch.as_tensor's dtype.  A scalar is filled on the
+    device, so that a graph can capture it (no copy from the host)."""
+    if isinstance(value, torch.Tensor) or np.ndim(value) > 0:
+        return torch.as_tensor(value, device=device).expand(n)
+    return torch.full((n,), value, dtype=torch.as_tensor(value).dtype, device=device)
+
+
 def _cycle_core(pcfg: PipelineConfig, intr, images, model: RegionModelArrays, dof,
                 hist_f, hist_b, poses: _Poses, depth: _DepthInputs | None = None,
                 scene_geom=None, handle_occlusions=None, texture_points=None,
@@ -688,9 +700,9 @@ def _cycle_core(pcfg: PipelineConfig, intr, images, model: RegionModelArrays, do
     if handle_occlusions is None:
         handle_occlusions = True
     dev = pose.device
-    handle_occlusions = torch.as_tensor(handle_occlusions, device=dev).expand(n_bodies)
+    handle_occlusions = _per_entry(handle_occlusions, n_bodies, dev)
     if depth_n_points is not None:
-        depth_n_points = torch.as_tensor(depth_n_points, device=dev).expand(n_bodies)
+        depth_n_points = _per_entry(depth_n_points, n_bodies, dev)
 
     bin_crop, corner_u, corner_v = _prepare_crops(pcfg, intr, images, pose)
     rtab = region_fast.ratio_table(hist_f, hist_b)
@@ -767,6 +779,7 @@ def _rigid_cycle(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
         state.histogram_b, _Poses(lambda pose: pose, scene, step), **kwargs))
 
 
+@graphs.graphed(static_argnames=("pcfg",))
 def tracking_cycle(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
                    state: TrackingState, scene_geom=None, occluder_poses=None,
                    handle_occlusions=None, texture_points: TexturePoints | None = None,
@@ -787,6 +800,7 @@ def tracking_cycle(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
                         handle_occlusions=handle_occlusions, texture_points=texture_points)
 
 
+@graphs.graphed(static_argnames=("pcfg",))
 def tracking_cycle_rgbd(pcfg: PipelineConfig, intr, depth_intr, depth_scale, images,
                         depth_images, model: RegionModelArrays,
                         depth_model: DepthModelArrays, state: TrackingState,
@@ -894,6 +908,7 @@ def _repeat_each(x, n: int):
     return x[:, None].expand((x.shape[0], n) + x.shape[1:]).reshape((-1,) + x.shape[1:])
 
 
+@graphs.graphed(static_argnames=("pcfg",))
 def tracking_cycle_kinematic(pcfg: PipelineConfig, intr, images, model: RegionModelArrays,
                              kin: kin_ops.KinematicModel, state: KinematicTrackingState,
                              scene_geom=None, extra_occluder_poses=None,

@@ -1,0 +1,371 @@
+"""The port's counterpart of jax.jit: m3t_tpu_torch/graphs.py and the graphed cycles.
+
+On the CPU: the static key separates what must be separate and equates what must be
+equal, the static buffers keep an argument's expanded dimensions, disable_graphs nests,
+the decorated cycles run eagerly and capture nothing, and no cycle reads a value back on
+the host (which a capture on the card forbids).  The inputs are those of the scale-out
+dry run (m3t_tpu_torch.parallel.dryrun.problem: two bodies or two-link structures at
+160x128, 64 lines and points, 2x2 iterations, every scene check).
+
+The tests marked ``cuda`` need a card and skip without one: graph equal to eager bit for
+bit for the three cycles, fresh outputs, launch counts per replay, and a capture that
+fails raising.  The machine with the card has no JAX, so run them there as
+
+    python -m pytest --noconftest -q tests/test_torch_graphs.py
+"""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from m3t_tpu_torch import graphs, pipeline
+from m3t_tpu_torch.ops import depth_fast, occlusion, region_fast
+from m3t_tpu_torch.ops.texture_fn import TexturePoints
+from m3t_tpu_torch.parallel import dryrun
+
+CYCLES = ("region", "rgbd", "kinematic")
+
+
+def _calls(inp) -> dict:
+    """name -> (graphed cycle, args, kwargs) of the three cycles on a dry-run problem's
+    first camera: the region cycle with both region scene checks and a per-body
+    handle_occlusions; the RGB-D cycle with every scene check, measured occlusions,
+    texture terms, pose groups and per-body depth budgets; the articulated RGB-D cycle
+    with per-link scenes."""
+    pcfg, intr, dev = inp["pcfg"], inp["intr"], inp["poses"].device
+    images, depth = inp["images"][:, 0], inp["depth_images"][:, 0]
+    b = images.shape[0]
+    state = pipeline.initialize_histograms(pcfg, intr, images, inp["model"], inp["poses"])
+    rng = np.random.default_rng(5)
+    texture = TexturePoints(*(torch.as_tensor(a, device=dev) for a in (
+        rng.normal(0.0, 0.03, (b, 16, 3)).astype(np.float32),
+        rng.uniform(60.0, 100.0, (b, 16, 2)).astype(np.float32),
+        rng.random((b, 16)) > 0.4)))
+    scene = dict(scene_geom=inp["scene_geom"], occluder_poses=inp["occluder_poses"])
+    jp = inp["joint2parent"]
+    kin_images = inp["kin_images"][:, 0]
+    kin_state = pipeline.initialize_kinematic_histograms(pcfg, intr, kin_images,
+                                                         inp["link_model"], inp["kin"], jp)
+    return {
+        "region": (pipeline.tracking_cycle,
+                   (pcfg._replace(use_depth=False), intr, images, inp["model"], state),
+                   dict(scene, handle_occlusions=torch.tensor([True, False], device=dev))),
+        "rgbd": (pipeline.tracking_cycle_rgbd,
+                 (pcfg._replace(use_texture=True), intr, intr, dryrun.DEPTH_SCALE, images,
+                  depth, inp["model"], inp["depth_model"], state),
+                 dict(scene, texture_points=texture,
+                      pose_group=torch.arange(b, device=dev, dtype=torch.int32),
+                      depth_n_points=torch.tensor([dryrun.N_POINTS, 0], device=dev))),
+        "kinematic": (pipeline.tracking_cycle_kinematic,
+                      (pcfg, intr, kin_images, inp["link_model"], inp["kin"], kin_state),
+                      dict(scene_geom=inp["kin_scene"], depth_intr=intr,
+                           depth_scale=dryrun.DEPTH_SCALE,
+                           depth_images=inp["kin_depth"][:, 0],
+                           depth_model=inp["link_depth_model"])),
+    }
+
+
+@pytest.fixture(scope="module")
+def cpu_calls():
+    return _calls(dryrun.problem(torch.device("cpu"), 1))
+
+
+def _equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _changed(call, change):
+    """The call's (args, kwargs) after change(args list, kwargs dict), the call's own
+    unchanged."""
+    _, args, kwargs = call
+    args, kwargs = list(args), dict(kwargs)
+    if change is not None:
+        change(args, kwargs)
+    return args, kwargs
+
+
+def _set(index, fn):
+    def change(args, kwargs):
+        args[index] = fn(args[index])
+    return change
+
+
+def _set_kw(name, value):
+    def change(args, kwargs):
+        kwargs[name] = value
+    return change
+
+
+def _expanded_frame(contiguous: bool):
+    def change(args, kwargs):
+        frame = args[4][:1].expand(args[4].shape)
+        args[4] = frame.contiguous() if contiguous else frame
+    return change
+
+
+# case -> (a change of the RGB-D call or None, a change of it): the two calls' keys must
+# differ (SEPARATE) or be equal (EQUAL).
+SEPARATE = {
+    "pcfg field": (None, _set(0, lambda pcfg: pcfg._replace(n_update_iterations=1))),
+    "intrinsic value": (None, _set(1, lambda intr: (intr[0] + 1.0,) + tuple(intr[1:]))),
+    "depth scale value": (None, _set(3, lambda scale: scale * 1.1)),
+    "None against a tensor": (None, _set_kw("texture_points", None)),
+    "bool against a tensor handle_occlusions": (
+        _set_kw("handle_occlusions", torch.tensor([True, True])),
+        _set_kw("handle_occlusions", True)),
+    "shape": (None, _set(5, lambda depth: depth[:, :-8].contiguous())),
+    "dtype": (None, _set(8, lambda state: state._replace(
+        body2camera_pose=state.body2camera_pose.double()))),
+    "expanded frame against a contiguous one": (_expanded_frame(True),
+                                                _expanded_frame(False)),
+}
+
+EQUAL = {
+    "other tensor values": (None, _set(4, lambda images: torch.randint_like(images, 0, 255))),
+    "another tensor of equal shape and strides": (None, _set(
+        8, lambda state: pipeline.TrackingState(*(a.clone() for a in state)))),
+    "another tuple of equal intrinsics": (None, _set(
+        2, lambda intr: tuple(float(x) for x in intr))),
+    "the model expanded again": (None, _set(6, lambda model: model._replace(
+        orientations=model.orientations[:1].expand(model.orientations.shape)))),
+}
+
+
+def _keys(calls, changes):
+    fn = calls["rgbd"][0]
+    return [graphs.static_key(fn, *args, **kwargs)
+            for args, kwargs in (_changed(calls["rgbd"], change) for change in changes)]
+
+
+@pytest.mark.parametrize("case", sorted(SEPARATE))
+def test_static_key_separates(cpu_calls, case):
+    first, second = _keys(cpu_calls, SEPARATE[case])
+    assert first != second
+
+
+@pytest.mark.parametrize("case", sorted(EQUAL))
+def test_static_key_equates(cpu_calls, case):
+    first, second = _keys(cpu_calls, EQUAL[case])
+    assert first == second
+
+
+def test_static_buffers_hold_one_frame_and_one_model():
+    """An expanded (512, 3, 512, 640) uint8 frame and a model expanded over 512 bodies
+    get buffers of one frame and one model, which the graph reads expanded again."""
+    rng = np.random.default_rng(2)
+    frame = torch.as_tensor(rng.integers(0, 255, (1, 3, 512, 640), dtype=np.uint8))
+    images = frame.expand(512, 3, 512, 640)
+    base, view = graphs.static_buffer(images)
+    assert base.shape == (1, 3, 512, 640) and view.shape == images.shape
+    assert view.stride() == images.stride() and view.data_ptr() == base.data_ptr()
+    base.copy_(images[:1])
+    assert torch.equal(view[0], frame[0]) and torch.equal(view[511], frame[0])
+
+    model = pipeline.RegionModelArrays.from_npz(
+        str(Path(pipeline.__file__).parent / "data" / "bench_sphere_region_model.npz"),
+        200, device="cpu")
+    for one, field in zip(model, model.expand(512)):
+        base, view = graphs.static_buffer(field)
+        assert base.shape == one.shape and view.shape == field.shape
+        assert view.stride()[0] == 0 and base.numel() == one.numel()
+    state = torch.zeros((512, 4, 4))
+    base, view = graphs.static_buffer(state)
+    assert base.shape == state.shape and view.stride() == state.stride()
+
+
+def test_disable_graphs_nests_and_restores():
+    assert graphs.graphs_enabled()
+    with graphs.disable_graphs():
+        assert not graphs.graphs_enabled()
+        with graphs.disable_graphs():
+            assert not graphs.graphs_enabled()
+        assert not graphs.graphs_enabled()
+    assert graphs.graphs_enabled()
+    with pytest.raises(KeyError), graphs.disable_graphs():
+        raise KeyError("inside")
+    assert graphs.graphs_enabled()
+
+
+@pytest.mark.parametrize("name", CYCLES)
+def test_cycles_on_cpu_run_eagerly(cpu_calls, name):
+    """On CPU tensors a decorated cycle is its undecorated function, bit for bit, and
+    captures nothing."""
+    fn, args, kwargs = cpu_calls[name]
+    graphs.clear_graphs()
+    got = fn(*args, **kwargs)
+    assert _equal(got, fn.__wrapped__(*args, **kwargs))
+    assert graphs.captured() == []
+
+
+class _HostReads(TorchDispatchMode):
+    """The aten operations that read a tensor's values back on the host, or give a
+    shape that depends on them (both a capture forbids), by name; none while
+    ``paused`` (the kernels' plain twins, which stand in for the kernels on the CPU)."""
+
+    DATA_DEPENDENT = ("nonzero", "masked_select", "unique", "_unique", "_unique2",
+                      "unique_consecutive", "unique_dim", "_local_scalar_dense",
+                      "repeat_interleave")
+
+    def __init__(self):
+        super().__init__()
+        self.found, self.paused = [], False
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func._overloadpacket.__name__
+        boolean_index = name in ("index", "index_put", "index_put_") and any(
+            isinstance(i, torch.Tensor) and i.dtype == torch.bool
+            for i in (args[1] if len(args) > 1 else ()) or ())
+        if not self.paused and (name in self.DATA_DEPENDENT or boolean_index):
+            self.found.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("name", CYCLES)
+def test_cycles_read_nothing_back_on_the_host(cpu_calls, name, monkeypatch):
+    """No operation of a cycle reads a value back on the host (item, tolist, numpy, cpu,
+    a data-dependent shape) or builds a tensor on the cycle's device from host data: a
+    CUDA graph's capture refuses both.  Shown on the CPU for every optional input the
+    dry run's problem takes; the kernels' plain twins, which run on the CPU only, are
+    left out."""
+    fn, args, kwargs = cpu_calls[name]
+    reads, made = _HostReads(), []
+
+    def refuse(what, real):
+        def method(*a, **k):
+            if not reads.paused:
+                raise AssertionError(f"the cycle calls Tensor.{what}")
+            return real(*a, **k)
+        return method
+
+    for what in ("tolist", "numpy", "cpu", "item", "__bool__", "__int__", "__float__"):
+        monkeypatch.setattr(torch.Tensor, what, refuse(what, getattr(torch.Tensor, what)))
+    for factory in ("as_tensor", "tensor"):
+        def recorded(data, *a, real=getattr(torch, factory), factory=factory, **k):
+            if (not reads.paused and k.get("device") is not None
+                    and not isinstance(data, torch.Tensor)):
+                made.append(factory)
+            return real(data, *a, **k)
+        monkeypatch.setattr(torch, factory, recorded)
+    for module, kernel in ((region_fast, "sample_lines"), (region_fast, "bin_counts"),
+                           (depth_fast, "sample_windows"), (occlusion, "query_eval")):
+        def twin(*a, real=getattr(module, kernel), **k):
+            reads.paused = True
+            try:
+                return real(*a, **k)
+            finally:
+                reads.paused = False
+        monkeypatch.setattr(module, kernel, twin)
+    with reads:
+        fn.__wrapped__(*args, **kwargs)
+    monkeypatch.undo()
+    assert reads.found == [] and made == [], (reads.found, made)
+
+
+# ---------------------------------------------------------------------------------------
+# On the card (marker "cuda")
+# ---------------------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_calls():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a CUDA graph has no CPU mode")
+    graphs.clear_graphs()
+    yield _calls(dryrun.problem(torch.device("cuda"), 1))
+    graphs.clear_graphs()
+
+
+def _chain(fn, args, kwargs, n: int) -> list:
+    """n cycles, each from the state the last one gave."""
+    at = 5 if fn is pipeline.tracking_cycle_kinematic else (
+        8 if fn is pipeline.tracking_cycle_rgbd else 4)
+    args, states = list(args), []
+    for _ in range(n):
+        states.append(fn(*args, **kwargs))
+        args[at] = states[-1]
+    return states
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CYCLES)
+def test_graph_equals_eager_on_card(cuda_calls, name):
+    """Three graphed cycles (the capturing call and two replays) equal three eager ones
+    bit for bit, and replay one graph."""
+    fn, args, kwargs = cuda_calls[name]
+    with graphs.disable_graphs():
+        eager = _chain(fn, args, kwargs, 3)
+    assert graphs.captured() == []
+    graphed = _chain(fn, args, kwargs, 3)
+    for want, got in zip(eager, graphed):
+        assert _equal(want, got)
+    (info,) = graphs.captured()
+    assert info.replays == 2 and info.name == fn.__qualname__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CYCLES)
+def test_graph_outputs_are_fresh(cuda_calls, name):
+    """A later call leaves an earlier call's outputs as they were: they share no memory
+    with the graph's buffers."""
+    fn, args, kwargs = cuda_calls[name]
+    first = fn(*args, **kwargs)
+    kept = [a.clone() for a in first]
+    second = fn(*args, **kwargs)
+    third = _chain(fn, args, kwargs, 2)[-1]
+    assert _equal(first, kept) and _equal(first, second)
+    assert not _equal(third, first)
+    pointers = {a.untyped_storage().data_ptr() for out in (first, second) for a in out}
+    assert len(pointers) == 2 * len(first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CYCLES)
+def test_graph_launch_counts_per_replay(cuda_calls, name):
+    """Every call counts its eager twin's kernel launches: the capturing call its
+    warm-up's, each replay those the capture recorded."""
+    fn, args, kwargs = cuda_calls[name]
+    counters = (region_fast.sample_lines, region_fast.bin_counts, depth_fast.sample_windows,
+                occlusion.query_eval)
+
+    def counted(call):
+        before = [c.launches for c in counters]
+        call()
+        return [c.launches - n for c, n in zip(counters, before)]
+
+    with graphs.disable_graphs():
+        eager = counted(lambda: fn(*args, **kwargs))
+    assert eager[0] > 0 and eager[1] == 2
+    for _ in range(3):
+        assert counted(lambda: fn(*args, **kwargs)) == eager
+    (info,) = graphs.captured()
+    assert sum(info.launches.values()) == sum(eager)
+
+
+@pytest.mark.cuda
+def test_capture_failure_raises(cuda_calls):
+    """A function that reads a value back on the host raises at its capture, naming it,
+    and never runs eagerly in the graph's place."""
+
+    @graphs.graphed()
+    def scaled(x):
+        return x * x.sum().item()
+
+    x = torch.ones(8, device="cuda")
+    with graphs.disable_graphs():
+        assert torch.equal(scaled(x), x * 8.0)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match=r"scaled: capturing its CUDA graph failed "
+                                               r"at .*x\.sum\(\)\.item\(\)"):
+            scaled(x)
+    assert graphs.captured() == []
+    torch.cuda.synchronize()
+    assert torch.equal(scaled.__wrapped__(x), x * 8.0)
+    # Later captures take a pool of their own and succeed.
+    fn, args, kwargs = cuda_calls["region"]
+    with graphs.disable_graphs():
+        eager = _chain(fn, args, kwargs, 2)
+    for want, got in zip(eager, _chain(fn, args, kwargs, 2)):
+        assert _equal(want, got)
