@@ -102,17 +102,19 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      8k. the multi-camera articulated RGB-D cycle: phase 6k's S=256 structures seen by
          two cameras (the second 20 degrees to the side of the structure), per-link
          scenes in each camera, through make_sharded_kinematic_cycle;
-     8c and 8k run as phases 3-6k do (launch counts asserted, every body or link within
-     5 mm, peak memory); phase 2's table gains sample_lines (its first ratio-mode call,
-     kp=120) and sample_windows (its first call, K=11) timed on the inputs of one 8s step
-     and of one 8c cycle, a frame of their own per batch entry;
+     8c and 8k run as phases 3-6k do (graphed, each cycle built once; launch counts
+     asserted, every body or link within 5 mm, peak memory); phase 2's table gains
+     sample_lines (its first ratio-mode call, kp=120) and sample_windows (its first call,
+     K=11) timed on the inputs of one 8s step and of one 8c cycle, a frame of their own
+     per batch entry;
      8x. in phase 7's loop, card against CPU at B=8 (S=4) and C=2: one step of the RGB-D
          scan, the multi-camera rigid cycle with texture terms per camera, and the
          multi-camera articulated cycle (which may part at one named structure per
          camera: it has twice the link views of the one-camera case);
      8d. python -m m3t_tpu_torch.parallel.dryrun --processes 2 --device cuda --backend
          gloo: two processes of a (1, 2) mesh on the one card (two NCCL ranks cannot share
-         a card), held against one process; its exit code decides.
+         a card), held against one process, every multi-camera cycle graphed (a capture
+         and two replays on each rank); its exit code decides.
   9. the reference-shaped serve path (Tracker, modalities, links, optimizers and the fused
      serve backend), through Tracker.RunTrackerProcess(execute_detection=True,
      start_tracking=True, max_iterations=6) with use_fused_cycle=True over phase 8s's
@@ -263,15 +265,23 @@ Phases (any failure exits non-zero; no phase catches its own failure):
   14. the fused cycles graphed (m3t_tpu_torch.graphs, the port's jax.jit: one CUDA graph
      per static key) against their eager twins (disable_graphs), on each bench mode's
      workload at B=512 (S=256: region, --rgbd, --ycb, --occlusion, --kinematic,
-     --kinematic-rgbd), phase 8s's RGB-D scan step, --latency at B=1, 8 and 64 and phase
-     9l's serve graphs (region and RGB-D, one body; an eager and a graphed copy in
-     lockstep): 3 eager cycles (steps), then a graphed one from the state each eager one
-     started from, the first capturing the graph, every graphed state equal to the eager
-     one bit for bit; kernel launches per cycle of both forms and per replay as
-     BENCH_LAUNCHES; capture seconds and graphs per path; each form's peak memory; ms per
-     cycle of both forms in windows taken in turns (eager, graph, graph, eager; 5 cycles
-     at B=512, 20 at the smaller batches and in serve); and one torch.profiler window of
-     each form of the region and kinematic RGB-D cycles (device busy ms, idle share).
+     --kinematic-rgbd), phase 8s's RGB-D scan step, the multi-camera cycles of phases 8c
+     and 8k (B=512 x 2 cameras, S=256 x 2), --latency at B=1, 8 and 64 and phase 9l's
+     serve graphs (region and RGB-D, one body; an eager and a graphed copy in lockstep):
+     3 eager cycles (steps), then a graphed one from the state each eager one started
+     from, the first capturing the graph, every graphed state equal to the eager one bit
+     for bit; kernel launches per cycle of both forms and per replay as BENCH_LAUNCHES;
+     capture seconds, graphs and segments per graph (1 in one process); each form's peak
+     memory; ms per cycle of both forms in windows taken in turns (eager, graph, graph,
+     eager; 5 cycles at B=512, 20 at the smaller batches and in serve); and one
+     torch.profiler window of each form of the region, kinematic RGB-D and 8c cycles
+     (device busy ms, idle share);
+     14d. two gloo processes on the one card form a (1, 2) mesh (the dry run's problem,
+     rigid_call and kinematic_call of m3t_tpu_torch.parallel.dryrun): on each rank 3
+     eager multi-camera cycles (rigid and articulated) and a graphed one from each eager
+     one's start, every graphed state equal to the eager one bit for bit, one segment
+     more than the cycle's Newton steps (the camera all_reduce runs between each two
+     captured segments) and the eager launches per replay.
 Every phase runs the fused cycles graphed, the form a user gets, but where it records
 kernel calls to hold them against their twins (phase 2's recorded calls, 7, 8x, 9x,
 10's count, 11x, 12r, 12g and 12p's twin checks, 12x, 13k: recorded_launches) or counts
@@ -301,6 +311,7 @@ import os
 import re
 import shutil
 import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -1629,17 +1640,21 @@ def multicamera_start(inp, bt):
                                                       bt["cam2ref"], bt["model"], bt["poses"])
 
 
-def multicamera_cycle(pcfg_key, with_texture: bool = False):
-    def cycle(inp, bt, state):
-        from m3t_tpu_torch import pipeline
+def multicamera_cycle(inp, pcfg_key, with_texture: bool = False):
+    """cycle(inp, bt, state) of phase 8c: inp's multi-camera rigid cycle, built once (so
+    that a path times the replays of one graph, whatever its key)."""
+    from m3t_tpu_torch import pipeline
 
+    sharded = pipeline.make_sharded_cycle(inp[pcfg_key], None, inp["intr"], inp["intr"],
+                                          with_depth=True, with_scene=True,
+                                          with_texture=with_texture)
+
+    def cycle(inp, bt, state):
         extra = [bt["depth_images"], DEPTH_SCALE, bt["depth_model"],
                  bt["scene"]["scene_geom"], bt["scene"]["occluder_poses"]]
         if with_texture:
             extra.append(bt["texture_points"])
-        return pipeline.make_sharded_cycle(
-            inp[pcfg_key], None, inp["intr"], inp["intr"], with_depth=True, with_scene=True,
-            with_texture=with_texture)(bt["images"], bt["cam2ref"], bt["model"], state, *extra)
+        return sharded(bt["images"], bt["cam2ref"], bt["model"], state, *extra)
     return cycle
 
 
@@ -1680,17 +1695,21 @@ def kinematic_multicamera_start(inp, bt):
         joint2parent, *(h.reshape((s, nl) + h.shape[1:]) for h in start[1:]))
 
 
-def kinematic_multicamera_cycle(pcfg_key):
-    def cycle(inp, bt, state):
-        from m3t_tpu_torch import pipeline
+def kinematic_multicamera_cycle(inp, pcfg_key):
+    """cycle(inp, bt, state) of phase 8k: inp's multi-camera articulated cycle, built
+    once."""
+    from m3t_tpu_torch import pipeline
 
-        pcfg = inp[pcfg_key]
+    pcfg = inp[pcfg_key]
+    sharded = pipeline.make_sharded_kinematic_cycle(pcfg, None, inp["intr"], inp["intr"],
+                                                    with_depth=pcfg.use_depth,
+                                                    with_scene=True)
+
+    def cycle(inp, bt, state):
         depth = ([bt["depth_images"], DEPTH_SCALE, bt["depth_model"]] if pcfg.use_depth
                  else [])
-        return pipeline.make_sharded_kinematic_cycle(
-            pcfg, None, inp["intr"], inp["intr"], with_depth=pcfg.use_depth,
-            with_scene=True)(bt["images"], bt["cam2ref"], bt["model"], bt["kin"], state,
-                             *depth, bt["scene"]["scene_geom"], None)
+        return sharded(bt["images"], bt["cam2ref"], bt["model"], bt["kin"], state, *depth,
+                       bt["scene"]["scene_geom"], None)
     return cycle
 
 
@@ -4209,6 +4228,10 @@ BENCH_LAUNCHES = {
     "kinematic_rgbd": {"sample_lines": 6, "bin_counts": 2, "sample_windows": 5,
                        "query_eval": 5},
     "latency": {"sample_lines": 6, "bin_counts": 2}}
+# Phase 8c's cycle: three scene evaluations per correspondence iteration (region checks and
+# modeled occlusions, depth modeled occlusions, silhouette check) over the B x C batch.
+MULTICAMERA_LAUNCHES = {"sample_lines": 6, "bin_counts": 2, "sample_windows": 5,
+                        "query_eval": 15}
 
 
 def run_bench_cli(mode: str, card: str) -> dict:
@@ -4370,15 +4393,19 @@ def eager_and_graphed(label, card, step, state, want_per_step: dict,
     infos = graphs.captured()
     want = {n: GRAPH_CYCLES * want_per_step.get(n, 0) for n in counters}
     per_replay = {n: sum(i.launches.get(n, 0) for i in infos) for n in counters}
+    segments = [i.segments for i in infos]
     if unequal or eager_launches != want or graph_launches != want \
-            or per_replay != {n: want_per_step.get(n, 0) for n in counters}:
+            or per_replay != {n: want_per_step.get(n, 0) for n in counters} \
+            or any(n != 1 for n in segments):
         raise AssertionError(f"14 {label} ({card}): graphed steps unequal to eager "
                              f"{unequal}; launches eager {eager_launches}, graphed "
-                             f"{graph_launches}, per replay {per_replay}, expected {want}")
+                             f"{graph_launches}, per replay {per_replay}, expected {want}; "
+                             f"segments per graph {segments} (one process: 1)")
     ms = windows() if windows else graph_windows(step, eager[-1], steps_per_window)
     eager_ms, graph_ms = statistics.mean(ms["eager"]), statistics.mean(ms["graph"])
     out = dict(path=label, card=card, equal_steps=GRAPH_CYCLES, launches_per_step=per_replay,
-               graphs=len(infos), capture_s=sum(i.capture_s for i in infos),
+               graphs=len(infos), segments_per_graph=segments,
+               capture_s=sum(i.capture_s for i in infos),
                warmup_s=sum(i.warmup_s for i in infos),
                peak_memory_bytes={"eager": eager_peak, "graph": graph_peak},
                ms_per_step={"eager": eager_ms, "graph": graph_ms},
@@ -4439,10 +4466,11 @@ def serve_graphed(label, card, inp, seq, models, rgbd: bool, steps_per_window: i
                              steps_per_window, fields=fields, windows=windows)
 
 
-def run_phase14(card: str, inp, seq, models) -> dict:
+def run_phase14(card: str, inp, seq, models, mc, kmc) -> dict:
     """Phase 14: every bench mode's workload at B=512 (S=256), the RGB-D scan step of
-    phase 8s, --latency at B=1, 8 and 64 and the serve graphs of phase 9l, each through
-    eager_and_graphed (region and kinematic RGB-D profiled)."""
+    phase 8s, the multi-camera cycles of phases 8c and 8k, --latency at B=1, 8 and 64
+    and the serve graphs of phase 9l, each through eager_and_graphed (region, kinematic
+    RGB-D and 8c profiled)."""
     from m3t_tpu_torch import bench
 
     begin = time.perf_counter()
@@ -4457,6 +4485,15 @@ def run_phase14(card: str, inp, seq, models) -> dict:
     out["scan_rgbd_step"] = eager_and_graphed(
         "scan_rgbd_step", card, lambda state: scan_step_cycle(seq, bt, state),
         sequences_start(seq, bt), dict(BENCH_LAUNCHES["rgbd"]), 5)
+    for label, path_inp, cycle, launches in (
+            ("multicamera", mc, multicamera_cycle(mc, "rgbd_pcfg"), MULTICAMERA_LAUNCHES),
+            ("kinematic_multicamera", kmc, kinematic_multicamera_cycle(kmc, "rgbd_pcfg"),
+             BENCH_LAUNCHES["kinematic_rgbd"])):
+        bt = path_inp["kind"].batch(path_inp, N_BODIES, torch.device("cuda"))
+        out[label] = eager_and_graphed(
+            label, card, lambda state: cycle(path_inp, bt, state),
+            path_inp["kind"].start(path_inp, bt), launches, 5,
+            profiled=label == "multicamera")
     del bt
     for work in bench.build_workload("latency", N_BODIES, "cuda"):
         out[f"latency_B{work.body_frames}"] = eager_and_graphed(
@@ -4468,6 +4505,110 @@ def run_phase14(card: str, inp, seq, models) -> dict:
     out["phase14_s"] = time.perf_counter() - begin
     log(f"phase 14 took {out['phase14_s']:.1f} s ({card})")
     return out
+
+
+def segments_rank(rank: int, world: int, init_method: str) -> None:
+    """Phase 14d, one of `world` gloo processes on the one card, forming a (1, world)
+    mesh: the dry run's multi-camera rigid and articulated cycles on this rank's camera
+    (m3t_tpu_torch.parallel.dryrun's problem, rigid_call and kinematic_call), GRAPH_CYCLES
+    eager cycles and a graphed one from the state each eager one started from (the
+    first captures the graph, the others replay it), every graphed state equal to the
+    eager one bit for bit, one segment more than the cycle's Newton steps (an all_reduce
+    between each two) and the eager cycle's launches per replay.  Prints one JSON line;
+    raises on any failure."""
+    import torch.distributed as dist
+
+    from m3t_tpu_torch import graphs
+    from m3t_tpu_torch.parallel import dryrun, sharding
+
+    torch.cuda.set_device(0)
+    sharding.initialize_distributed(init_method, world, rank, "gloo")
+    try:
+        mesh = sharding.make_mesh(n_camera=world)
+        inp = dryrun.problem(torch.device("cuda"), mesh.n_data)
+        n_steps = inp["pcfg"].n_corr_iterations * inp["pcfg"].n_update_iterations
+        counters = launch_counters()
+        out, failed = {}, []
+        for label, make in (("rigid", dryrun.rigid_call),
+                            ("articulated", dryrun.kinematic_call)):
+            graphs.clear_graphs()
+            call = make(inp, mesh)
+
+            def counted(state):
+                before = {n: c.launches for n, c in counters.items()}
+                state = call.step(state)
+                torch.cuda.synchronize()
+                return state, {n: c.launches - before[n] for n, c in counters.items()}
+
+            eager = [(call.state, None)]
+            with graphs.disable_graphs():
+                for _ in range(GRAPH_CYCLES):
+                    eager.append(counted(eager[-1][0]))
+            graphed = [counted(state) for state, _ in eager[:-1]]
+            (info,) = graphs.captured()
+            unequal = {i + 1: unequal_fields(g, e) for i, ((g, _), (e, _))
+                       in enumerate(zip(graphed, eager[1:])) if unequal_fields(g, e)}
+            launches = [n for _, n in eager[1:]]
+            case = dict(equal_cycles=GRAPH_CYCLES - len(unequal), unequal=unequal,
+                        segments=info.segments, newton_steps=n_steps,
+                        replays=info.replays, launches_per_replay=info.launches,
+                        eager_launches=launches[0],
+                        graphed_launches=[n for _, n in graphed],
+                        capture_s=info.capture_s)
+            per_replay = {n: info.launches.get(n, 0) for n in counters}
+            if unequal or info.segments != n_steps + 1 or info.replays != GRAPH_CYCLES - 1 \
+                    or any(n != launches[0] for n in launches + case["graphed_launches"]) \
+                    or per_replay != launches[0]:
+                failed.append(label)
+            out[label] = case
+        print(json.dumps({"segments": dict(rank=rank, mesh=[mesh.n_data, mesh.n_camera],
+                                           failed=failed, **out)}), flush=True)
+        if failed:
+            raise AssertionError(f"14d rank {rank}: {failed} failed: {out}")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_segments(card: str, world: int = 2, timeout: float = 300.0) -> dict:
+    """Phase 14d: segments_rank in `world` processes on the one card over gloo (two NCCL
+    ranks cannot share one card), each in its own session with its output in a file;
+    every process is stopped when one fails or the time runs out.  Every rank must exit
+    0."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    begin = time.perf_counter()
+    logs = [tempfile.TemporaryFile(mode="w+") for _ in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.segments_rank({rank}, "
+                               f"{world}, 'tcp://127.0.0.1:{port}')"],
+        stdout=logs[rank], stderr=subprocess.STDOUT, text=True, start_new_session=True,
+        cwd=Path(__file__).resolve().parent) for rank in range(world)]
+    try:
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline \
+                and not any(p.poll() not in (None, 0) for p in procs):
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    ranks, texts = [], []
+    for f in logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+        ranks += [json.loads(line)["segments"] for line in texts[-1].splitlines()
+                  if line.startswith('{"segments"')]
+    codes = [p.returncode for p in procs]
+    result = dict(card=card, exit_codes=codes, ranks=ranks,
+                  seconds=time.perf_counter() - begin)
+    log(f"14d: {json.dumps(result)}")
+    if any(codes) or len(ranks) != world:
+        raise AssertionError(f"14d: exit codes {codes}: "
+                             + " | ".join(t[-2000:] for t in texts))
+    return result
 
 
 def kernel_line(shapes, paths, evaluation, phase12, phase13):
@@ -4625,23 +4766,22 @@ def main() -> int:
     # 8c: two cameras over B bodies, all four scene checks: three scene evaluations per
     # correspondence iteration (region checks and modeled occlusions, depth modeled
     # occlusions, silhouette check) over the B x C flat batch.
-    paths["multicamera"], phase8 = run_path(
-        "multicamera", mc, multicamera_cycle("rgbd_pcfg"),
-        dict(region_launches, sample_windows=5, query_eval=15), at_init)
-    shapes += distinct_frame_rows("multicamera cycle", lambda: multicamera_cycle("rgbd_pcfg")(
-        mc, *phase8))
+    mc_cycle = multicamera_cycle(mc, "rgbd_pcfg")
+    paths["multicamera"], phase8 = run_path("multicamera", mc, mc_cycle,
+                                            MULTICAMERA_LAUNCHES, at_init)
+    shapes += distinct_frame_rows("multicamera cycle", lambda: mc_cycle(mc, *phase8))
     if args.profile:
-        profile_cycles("multicamera", mc, multicamera_cycle("rgbd_pcfg"), phase8,
+        profile_cycles("multicamera", mc, mc_cycle, phase8,
                        profile_file(args.profile, "_multicamera"),
                        paths["multicamera"]["ms_per_cycle"])
     del phase8
     # 8k: two cameras over S structures, per-link scenes in each camera.
+    kmc_cycle = kinematic_multicamera_cycle(kmc, "rgbd_pcfg")
     paths["kinematic_multicamera"], phase8 = run_path(
-        "kinematic_multicamera", kmc, kinematic_multicamera_cycle("rgbd_pcfg"),
-        dict(region_launches, sample_windows=5, query_eval=5), at_init)
+        "kinematic_multicamera", kmc, kmc_cycle, BENCH_LAUNCHES["kinematic_rgbd"], at_init)
     if args.profile:
-        profile_cycles("kinematic_multicamera", kmc, kinematic_multicamera_cycle("rgbd_pcfg"),
-                       phase8, profile_file(args.profile, "_kinematic_multicamera"),
+        profile_cycles("kinematic_multicamera", kmc, kmc_cycle, phase8,
+                       profile_file(args.profile, "_kinematic_multicamera"),
                        paths["kinematic_multicamera"]["ms_per_cycle"])
     del phase8
     took("phase 8 but 8x and 8d")
@@ -4696,8 +4836,9 @@ def main() -> int:
             # carries twice the link views of "kinematic rgbd" and may part, as it does,
             # at one named structure per camera.
             ("scan rgbd step", seq, scan_step_cycle, 0),
-            ("multicamera with texture", mc, multicamera_cycle("texture_pcfg", True), 0),
-            ("kinematic multicamera", kmc, kinematic_multicamera_cycle("rgbd_pcfg"),
+            ("multicamera with texture", mc, multicamera_cycle(mc, "texture_pcfg", True),
+             0),
+            ("kinematic multicamera", kmc, kinematic_multicamera_cycle(kmc, "rgbd_pcfg"),
              len(kmc["cam2ref"]))):
         card_vs_cpu[label] = check_card_against_cpu(label, path_inp, cycle,
                                                     parted_allowed=parted_allowed)
@@ -4746,7 +4887,11 @@ def main() -> int:
     phase13 = run_phase13(card)
     # Phase 14: the fused cycles graphed (the port's jax.jit) against their eager twins.
     log("phase 14: graphed against eager")
-    phase14 = run_phase14(card, inp, seq, models)
+    phase14 = run_phase14(card, inp, seq, models, mc, kmc)
+    # 14d: the multi-camera cycles on a (1, 2) mesh of two gloo processes, graphs of
+    # several segments with an all_reduce between each two.
+    log("phase 14d: a graph's segments around the camera all_reduce")
+    phase14["segments"] = run_segments(card)
     log(f"held on the CPU only, for want of cv2 on this machine: {CV2_ONLY}")
     disagree = {label: case for label, case in card_vs_cpu.items()
                 if len(case["parted"]) > case["parted_allowed"] or case["twin_mismatches"]

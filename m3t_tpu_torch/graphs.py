@@ -69,6 +69,26 @@ counts what its eager twin counts, the first call included.
 
 A decorated function called during another one's warm-up or capture runs inline, as a
 jitted function called inside a jit is traced into it.
+
+Collectives between captured segments.  The JAX package's multi-camera cycles sum their
+cameras' terms with a ``psum`` inside the jitted program.  A CUDA graph cannot hold a
+gloo collective, so a graphed function calls its collective through :func:`collective`:
+``collective(fn, tensor)`` runs ``fn(tensor)`` (an in-place operation such as
+``torch.distributed.all_reduce``) where it stands when nothing is being captured (eager,
+on the CPU, in the warm-up, under :func:`disable_graphs`).  Inside a capture it ends the
+current segment (a ``torch.cuda.CUDAGraph``), records ``(fn, tensor)`` without running
+it (the tensor holds no values yet), and begins the next segment in the same pool on the
+same stream.  A replay then runs segment 0, ``fn(t0)``, segment 1, ``fn(t1)``, .. in
+capture order on the caller's stream.  Every rank captures the same sequence, so the
+ranks' collectives stay matched.  Sharing the pool between segments is safe for the
+reasons that make it safe between graphs (above): the segments replay one after
+another, in capture order, on one stream; and a tensor that one segment writes and a
+later one reads is a Python reference of the captured function until its last use, so
+no allocation of the capture takes its block before that.  The collective's tensor is
+held by the graph as long as it lives, so its address is the same in every replay.  A
+function with no collective is one segment; :class:`GraphInfo` counts them, and the
+launch counts cover every segment.  (With NCCL the collective could be captured inside
+the graph instead; one mechanism serves both backends.)
 """
 
 from __future__ import annotations
@@ -97,12 +117,13 @@ class GraphInfo(NamedTuple):
     capture_s: float  # capture and instantiation, host seconds
     replays: int
     launches: dict  # kernel wrapper name -> launches per replay
+    segments: int  # captured segments, one more than the collectives between them
 
 
 class _Local(threading.local):
     disabled = 0  # disable_graphs() depth
     tracing = False  # inside a warm-up or a capture
-    held = None  # the capturing graph's held tensors, else None
+    capture = None  # the _Graph being captured, else None
 
 
 _local = _Local()
@@ -141,14 +162,26 @@ def captured() -> list[GraphInfo]:
 
 def capturing() -> bool:
     """True while a graph is being captured on this thread."""
-    return _local.held is not None
+    return _local.capture is not None
 
 
 def hold(tensor: torch.Tensor) -> None:
     """Keep a tensor made outside the capture alive as long as the graph being captured,
     which reads it by address.  Nothing outside a capture."""
-    if _local.held is not None:
-        _local.held.append(tensor)
+    if _local.capture is not None:
+        _local.capture.held.append(tensor)
+
+
+def collective(fn, tensor: torch.Tensor) -> None:
+    """fn(tensor), an in-place collective, between two captured segments of the graph
+    being captured (replayed between them), else at once (see the module docstring)."""
+    entry = _local.capture
+    if entry is None:
+        fn(tensor)
+        return
+    entry.segments[-1].capture_end()
+    entry.collectives.append((fn, tensor))
+    entry.begin_segment()
 
 
 def _expanded(t: torch.Tensor) -> tuple:
@@ -287,23 +320,26 @@ def _version(t: torch.Tensor):
 
 
 @contextlib.contextmanager
-def _tracing(held=None):
-    saved = _local.tracing, _local.held
-    _local.tracing, _local.held = True, held
+def _tracing(capture=None):
+    saved = _local.tracing, _local.capture
+    _local.tracing, _local.capture = True, capture
     try:
         yield
     finally:
-        _local.tracing, _local.held = saved
+        _local.tracing, _local.capture = saved
 
 
 class _Graph:
-    """One captured graph: its static buffers, outputs, held tensors and counts."""
+    """One captured graph: its static buffers, segments and the collectives between
+    them, outputs, held tensors and counts."""
 
     def __init__(self, name, leaves):
         self.name = name
         self.buffers = [static_buffer(t) for t in leaves]
         self.sources = [None] * len(leaves)  # (weakref, version) of the last copy
-        self.graph = self.outputs = None
+        self.segments = []  # torch.cuda.CUDAGraph, in capture order
+        self.collectives = []  # (fn, tensor) after each segment but the last
+        self.pool = self.outputs = None
         self.held = []
         self.launches = []  # ((module, name), launches per replay) with launches > 0
         self.warmup_s = self.capture_s = 0.0
@@ -311,7 +347,11 @@ class _Graph:
 
     def info(self) -> GraphInfo:
         return GraphInfo(self.name, self.warmup_s, self.capture_s, self.replays,
-                         {name: n for (_, name), n in self.launches})
+                         {name: n for (_, name), n in self.launches}, len(self.segments))
+
+    def begin_segment(self) -> None:
+        self.segments.append(torch.cuda.CUDAGraph())
+        self.segments[-1].capture_begin(pool=self.pool)
 
     def load(self, leaves) -> None:
         """Copy every argument into its buffer, skipping one copied unchanged."""
@@ -325,7 +365,11 @@ class _Graph:
 
     def replay(self, leaves):
         self.load(leaves)
-        self.graph.replay()
+        for i, segment in enumerate(self.segments):
+            segment.replay()
+            if i < len(self.collectives):
+                fn, tensor = self.collectives[i]
+                fn(tensor)
         for (module, name), n in self.launches:
             getattr(module, name).launches += n
         self.replays += 1
@@ -369,18 +413,18 @@ def _capture(fn, bound: inspect.BoundArguments, static: frozenset, leaves: list)
 
         torch.cuda.empty_cache()
         counts = _launch_counts()
-        graph = torch.cuda.CUDAGraph()
+        entry.pool = _POOLS[device]
         begin = time.perf_counter()
         try:
-            with _tracing(entry.held), torch.cuda.stream(side):
-                graph.capture_begin(pool=_POOLS[device])
+            with _tracing(entry), torch.cuda.stream(side):
+                entry.begin_segment()
                 try:
                     outputs = fn(*args.args, **args.kwargs)
                 except BaseException:
                     with contextlib.suppress(RuntimeError):
-                        graph.capture_end()
+                        entry.segments[-1].capture_end()
                     raise
-                graph.capture_end()
+                entry.segments[-1].capture_end()
         except Exception as err:
             _abandon_pool(device)
             raise RuntimeError(
@@ -390,7 +434,7 @@ def _capture(fn, bound: inspect.BoundArguments, static: frozenset, leaves: list)
             launched = _launch_counts()
             _set_launch_counts(counts)
         entry.capture_s = time.perf_counter() - begin
-    entry.graph, entry.outputs = graph, outputs
+    entry.outputs = outputs
     entry.launches = [(counter, after - before) for counter, before, after
                       in zip(_kernel_counters(), counts, launched) if after > before]
     return entry, result

@@ -13,7 +13,9 @@ the whole batch in one process (mesh=None) and compares every output within TOLE
 The exit code is 0 only when every process exited 0 and nothing differed.  --device cuda
 puts rank r on card r mod the card count; NCCL needs a card per rank, gloo reduces CUDA
 tensors through the host.  Neither the device nor the backend is ever swapped for
-another when it fails.
+another when it fails.  On the card the multi-camera cycles run graphed, CYCLES times
+each: the first call captures the graph (a camera group of two ranks splits it into
+segments at its all_reduces), the others replay it.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import socket
 import sys
 import time
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -35,6 +38,7 @@ TIMEOUT_S = 600.0  # every process is stopped, and the run fails, after this
 WIDTH, HEIGHT, FOCAL = 160, 128, 200.0
 DEPTH_SCALE = 0.001
 N_LINES, N_POINTS, N_FRAMES = 64, 64, 2
+CYCLES = 3  # each multi-camera cycle's count: a capture and two replays on the card
 
 
 def problem(device, n_data: int, seed: int = 0) -> dict:
@@ -141,49 +145,95 @@ LAYOUT = {"rigid_pose": (0, None), "rigid_histogram_f": (0, 1), "rigid_histogram
           "scan_histogram_f": (0, None), "scan_rgbd_poses": (1, None)}
 
 
-def run_paths(inp: dict, mesh) -> dict:
-    """Every path on this rank's shard of inp (mesh=None: the whole batch), as numpy."""
+def _local(inp: dict, mesh, name: str, camera_dim=None):
+    """This rank's shard of inp[name]: its data slice, and its camera slice along
+    camera_dim."""
+    from m3t_tpu_torch.parallel import sharding
+
+    x = sharding.shard_over(inp[name], mesh, "data")
+    return x if camera_dim is None else sharding.shard_over(x, mesh, "camera", camera_dim)
+
+
+class CycleCall(NamedTuple):
+    """A multi-camera cycle and the arguments of one call; args[at] is the state."""
+
+    cycle: Callable
+    args: tuple
+    at: int
+
+    @property
+    def state(self):
+        return self.args[self.at]
+
+    def step(self, state):
+        """The cycle from state, on the call's other arguments."""
+        return self.cycle(*self.args[:self.at], state, *self.args[self.at + 1:])
+
+
+def rigid_call(inp: dict, mesh) -> CycleCall:
+    """The multi-camera rigid cycle (depth, every scene check) on this rank's shard of
+    inp (mesh=None: the whole batch), from StartModality on the first camera frames."""
     from m3t_tpu_torch import pipeline
     from m3t_tpu_torch.parallel import sharding
 
-    def local(x, camera_dim=None):
-        x = sharding.shard_over(x, mesh, "data")
-        return x if camera_dim is None else sharding.shard_over(x, mesh, "camera",
-                                                                camera_dim)
+    pcfg, intr = inp["pcfg"], inp["intr"]
+    cam2ref = sharding.shard_over(inp["cam2ref"], mesh, "camera")
+    images, model = _local(inp, mesh, "images", 1), _local(inp, mesh, "model")
+    state = pipeline.initialize_multicamera_histograms(pcfg, intr, images, cam2ref, model,
+                                                       _local(inp, mesh, "poses"))
+    cycle = pipeline.make_sharded_cycle(pcfg, mesh, intr, intr, with_depth=True,
+                                        with_scene=True)
+    extra = (_local(inp, mesh, "depth_images", 1), DEPTH_SCALE,
+             _local(inp, mesh, "depth_model"), _local(inp, mesh, "scene_geom"),
+             _local(inp, mesh, "occluder_poses"))
+    return CycleCall(cycle, (images, cam2ref, model, state) + extra, 3)
+
+
+def kinematic_call(inp: dict, mesh) -> CycleCall:
+    """The multi-camera articulated cycle (depth, per-link scenes) on this rank's shard,
+    from per-(structure, link, camera) histograms: the links as bodies of the rigid
+    StartModality."""
+    from m3t_tpu_torch import pipeline
+    from m3t_tpu_torch.parallel import sharding
 
     pcfg, intr = inp["pcfg"], inp["intr"]
     cam2ref = sharding.shard_over(inp["cam2ref"], mesh, "camera")
-    out = {}
-
-    # The rigid cycle: StartModality on the first camera frames, then two cycles.
-    images, model = local(inp["images"], 1), local(inp["model"])
-    extra = (local(inp["depth_images"], 1), DEPTH_SCALE, local(inp["depth_model"]),
-             local(inp["scene_geom"]), local(inp["occluder_poses"]))
-    state = pipeline.initialize_multicamera_histograms(pcfg, intr, images, cam2ref, model,
-                                                       local(inp["poses"]))
-    cycle = pipeline.make_sharded_cycle(pcfg, mesh, intr, intr, with_depth=True,
-                                        with_scene=True)
-    for _ in range(2):
-        state = cycle(images, cam2ref, model, state, *extra)
-    out.update(rigid_pose=state.body2reference_pose, rigid_histogram_f=state.histogram_f,
-               rigid_histogram_b=state.histogram_b)
-
-    # The articulated cycle: per-(structure, link, camera) histograms at the start, from
-    # the links as bodies of the rigid StartModality.
-    kin, jp = local(inp["kin"]), local(inp["joint2parent"])
+    kin, jp = _local(inp, mesh, "kin"), _local(inp, mesh, "joint2parent")
     s, nl = jp.shape[:2]
-    kin_images = local(inp["kin_images"], 1)
-    link_model = local(inp["link_model"])
+    kin_images = _local(inp, mesh, "kin_images", 1)
+    link_model = _local(inp, mesh, "link_model")
     link_poses = pipeline._kinematic_flat_poses(kin, jp)[1]
     start = pipeline.initialize_multicamera_histograms(
         pcfg, intr, pipeline._repeat_each(kin_images, nl), cam2ref, link_model, link_poses)
-    kstate = pipeline.KinematicMultiCameraState(
+    state = pipeline.KinematicMultiCameraState(
         jp, *(h.reshape((s, nl) + h.shape[1:]) for h in start[1:]))
-    kcycle = pipeline.make_sharded_kinematic_cycle(pcfg, mesh, intr, intr, with_depth=True,
-                                                   with_scene=True)
-    kstate = kcycle(kin_images, cam2ref, link_model, kin, kstate,
-                    local(inp["kin_depth"], 1), DEPTH_SCALE, local(inp["link_depth_model"]),
-                    local(inp["kin_scene"]), None)
+    cycle = pipeline.make_sharded_kinematic_cycle(pcfg, mesh, intr, intr, with_depth=True,
+                                                  with_scene=True)
+    return CycleCall(cycle, (kin_images, cam2ref, link_model, kin, state,
+                             _local(inp, mesh, "kin_depth", 1), DEPTH_SCALE,
+                             _local(inp, mesh, "link_depth_model"),
+                             _local(inp, mesh, "kin_scene"), None), 4)
+
+
+def run_paths(inp: dict, mesh) -> dict:
+    """Every path on this rank's shard of inp (mesh=None: the whole batch), as numpy.
+    Each multi-camera cycle runs CYCLES times: on the card the first call captures its
+    graph and the others replay it."""
+    from m3t_tpu_torch import pipeline
+    from m3t_tpu_torch.parallel import sharding
+
+    pcfg, intr = inp["pcfg"], inp["intr"]
+    out = {}
+    call = rigid_call(inp, mesh)
+    state = call.state
+    for _ in range(CYCLES):
+        state = call.step(state)
+    out.update(rigid_pose=state.body2reference_pose, rigid_histogram_f=state.histogram_f,
+               rigid_histogram_b=state.histogram_b)
+    call = kinematic_call(inp, mesh)
+    kstate = call.state
+    for _ in range(CYCLES):
+        kstate = call.step(kstate)
     out.update(kinematic_joint2parent=kstate.joint2parent,
                kinematic_histogram_f=kstate.histogram_f,
                kinematic_histogram_b=kstate.histogram_b)

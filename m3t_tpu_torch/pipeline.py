@@ -12,8 +12,12 @@ JAX package jits these three, the port graphs them (graphs.graphed, ``pcfg`` sta
 on the card each replays one CUDA graph per static key, and on the CPU it runs eagerly.
 The cycles of :func:`make_sharded_cycle` and :func:`make_sharded_kinematic_cycle` run
 the loop over every (body, camera), their step summing each body's camera terms first;
-they run eagerly, because their camera sum is a torch.distributed all_reduce inside
-the cycle.  Hot-path structure:
+they are graphed too, keyed on what they were built from (``pcfg``, the mesh, the
+intrinsics and the ``with_*`` flags, by value).  Their camera sum's torch.distributed
+all_reduce runs between captured segments (graphs.collective): a mesh with a camera
+group of n > 1 ranks captures one segment more than the cycle has Newton steps, and the
+replay runs each all_reduce between two segments; one process is one segment.
+Hot-path structure:
 
   1. per body: crop the image once around the projected body origin and convert it to
      flat histogram-bin indices;
@@ -39,6 +43,7 @@ Reference mapping: one call == Tracker::ExecuteTrackingStep + CalculateResults
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
@@ -1021,8 +1026,9 @@ class KinematicMultiCameraState(NamedTuple):
 
 
 def _ref2cam(cam2ref_poses):
-    """The cameras' reference-to-camera poses (C, 4, 4), inverted in float64."""
-    return torch.linalg.inv(cam2ref_poses.to(torch.float64))
+    """The cameras' reference-to-camera poses (C, 4, 4), inverted in float64 (the values
+    of torch.linalg.inv, without its check of the factorization on the host)."""
+    return torch.linalg.inv_ex(cam2ref_poses.to(torch.float64), check_errors=False).inverse
 
 
 def _in_cameras(ref2cam, poses):
@@ -1042,12 +1048,14 @@ def _camera_sum(mesh, gradient, hessian, lead: tuple):
     """Body-frame terms (flat (..., camera) order, leading shape ``lead``) summed over the
     local cameras, then over the mesh's camera group (the JAX package's psum over
     "camera", m3t_tpu/pipeline.py:948-949): (lead[:-1] + (6,), lead[:-1] + (6, 6)).
-    Gradient and Hessian travel in one all_reduce; a group of one rank is skipped."""
+    Gradient and Hessian travel in one all_reduce, which a graph runs between two of
+    its segments (graphs.collective); a group of one rank is skipped."""
     g = gradient.reshape(lead + (6,)).sum(-2)
     h = hessian.reshape(lead + (6, 6)).sum(-3)
     if mesh is not None and mesh.n_camera > 1:
         both = torch.cat([g.reshape(-1), h.reshape(-1)])
-        torch.distributed.all_reduce(both, group=mesh.camera_group)
+        graphs.collective(functools.partial(torch.distributed.all_reduce,
+                                            group=mesh.camera_group), both)
         g, h = both[:g.numel()].view(g.shape), both[g.numel():].view(h.shape)
     return g, h
 
@@ -1087,11 +1095,35 @@ def _flat_texture(texture_points, n_lead: int):
 
 
 def _flat_handle(handle_occlusions, n_cameras: int, device):
-    """Per-body (or per-link) flags repeated for each camera; None means True."""
-    if handle_occlusions is None:
-        return None
+    """Per-body (or per-link) flags repeated for each camera; None means True, and a
+    bool stays one (_cycle_core fills it on the device)."""
+    if handle_occlusions is None or np.ndim(handle_occlusions) == 0:
+        return handle_occlusions
     handle = torch.as_tensor(handle_occlusions, device=device).reshape(-1)
     return _repeat_each(handle, n_cameras)
+
+
+def _bound_cycle(fn, arguments):
+    """The cycle a make_sharded_* function returns: fn (a graphed function) called with
+    arguments(*args, **kwargs), the cycle's own arguments and what it was built from;
+    ``cycle.static_key(*args, **kwargs)`` is that call's static key."""
+    def cycle(*args, **kwargs):
+        return fn(**arguments(*args, **kwargs))
+
+    cycle.static_key = lambda *args, **kwargs: graphs.static_key(fn, **arguments(*args,
+                                                                                  **kwargs))
+    return cycle
+
+
+def _built_from(pcfg, mesh, intr, depth_intr, with_depth, with_scene, with_texture) -> dict:
+    """What a multi-camera cycle is built from, the intrinsics as tuples of floats (the
+    values its graph bakes in and is keyed on)."""
+    return dict(pcfg=pcfg, mesh=mesh, intr=_intrinsics(intr),
+                depth_intr=None if depth_intr is None else _intrinsics(depth_intr),
+                with_depth=with_depth, with_scene=with_scene, with_texture=with_texture)
+
+
+_SHARDED_STATIC = ("pcfg", "mesh", "with_depth", "with_scene", "with_texture")
 
 
 def make_sharded_cycle(pcfg: PipelineConfig, mesh, intr, depth_intr=None,
@@ -1116,7 +1148,7 @@ def make_sharded_cycle(pcfg: PipelineConfig, mesh, intr, depth_intr=None,
       images (b, c, H, W, 3) or planar (b, c, 3, H, W) uint8 of the local bodies and
       cameras; cam2ref_poses (c, 4, 4) camera-to-reference extrinsics of the local
       cameras; model RegionModelArrays of the b local bodies; state MultiCameraState with
-      histograms (b, c, N); handle_occlusions (b,) bool, None for True.
+      histograms (b, c, N); handle_occlusions (b,) bool or a bool, None for True.
       with_depth adds (depth_images (b, c, Hd, Wd) uint16, depth_scale, depth_model
       DepthModelArrays of b bodies): the depth terms are fused whenever with_depth is
       set (the JAX cycle does not read pcfg.use_depth), and measured occlusions of
@@ -1124,52 +1156,69 @@ def make_sharded_cycle(pcfg: PipelineConfig, mesh, intr, depth_intr=None,
       (scene_geom SceneGeometry of b scenes, occluder_poses (b, NO-1, 4, 4) in the
       REFERENCE frame, mapped into each camera once per cycle).  with_texture adds
       texture_points (TexturePoints with leading (b, c)).
+
+    The cycle is graphed as the JAX package jits it (m3t_tpu/pipeline.py:991): on the
+    card one CUDA graph per static key, made of what the cycle was built from (by value:
+    cycles built from equal arguments share one graph) and of the call's own arguments
+    (``cycle.static_key``); on the CPU and under graphs.disable_graphs() it runs eagerly.
     """
-    def cycle(images, cam2ref_poses, model: RegionModelArrays, state: MultiCameraState,
-              *extra, handle_occlusions=None) -> MultiCameraState:
-        depth, (scene_geom, occluder_poses), texture_points = _split_extra(
-            extra, with_depth, with_scene, with_texture)
-        b, c = images.shape[:2]
-        n_hist = state.histogram_f.shape[-1]
-        ref2cam = _ref2cam(cam2ref_poses)
+    built = _built_from(pcfg, mesh, intr, depth_intr, with_depth, with_scene, with_texture)
 
-        def flat(pose):
-            # The body's pose in each camera's frame, (body, camera) order.
-            return _in_cameras(ref2cam, pose).reshape(b * c, 4, 4)
+    def arguments(images, cam2ref_poses, model: RegionModelArrays, state: MultiCameraState,
+                  *extra, handle_occlusions=None) -> dict:
+        return dict(built, images=images, cam2ref_poses=cam2ref_poses, model=model,
+                    state=state, extra=extra, handle_occlusions=handle_occlusions)
 
-        occluders = None
-        if occluder_poses is not None:
-            occluders = _in_cameras(ref2cam, occluder_poses).reshape(
-                (b * c,) + occluder_poses.shape[1:])
+    return _bound_cycle(_sharded_cycle, arguments)
 
-        def scene(pose):
-            # The (body, camera) pose in slot 0, then the occluders in that camera.
-            if occluders is None:
-                return pose[:, None]
-            return torch.cat([pose[:, None], occluders], dim=1)
 
-        def step(pose, gradient, hessian):
-            g, h = _camera_sum(mesh, gradient, hessian, (b, c))
-            return _solve_and_update(pcfg, g, h, pose)
+@graphs.graphed(static_argnames=_SHARDED_STATIC)
+def _sharded_cycle(pcfg: PipelineConfig, mesh, intr, depth_intr, with_depth: bool,
+                   with_scene: bool, with_texture: bool, images, cam2ref_poses,
+                   model: RegionModelArrays, state: MultiCameraState, extra,
+                   handle_occlusions) -> MultiCameraState:
+    """The cycle of :func:`make_sharded_cycle`, with what it was built from."""
+    depth, (scene_geom, occluder_poses), texture_points = _split_extra(
+        extra, with_depth, with_scene, with_texture)
+    b, c = images.shape[:2]
+    n_hist = state.histogram_f.shape[-1]
+    ref2cam = _ref2cam(cam2ref_poses)
 
-        pose = state.body2reference_pose
-        model_index = torch.arange(b * c, device=pose.device) // c
-        if depth[0] is not None:
-            depth = (depth[0].reshape((b * c,) + depth[0].shape[2:]),) + depth[1:]
-        if scene_geom is not None:
-            scene_geom = type(scene_geom)(*(_repeat_each(a, c) for a in scene_geom))
-        pose, hist_f, hist_b = _cycle_core(
-            pcfg, intr, images.reshape((b * c,) + images.shape[2:]), model, pose,
-            state.histogram_f.reshape(b * c, n_hist), state.histogram_b.reshape(b * c, n_hist),
-            _Poses(flat, scene, step),
-            depth=_flat_depth(pcfg, depth_intr, depth, flat(pose)),
-            scene_geom=scene_geom,
-            handle_occlusions=_flat_handle(handle_occlusions, c, pose.device),
-            texture_points=_flat_texture(texture_points, 2), model_index=model_index)
-        return MultiCameraState(pose, hist_f.reshape(b, c, n_hist),
-                                hist_b.reshape(b, c, n_hist))
+    def flat(pose):
+        # The body's pose in each camera's frame, (body, camera) order.
+        return _in_cameras(ref2cam, pose).reshape(b * c, 4, 4)
 
-    return cycle
+    occluders = None
+    if occluder_poses is not None:
+        occluders = _in_cameras(ref2cam, occluder_poses).reshape(
+            (b * c,) + occluder_poses.shape[1:])
+
+    def scene(pose):
+        # The (body, camera) pose in slot 0, then the occluders in that camera.
+        if occluders is None:
+            return pose[:, None]
+        return torch.cat([pose[:, None], occluders], dim=1)
+
+    def step(pose, gradient, hessian):
+        g, h = _camera_sum(mesh, gradient, hessian, (b, c))
+        return _solve_and_update(pcfg, g, h, pose)
+
+    pose = state.body2reference_pose
+    model_index = torch.arange(b * c, device=pose.device) // c
+    if depth[0] is not None:
+        depth = (depth[0].reshape((b * c,) + depth[0].shape[2:]),) + depth[1:]
+    if scene_geom is not None:
+        scene_geom = type(scene_geom)(*(_repeat_each(a, c) for a in scene_geom))
+    pose, hist_f, hist_b = _cycle_core(
+        pcfg, intr, images.reshape((b * c,) + images.shape[2:]), model, pose,
+        state.histogram_f.reshape(b * c, n_hist), state.histogram_b.reshape(b * c, n_hist),
+        _Poses(flat, scene, step),
+        depth=_flat_depth(pcfg, depth_intr, depth, flat(pose)),
+        scene_geom=scene_geom,
+        handle_occlusions=_flat_handle(handle_occlusions, c, pose.device),
+        texture_points=_flat_texture(texture_points, 2), model_index=model_index)
+    return MultiCameraState(pose, hist_f.reshape(b, c, n_hist),
+                            hist_b.reshape(b, c, n_hist))
 
 
 def initialize_multicamera_histograms(pcfg: PipelineConfig, intr, images, cam2ref_poses,
@@ -1202,72 +1251,86 @@ def make_sharded_kinematic_cycle(pcfg: PipelineConfig, mesh, intr, depth_intr=No
     shard: images (s, c, H, W, 3) or planar (s, c, 3, H, W) uint8; cam2ref_poses (c, 4,
     4); model RegionModelArrays of the s * NL link-major link bodies; kin the s
     structures' KinematicModel; state KinematicMultiCameraState with histograms (s, NL,
-    c, N); handle_occlusions (s, NL) bool, None for True.  with_depth adds
+    c, N); handle_occlusions (s, NL) bool or a bool, None for True.  with_depth adds
     (depth_images (s, c, Hd, Wd) uint16, depth_scale, depth_model of s * NL bodies),
     fused whenever with_depth is set; with_scene adds (scene_geom, the s * NL per-link
     scenes of occlusion.build_kinematic_scene_geometry, extra_occluder_poses (s, NE, 4,
     4) in the REFERENCE frame); with_texture adds texture_points with leading (s, NL,
     c).  The frames are repeated for each link (the flat batch's frame of every
     (structure, link, camera)): a copy unless they are one frame expanded, as the JAX
-    cycle's jnp.repeat is.
+    cycle's jnp.repeat is.  Graphed as :func:`make_sharded_cycle`'s cycle is
+    (m3t_tpu/pipeline.py:1270).
     """
-    def cycle(images, cam2ref_poses, model: RegionModelArrays, kin: kin_ops.KinematicModel,
-              state: KinematicMultiCameraState, *extra,
-              handle_occlusions=None) -> KinematicMultiCameraState:
-        depth, (scene_geom, extra_occluder_poses), texture_points = _split_extra(
-            extra, with_depth, with_scene, with_texture)
-        s, c = images.shape[:2]
-        nl = kin.parent.shape[1]
-        n = s * nl * c
-        n_hist = state.histogram_f.shape[-1]
-        ref2cam = _ref2cam(cam2ref_poses)
+    built = _built_from(pcfg, mesh, intr, depth_intr, with_depth, with_scene, with_texture)
 
-        def flat(joint2parent):
-            # Every link's pose in each camera's frame, (structure, link, camera) order.
-            link_poses = kin_ops.forward_kinematics(kin, joint2parent)
-            return _in_cameras(ref2cam, link_poses.reshape(s * nl, 4, 4)).reshape(n, 4, 4)
+    def arguments(images, cam2ref_poses, model: RegionModelArrays,
+                  kin: kin_ops.KinematicModel, state: KinematicMultiCameraState, *extra,
+                  handle_occlusions=None) -> dict:
+        return dict(built, images=images, cam2ref_poses=cam2ref_poses, model=model,
+                    kin=kin, state=state, extra=extra, handle_occlusions=handle_occlusions)
 
-        extras = None
-        if extra_occluder_poses is not None:
-            extras = _in_cameras(ref2cam, extra_occluder_poses)
+    return _bound_cycle(_sharded_kinematic_cycle, arguments)
 
-        def scene(pose):
-            # Each (structure, link, camera) scene: the structure's links in that camera
-            # (they occlude each other), then the extra occluders in that camera.
-            links = pose.reshape(s, nl, c, 4, 4).transpose(1, 2)     # (s, c, nl, 4, 4)
-            scene_poses = links[:, None].expand(s, nl, c, nl, 4, 4)
-            if extras is not None:
-                ne = extras.shape[2]
-                scene_poses = torch.cat(
-                    [scene_poses, extras[:, None].expand(s, nl, c, ne, 4, 4)], dim=3)
-            return scene_poses.reshape(n, -1, 4, 4)
 
-        def step(joint2parent, gradient, hessian):
-            g, h = _camera_sum(mesh, gradient, hessian, (s, nl, c))
-            return kin_ops.update_structures(kin, joint2parent, g, h, pcfg.tikhonov_rotation,
-                                             pcfg.tikhonov_translation)
+@graphs.graphed(static_argnames=_SHARDED_STATIC)
+def _sharded_kinematic_cycle(pcfg: PipelineConfig, mesh, intr, depth_intr,
+                             with_depth: bool, with_scene: bool, with_texture: bool,
+                             images, cam2ref_poses, model: RegionModelArrays,
+                             kin: kin_ops.KinematicModel, state: KinematicMultiCameraState,
+                             extra, handle_occlusions) -> KinematicMultiCameraState:
+    """The cycle of :func:`make_sharded_kinematic_cycle`, with what it was built from."""
+    depth, (scene_geom, extra_occluder_poses), texture_points = _split_extra(
+        extra, with_depth, with_scene, with_texture)
+    s, c = images.shape[:2]
+    nl = kin.parent.shape[1]
+    n = s * nl * c
+    n_hist = state.histogram_f.shape[-1]
+    ref2cam = _ref2cam(cam2ref_poses)
 
-        jp = state.joint2parent
-        model_index = torch.arange(n, device=jp.device) // c
+    def flat(joint2parent):
+        # Every link's pose in each camera's frame, (structure, link, camera) order.
+        link_poses = kin_ops.forward_kinematics(kin, joint2parent)
+        return _in_cameras(ref2cam, link_poses.reshape(s * nl, 4, 4)).reshape(n, 4, 4)
 
-        def per_link(frames):
-            # (s, c, ...) -> (s * nl * c, ...) in (structure, link, camera) order.
-            return frames[:, None].expand((s, nl) + frames.shape[1:]).reshape(
-                (n,) + frames.shape[2:])
+    extras = None
+    if extra_occluder_poses is not None:
+        extras = _in_cameras(ref2cam, extra_occluder_poses)
 
-        if depth[0] is not None:
-            depth = (per_link(depth[0]),) + depth[1:]
-        if scene_geom is not None:
-            scene_geom = type(scene_geom)(*(_repeat_each(a, c) for a in scene_geom))
-        jp, hist_f, hist_b = _cycle_core(
-            pcfg._replace(region_measure_occlusions=False), intr, per_link(images), model,
-            jp, state.histogram_f.reshape(n, n_hist), state.histogram_b.reshape(n, n_hist),
-            _Poses(flat, scene, step),
-            depth=_flat_depth(pcfg, depth_intr, depth, flat(jp)),
-            scene_geom=scene_geom,
-            handle_occlusions=_flat_handle(handle_occlusions, c, jp.device),
-            texture_points=_flat_texture(texture_points, 3), model_index=model_index)
-        return KinematicMultiCameraState(jp, hist_f.reshape(s, nl, c, n_hist),
-                                         hist_b.reshape(s, nl, c, n_hist))
+    def scene(pose):
+        # Each (structure, link, camera) scene: the structure's links in that camera
+        # (they occlude each other), then the extra occluders in that camera.
+        links = pose.reshape(s, nl, c, 4, 4).transpose(1, 2)     # (s, c, nl, 4, 4)
+        scene_poses = links[:, None].expand(s, nl, c, nl, 4, 4)
+        if extras is not None:
+            ne = extras.shape[2]
+            scene_poses = torch.cat(
+                [scene_poses, extras[:, None].expand(s, nl, c, ne, 4, 4)], dim=3)
+        return scene_poses.reshape(n, -1, 4, 4)
 
-    return cycle
+    def step(joint2parent, gradient, hessian):
+        g, h = _camera_sum(mesh, gradient, hessian, (s, nl, c))
+        return kin_ops.update_structures(kin, joint2parent, g, h, pcfg.tikhonov_rotation,
+                                         pcfg.tikhonov_translation)
+
+    jp = state.joint2parent
+    model_index = torch.arange(n, device=jp.device) // c
+
+    def per_link(frames):
+        # (s, c, ...) -> (s * nl * c, ...) in (structure, link, camera) order.
+        return frames[:, None].expand((s, nl) + frames.shape[1:]).reshape(
+            (n,) + frames.shape[2:])
+
+    if depth[0] is not None:
+        depth = (per_link(depth[0]),) + depth[1:]
+    if scene_geom is not None:
+        scene_geom = type(scene_geom)(*(_repeat_each(a, c) for a in scene_geom))
+    jp, hist_f, hist_b = _cycle_core(
+        pcfg._replace(region_measure_occlusions=False), intr, per_link(images), model,
+        jp, state.histogram_f.reshape(n, n_hist), state.histogram_b.reshape(n, n_hist),
+        _Poses(flat, scene, step),
+        depth=_flat_depth(pcfg, depth_intr, depth, flat(jp)),
+        scene_geom=scene_geom,
+        handle_occlusions=_flat_handle(handle_occlusions, c, jp.device),
+        texture_points=_flat_texture(texture_points, 3), model_index=model_index)
+    return KinematicMultiCameraState(jp, hist_f.reshape(s, nl, c, n_hist),
+                                     hist_b.reshape(s, nl, c, n_hist))

@@ -1,19 +1,24 @@
 """The port's counterpart of jax.jit: m3t_tpu_torch/graphs.py and the graphed cycles.
 
 On the CPU: the static key separates what must be separate and equates what must be
-equal, the static buffers keep an argument's expanded dimensions, disable_graphs nests,
-the decorated cycles run eagerly and capture nothing, and no cycle reads a value back on
-the host (which a capture on the card forbids).  The inputs are those of the scale-out
-dry run (m3t_tpu_torch.parallel.dryrun.problem: two bodies or two-link structures at
-160x128, 64 lines and points, 2x2 iterations, every scene check).
+equal (also for the two multi-camera cycles, keyed on what they were built from), the
+static buffers keep an argument's expanded dimensions, disable_graphs nests, a
+collective runs in place outside a capture, the decorated cycles run eagerly and capture
+nothing, and no cycle reads a value back on the host (which a capture on the card
+forbids).  The inputs are those of the scale-out dry run
+(m3t_tpu_torch.parallel.dryrun.problem: two bodies or two-link structures at 160x128,
+64 lines and points, 2x2 iterations, every scene check; the multi-camera cycles with
+both of its cameras and mesh=None).
 
 The tests marked ``cuda`` need a card and skip without one: graph equal to eager bit for
-bit for the three cycles, fresh outputs, launch counts per replay, and a capture that
-fails raising.  The machine with the card has no JAX, so run them there as
+bit for the three cycles and the two multi-camera cycles, fresh outputs, launch counts
+per replay, a capture that fails raising, and a function split into two segments by a
+collective.  The machine with the card has no JAX, so run them there as
 
     python -m pytest --noconftest -q tests/test_torch_graphs.py
 """
 
+import contextlib
 from pathlib import Path
 
 import numpy as np
@@ -21,12 +26,13 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from m3t_tpu_torch import graphs, pipeline
+from m3t_tpu_torch import graphs, parallel, pipeline
 from m3t_tpu_torch.ops import depth_fast, occlusion, region_fast
 from m3t_tpu_torch.ops.texture_fn import TexturePoints
 from m3t_tpu_torch.parallel import dryrun
 
 CYCLES = ("region", "rgbd", "kinematic")
+SHARDED = ("sharded", "sharded_kinematic")  # the multi-camera cycles, mesh=None
 
 
 def _calls(inp) -> dict:
@@ -65,12 +71,28 @@ def _calls(inp) -> dict:
                            depth_scale=dryrun.DEPTH_SCALE,
                            depth_images=inp["kin_depth"][:, 0],
                            depth_model=inp["link_depth_model"])),
+        # The multi-camera cycles of the dry run with mesh=None, both cameras, per-body
+        # (per-link) handle_occlusions.
+        "sharded": _sharded_call(dryrun.rigid_call(inp, None),
+                                 torch.tensor([True, False], device=dev)),
+        "sharded_kinematic": _sharded_call(
+            dryrun.kinematic_call(inp, None),
+            torch.tensor([[True, False], [True, True]], device=dev)),
     }
 
 
+def _sharded_call(call, handle):
+    return call.cycle, call.args, dict(handle_occlusions=handle)
+
+
 @pytest.fixture(scope="module")
-def cpu_calls():
-    return _calls(dryrun.problem(torch.device("cpu"), 1))
+def cpu_problem():
+    return dryrun.problem(torch.device("cpu"), 1)
+
+
+@pytest.fixture(scope="module")
+def cpu_calls(cpu_problem):
+    return _calls(cpu_problem)
 
 
 def _equal(a, b) -> bool:
@@ -152,6 +174,60 @@ def test_static_key_equates(cpu_calls, case):
     assert first == second
 
 
+MAKERS = {"sharded": pipeline.make_sharded_cycle,
+          "sharded_kinematic": pipeline.make_sharded_kinematic_cycle}
+
+
+def _built(inp, **changes) -> dict:
+    """What the dry run builds its multi-camera cycles from, with changes."""
+    return dict(dict(pcfg=inp["pcfg"], mesh=None, intr=inp["intr"], depth_intr=inp["intr"],
+                     with_depth=True, with_scene=True, with_texture=False), **changes)
+
+
+# case -> changes of what a multi-camera cycle is built from: its key must differ from
+# (SHARDED_SEPARATE) or equal (SHARDED_EQUAL) the key of the dry run's cycle, on the same
+# call arguments.
+SHARDED_SEPARATE = {
+    "pcfg field": lambda inp: dict(pcfg=inp["pcfg"]._replace(n_update_iterations=1)),
+    "intrinsic value": lambda inp: dict(intr=(inp["intr"][0] + 1.0,) + tuple(inp["intr"][1:])),
+    "depth intrinsic value": lambda inp: dict(
+        depth_intr=tuple(inp["intr"][:3]) + (inp["intr"][3] + 0.5,)),
+    "with_depth": lambda inp: dict(with_depth=False),
+    "with_scene": lambda inp: dict(with_scene=False),
+    "with_texture": lambda inp: dict(with_texture=True),
+    "a (1, 1) mesh against None": lambda inp: dict(mesh=parallel.Mesh(1, 1, 0, 0, None,
+                                                                        None)),
+}
+
+SHARDED_EQUAL = {
+    "built again alike": lambda inp: {},
+    "intrinsics as a float32 array": lambda inp: dict(
+        intr=np.asarray(inp["intr"], np.float32), depth_intr=list(inp["intr"])),
+}
+
+
+def _sharded_keys(inp, calls, name, changes):
+    cycle, args, kwargs = calls[name]
+    return (cycle.static_key(*args, **kwargs),
+            MAKERS[name](**_built(inp, **changes(inp))).static_key(*args, **kwargs))
+
+
+@pytest.mark.parametrize("case", sorted(SHARDED_SEPARATE))
+@pytest.mark.parametrize("name", SHARDED)
+def test_sharded_static_key_separates(cpu_problem, cpu_calls, name, case):
+    first, second = _sharded_keys(cpu_problem, cpu_calls, name, SHARDED_SEPARATE[case])
+    assert first != second
+
+
+@pytest.mark.parametrize("case", sorted(SHARDED_EQUAL))
+@pytest.mark.parametrize("name", SHARDED)
+def test_sharded_static_key_equates(cpu_problem, cpu_calls, name, case):
+    """Cycles built from equal arguments share one key, as the JAX package's compile
+    cache shares one program: a cycle built anew for every call replays one graph."""
+    first, second = _sharded_keys(cpu_problem, cpu_calls, name, SHARDED_EQUAL[case])
+    assert first == second
+
+
 def test_static_buffers_hold_one_frame_and_one_model():
     """An expanded (512, 3, 512, 640) uint8 frame and a model expanded over 512 bodies
     get buffers of one frame and one model, which the graph reads expanded again."""
@@ -189,6 +265,41 @@ def test_disable_graphs_nests_and_restores():
     assert graphs.graphs_enabled()
 
 
+def _count_calls(fn):
+    def counted(t):
+        counted.calls += 1
+        fn(t)
+    counted.calls = 0
+    return counted
+
+
+@graphs.graphed()
+def _doubled_then_incremented(x):
+    y = x * 2.0
+    graphs.collective(_INCREMENT, y)
+    return y * 3.0
+
+
+_INCREMENT = _count_calls(lambda t: t.add_(1.0))
+
+
+@pytest.mark.parametrize("where", ("eager", "disable_graphs", "graphed on the CPU"))
+def test_collective_runs_in_place_outside_a_capture(where):
+    """Outside a capture (eagerly, under disable_graphs, a decorated function on the
+    CPU) graphs.collective runs fn on the tensor at once, in place."""
+    x = torch.arange(4, dtype=torch.float32)
+    calls = _INCREMENT.calls
+    if where == "graphed on the CPU":
+        got = _doubled_then_incremented(x)
+        assert torch.equal(got, (x * 2.0 + 1.0) * 3.0) and graphs.captured() == []
+    else:
+        y = x.clone()
+        with graphs.disable_graphs() if where == "disable_graphs" else contextlib.nullcontext():
+            graphs.collective(_INCREMENT, y)
+        assert torch.equal(y, x + 1.0) and not graphs.capturing()
+    assert _INCREMENT.calls == calls + 1
+
+
 @pytest.mark.parametrize("name", CYCLES)
 def test_cycles_on_cpu_run_eagerly(cpu_calls, name):
     """On CPU tensors a decorated cycle is its undecorated function, bit for bit, and
@@ -200,14 +311,38 @@ def test_cycles_on_cpu_run_eagerly(cpu_calls, name):
     assert graphs.captured() == []
 
 
+@pytest.mark.parametrize("name", SHARDED)
+def test_sharded_cycles_on_cpu_run_eagerly(cpu_calls, name):
+    """On CPU tensors a multi-camera cycle is its eager form (disable_graphs), bit for
+    bit, and captures nothing."""
+    fn, args, kwargs = cpu_calls[name]
+    graphs.clear_graphs()
+    got = fn(*args, **kwargs)
+    with graphs.disable_graphs():
+        assert _equal(got, fn(*args, **kwargs))
+    assert graphs.captured() == []
+
+
+@pytest.mark.parametrize("name", SHARDED)
+def test_sharded_bool_handle_occlusions(cpu_calls, name):
+    """A bool handle_occlusions (keyed by value, filled on the device) equals the same
+    flag as a tensor for every body or link, and True equals None."""
+    fn, args, kwargs = cpu_calls[name]
+    shape = kwargs["handle_occlusions"].shape
+    for flag, same in ((False, torch.zeros(shape, dtype=torch.bool)), (True, None)):
+        assert _equal(fn(*args, handle_occlusions=flag), fn(*args, handle_occlusions=same))
+
+
 class _HostReads(TorchDispatchMode):
     """The aten operations that read a tensor's values back on the host, or give a
     shape that depends on them (both a capture forbids), by name; none while
-    ``paused`` (the kernels' plain twins, which stand in for the kernels on the CPU)."""
+    ``paused`` (the kernels' plain twins, which stand in for the kernels on the CPU).
+    ``_linalg_check_errors`` is torch.linalg's check of a factorization's info, which
+    reads it on the host (on the CPU without a ``_local_scalar_dense``)."""
 
     DATA_DEPENDENT = ("nonzero", "masked_select", "unique", "_unique", "_unique2",
                       "unique_consecutive", "unique_dim", "_local_scalar_dense",
-                      "repeat_interleave")
+                      "repeat_interleave", "_linalg_check_errors")
 
     def __init__(self):
         super().__init__()
@@ -223,7 +358,7 @@ class _HostReads(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("name", CYCLES)
+@pytest.mark.parametrize("name", CYCLES + SHARDED)
 def test_cycles_read_nothing_back_on_the_host(cpu_calls, name, monkeypatch):
     """No operation of a cycle reads a value back on the host (item, tolist, numpy, cpu,
     a data-dependent shape) or builds a tensor on the cycle's device from host data: a
@@ -258,8 +393,8 @@ def test_cycles_read_nothing_back_on_the_host(cpu_calls, name, monkeypatch):
             finally:
                 reads.paused = False
         monkeypatch.setattr(module, kernel, twin)
-    with reads:
-        fn.__wrapped__(*args, **kwargs)
+    with reads, graphs.disable_graphs():
+        fn(*args, **kwargs)
     monkeypatch.undo()
     assert reads.found == [] and made == [], (reads.found, made)
 
@@ -270,18 +405,25 @@ def test_cycles_read_nothing_back_on_the_host(cpu_calls, name, monkeypatch):
 
 
 @pytest.fixture
-def cuda_calls():
+def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: a CUDA graph has no CPU mode")
     graphs.clear_graphs()
-    yield _calls(dryrun.problem(torch.device("cuda"), 1))
+    yield
     graphs.clear_graphs()
 
 
-def _chain(fn, args, kwargs, n: int) -> list:
-    """n cycles, each from the state the last one gave."""
-    at = 5 if fn is pipeline.tracking_cycle_kinematic else (
-        8 if fn is pipeline.tracking_cycle_rgbd else 4)
+@pytest.fixture
+def cuda_calls(card):
+    return _calls(dryrun.problem(torch.device("cuda"), 1))
+
+
+def _chain(fn, args, kwargs, n: int, at: int | None = None) -> list:
+    """n cycles, each from the state the last one gave (args[at]; by default where fn,
+    a one-camera cycle, takes it)."""
+    if at is None:
+        at = 5 if fn is pipeline.tracking_cycle_kinematic else (
+            8 if fn is pipeline.tracking_cycle_rgbd else 4)
     args, states = list(args), []
     for _ in range(n):
         states.append(fn(*args, **kwargs))
@@ -369,3 +511,47 @@ def test_capture_failure_raises(cuda_calls):
         eager = _chain(fn, args, kwargs, 2)
     for want, got in zip(eager, _chain(fn, args, kwargs, 2)):
         assert _equal(want, got)
+
+
+KERNEL_COUNTERS = (region_fast.sample_lines, region_fast.bin_counts,
+                   depth_fast.sample_windows, occlusion.query_eval)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SHARDED)
+def test_sharded_graph_equals_eager_on_card(cuda_calls, name):
+    """B=2, C=2, mesh=None: three graphed multi-camera cycles (the capturing call and two
+    replays) equal three eager ones bit for bit and count the eager launches each; one
+    graph of one segment (no collective without a camera group)."""
+    fn, args, kwargs = cuda_calls[name]
+    at = 3 if name == "sharded" else 4
+
+    def launches(run):
+        before = [c.launches for c in KERNEL_COUNTERS]
+        out = run()
+        return out, [c.launches - n for c, n in zip(KERNEL_COUNTERS, before)]
+
+    with graphs.disable_graphs():
+        eager, eager_launches = launches(lambda: _chain(fn, args, kwargs, 3, at))
+    graphed, graph_launches = launches(lambda: _chain(fn, args, kwargs, 3, at))
+    for want, got in zip(eager, graphed):
+        assert _equal(want, got)
+    assert graph_launches == eager_launches and eager_launches[0] > 0
+    (info,) = graphs.captured()
+    assert info.replays == 2 and info.segments == 1
+    assert sum(info.launches.values()) * 3 == sum(eager_launches)
+
+
+@pytest.mark.cuda
+def test_collective_splits_the_graph_on_card(card):
+    """A collective (here a plain in-place add) between two captured segments: it runs
+    once in the warm-up, never at the capture, and once between the segments of every
+    replay, in capture order."""
+    xs = [torch.arange(4, dtype=torch.float32, device="cuda") + i for i in range(3)]
+    calls = _INCREMENT.calls
+    got = [_doubled_then_incremented(x) for x in xs]
+    for x, y in zip(xs, got):
+        assert torch.equal(y, (x * 2.0 + 1.0) * 3.0)
+    (info,) = graphs.captured()
+    assert info.segments == 2 and info.replays == 2
+    assert _INCREMENT.calls == calls + 3
