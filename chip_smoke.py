@@ -143,13 +143,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      constraints and the host KKT step), through Tracker.RunTrackerProcess(
      execute_detection=True, start_tracking=True, max_iterations=6) over six colour and
      uint16 depth frames rendered by the port's host rasterizer (the bodies moving 1 mm
-     along x per frame), with every kernel call recorded (the host path must make none:
-     the kernels line's host_path_launches), the fused backend's refusal asserted (with
-     the JAX package's reason), every tensor of the graph asserted on the card and every
-     link within 5 mm of its rendered pose; then 3 timed windows of 2 steps on the
-     frames replayed back and forth after 2 warm-up steps, one step more with its parts
-     timed apart (rendering, correspondences, gradient and Hessian, optimization,
-     results), and peak memory:
+     along x per frame), the modalities' five host-path functions graphed
+     (correspondences, gradient and Hessian, colour additions: one CUDA graph per
+     static key; the renders stay eager, see 10o), with every kernel launch count set to 0
+     before it (the host path must launch none: the kernels line's host_path_launches),
+     the fused backend's refusal asserted (with the JAX package's reason), every tensor
+     of the graph asserted on the card and every link within 5 mm of its rendered pose;
+     then 3 timed windows of 2 steps on the frames replayed back and forth after 2
+     warm-up steps, one step more with its parts timed apart (rendering,
+     correspondences, gradient and Hessian, optimization, results; each part
+     synchronized), the graphs captured and their capture seconds, and peak memory:
      10o. an occluded scene of a YCB-Video frame's size: five Body objects of the phase
          0m sphere (ids 1-5, set explicitly) at 0.45-0.6 m, two of them overlapping in
          the image, and phase 7's cube (id 6, untracked) in front of one, in one
@@ -162,9 +165,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
          Also one FullNormalRenderer image of the scene at 640x512 on the card and on the
          CPU: the share of pixels whose triangle id differs (at most 0.1 %), and the
          largest depth and normal differences where the ids agree; and the graph's ten
-         focused renderers rendering once, each chunk of triangles over its window (as
-         the renderers render) and over the whole image, on the card and on the CPU:
-         the images equal, and the seconds of each;
+         focused renderers rendering once per pass in three forms on the card: eagerly
+         with each chunk of triangles over its window (the renderers' form, also timed
+         on the CPU), eagerly over the whole image, and through the graphed rasterize
+         (whole image): the images equal, and the seconds per pass of each;
      10k. four copies of phase 6k's structure (bench.py:285-306, the child free in all
          six directions with a Body of its own), each link with region and depth
          modalities that model link-on-link occlusions through FocusedBasicDepthRenderers,
@@ -276,6 +280,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      eager; 5 cycles at B=512, 20 at the smaller batches and in serve); and one
      torch.profiler window of each form of the region, kinematic RGB-D and 8c cycles
      (device busy ms, idle share);
+     14h. the host path of phases 10o and 10k, an eager copy (disable_graphs) and a
+     graphed copy of each graph, 2 steps from equal states (detection, the starting
+     step and a tracking step each, the graphed copy loaded with the eager copy's state
+     before each step): every link pose, joint pose and histogram equal bit for bit,
+     no kernel launched; the graphs captured, their capture seconds and each form's
+     seconds per step;
      14d. two gloo processes on the one card form a (1, 2) mesh (the dry run's problem,
      rigid_call and kinematic_call of m3t_tpu_torch.parallel.dryrun): on each rank 3
      eager multi-camera cycles (rigid and articulated) and a graphed one from each eager
@@ -284,11 +294,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      captured segments) and the eager launches per replay.
 Every phase runs the fused cycles graphed, the form a user gets, but where it records
 kernel calls to hold them against their twins (phase 2's recorded calls, 7, 8x, 9x,
-10's count, 11x, 12r, 12g and 12p's twin checks, 12x, 13k: recorded_launches) or counts
+11x, 12r, 12g and 12p's twin checks, 12x, 13k: recorded_launches) or counts
 aten operations (phases 4-6k's depth-frame reads): a graph's replay calls no wrapper
 and dispatches no operation, so those cycles run eagerly (disable_graphs).  12r also
-replays its recording graphed, held by its launches.  Every path of phases 3-9 starts
-with clear_graphs, so that its peak memory holds its own graph only.
+replays its recording graphed, held by its launches.  Every path of phases 3-10 starts
+with clear_graphs, so that its peak memory holds its own graphs only.
 The last two lines are the kernels JSON and {"ok": true, "device": {...}}.  With
 --profile, one window each of region, RGB-D, occlusion-path, kinematic, kinematic RGB-D,
 RGB-D scan step, multi-camera and multi-camera kinematic cycles is also traced with
@@ -346,6 +356,13 @@ PHASE7_ATOL = 1e-4  # card against CPU, every state field
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, iters: int, windows: int = 5, graph: bool = False) -> float:
@@ -2378,14 +2395,17 @@ def run_host_path(label, graph, inp, models, refusal: str, n_windows: int = 3,
                   steps_per_window: int = 2, n_warmup: int = 2, breakdown: bool = True):
     """Phases 10o and 10k: the graph on the card through RunTrackerProcess over the
     HOST_FRAMES frames (detection and the starting step at frame 0, a tracking step per
-    frame) with every kernel call recorded (the host path must make none), the fused
-    backend's refusal asserted, every tensor of the graph asserted on the card and every
-    link within 5 mm of its rendered pose in the last frame; then n_windows timed
-    windows of steps_per_window steps on the frames replayed back and forth after
-    n_warmup steps, and one step more with its parts timed apart."""
-    from m3t_tpu_torch import (depth_modality, fused_serve, region_modality, renderer,
-                               tracker)
+    frame), its six host-path functions graphed, with the kernel launch counts set to 0
+    before it (the host path must launch none), the fused backend's refusal asserted,
+    every tensor of the graph asserted on the card and every link within 5 mm of its
+    rendered pose in the last frame; then n_windows timed windows of steps_per_window
+    steps on the frames replayed back and forth after n_warmup steps, and one step more
+    with its parts timed apart (each part synchronized); the graphs captured and their
+    capture seconds."""
+    from m3t_tpu_torch import (depth_modality, fused_serve, graphs, region_modality,
+                               renderer, tracker)
 
+    graphs.clear_graphs()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     begin = time.perf_counter()
@@ -2396,7 +2416,10 @@ def run_host_path(label, graph, inp, models, refusal: str, n_windows: int = 3,
         raise AssertionError(f"{label}: Tracker.SetUp failed")
     setup_s = time.perf_counter() - begin
     printed = io.StringIO()
-    with recorded_launches() as calls, contextlib.redirect_stdout(printed):
+    counters = launch_counters()
+    for counter in counters.values():
+        counter.launches = 0
+    with contextlib.redirect_stdout(printed):
         begin = time.perf_counter()
         ok = srv.RunTrackerProcess(execute_detection=True, start_tracking=True,
                                    max_iterations=HOST_FRAMES)
@@ -2422,13 +2445,14 @@ def run_host_path(label, graph, inp, models, refusal: str, n_windows: int = 3,
                 total = host_steps(srv, step, 1)
             parts = {HOST_PARTS[name]: s * 1e3 for name, s in parts.items()}
             parts["rest"] = total * 1e3 - sum(parts.values())
+    launches = {name: counter.launches for name, counter in counters.items()}
+    captured = graphs.captured()
     notice = printed.getvalue()
     sys.stdout.write(notice)
     if not ok:
         raise AssertionError(f"{label}: RunTrackerProcess failed")
-    if calls:
-        raise AssertionError(f"{label}: the host path launched kernels: "
-                             f"{sorted({c[0] for c in calls})}")
+    if any(launches.values()):
+        raise AssertionError(f"{label}: the host path launched kernels: {launches}")
     backend, reason = fused_serve.FusedServeBackend.try_build(srv)
     if backend is not None or refusal not in reason:
         raise AssertionError(f"{label}: the fused backend did not refuse the graph with "
@@ -2446,16 +2470,24 @@ def run_host_path(label, graph, inp, models, refusal: str, n_windows: int = 3,
     if not np.all(np.isfinite(poses)) or not np.all(err < 0.005):
         raise AssertionError(f"{label}: translation errors {err.tolist()} m (limit 5 mm)")
     ms_step = statistics.median(window_s) / steps_per_window * 1e3
+    by_name = {}
+    for info in captured:
+        by_name[info.name] = by_name.get(info.name, 0) + 1
     result = dict(
         path=label, links=len(poses), frames=HOST_FRAMES, refusal=reason,
-        kernel_launches=len(calls), ms_per_step=ms_step,
+        kernel_launches=sum(launches.values()), ms_per_step=ms_step,
+        graphs=len(captured), graphs_by_function=by_name,
+        capture_s=sum(i.capture_s for i in captured),
+        warmup_s=sum(i.warmup_s for i in captured),
+        replays=sum(i.replays for i in captured),
         window_ms_per_step=[w / steps_per_window * 1e3 for w in window_s],
         steps_per_window=steps_per_window, step_parts_ms=parts,
         graph_build_s=graph_s, setup_s=setup_s, run_tracker_process_s=run_s,
         translation_error_mm=[round(float(e) * 1e3, 4) for e in err],
         peak_memory_bytes=torch.cuda.max_memory_allocated(),
         tensors_on_card=len(graph_tensors(srv)))
-    log(f"{label}: {json.dumps(result)}")
+    log(f"{label} ({card_name()}): {json.dumps(result)}")
+    graphs.clear_graphs()
     return result
 
 
@@ -2524,32 +2556,54 @@ def entry_diffs(a, b, n_entries: int) -> dict:
     return {n: d.reshape(n_entries, -1).max(1) for n, d in diffs.items()}
 
 
+def whole_image_render(soup, width, height, windows, chunk=64, with_normals=False):
+    """ops/raster.rasterize_windows as the renderers call it, rendering every chunk over
+    the whole image instead (ops/raster.rasterize: eager under disable_graphs, else
+    graphed)."""
+    from m3t_tpu_torch.ops import raster
+
+    return raster.rasterize(soup, width, height, chunk=chunk, with_normals=with_normals)
+
+
+# Form -> (what replaces ops/raster.rasterize_windows, whether graphed), as
+# check_render_windows times them.
+RENDER_FORMS = {"windows": (None, False),
+                "whole_image": (whole_image_render, False),
+                "graphed": (whole_image_render, True)}
+
+
 def check_render_windows(inp, models, n_passes: int = 3):
     """Phase 10o's ten focused renderers over its scene at frame 0, each rendering once
-    per pass, every chunk of triangles over its window (raster.chunk_windows, as the
-    renderers render) and over the whole image (no windows), on the card and on the CPU:
-    the images of the two must be equal on each device.  Seconds per pass, after one
-    untimed pass: the median of n_passes synchronized passes on the card, one pass on
-    the CPU (a tracking step renders six passes: five correspondence iterations and the
-    results)."""
+    per pass, in the three forms of RENDER_FORMS on the card (eager with each chunk over
+    its window, the renderers' own form; eager over the whole image; the graphed
+    whole-image rasterize), the images of every form equal,
+    and in the windowed form on the CPU.  Seconds per pass, after one untimed pass of
+    each form (the graphed one captures there): the median of n_passes synchronized
+    passes on the card, one pass on the CPU (a tracking step renders six passes: five
+    correspondence iterations and the results)."""
     from unittest import mock
 
+    from m3t_tpu_torch import graphs
     from m3t_tpu_torch.ops import raster
 
     result = {}
     for dev in ("cuda", "cpu"):
+        graphs.clear_graphs()
         srv, _, scene = occluded_scene_graph(inp, models, dev)
         if not srv.SetUp():
             raise AssertionError(f"render windows: Tracker.SetUp failed on {dev}")
         for body, position in zip(scene["bodies"], HOST_BODIES):
             body.set_body2world_pose(moving(position)(0))
         renderers = srv.correspondence_renderer_ptrs
-        if not all(r.StartRendering() for r in renderers):         # warm-up, untimed
-            raise AssertionError(f"render windows: a render failed on {dev}")
         images = {}
-        for mode in ("windows", "whole_image"):
-            with (mock.patch.object(raster, "chunk_windows", lambda *args: None)
-                  if mode == "whole_image" else contextlib.nullcontext()):
+        for mode, (render, graphed) in RENDER_FORMS.items():
+            if dev == "cpu" and mode != "windows":
+                continue
+            with (mock.patch.object(raster, "rasterize_windows", render) if render
+                  else contextlib.nullcontext()), \
+                    (contextlib.nullcontext() if graphed else graphs.disable_graphs()):
+                if not all(r.StartRendering() for r in renderers):     # warm-up, untimed
+                    raise AssertionError(f"render windows: a render failed on {dev}")
                 seconds = []
                 for _ in range(n_passes if dev == "cuda" else 1):
                     torch.cuda.synchronize()
@@ -2562,12 +2616,17 @@ def check_render_windows(inp, models, n_passes: int = 3):
             images[mode] = [t.cpu() for r in renderers
                             for t in (r.depth_image, getattr(r, "silhouette_image", None))
                             if t is not None]
-        if not all(torch.equal(a, b) for a, b in zip(images["windows"],
-                                                      images["whole_image"])):
-            raise AssertionError(f"render windows: windowed and whole-image renders "
-                                 f"differ on {dev}")
+        for mode, got in images.items():
+            if not all(torch.equal(a, b) for a, b in zip(got, images["windows"])):
+                raise AssertionError(f"render windows: the {mode} renders differ from the "
+                                     f"windowed ones")
+        if dev == "cuda":
+            result["graphs"] = len(graphs.captured())
+            result["capture_s"] = sum(i.capture_s for i in graphs.captured())
+    graphs.clear_graphs()
     result["renderers"] = len(renderers)
-    log(f"focused renders, windowed against whole-image: {json.dumps(result)}")
+    log(f"focused renders, s per pass of the ten renderers ({card_name()}): "
+        f"{json.dumps(result)}")
     return result
 
 
@@ -4466,11 +4525,82 @@ def serve_graphed(label, card, inp, seq, models, rgbd: bool, steps_per_window: i
                              steps_per_window, fields=fields, windows=windows)
 
 
+def unequal_graph_states(got: dict, want: dict) -> dict:
+    """The link poses, joint poses and histograms of two fused_serve.read_graph_state
+    results that are not equal bit for bit, with their largest difference."""
+    out = {}
+    for part in ("links", "histograms"):
+        for name, values in want[part].items():
+            for i, (g, w) in enumerate(zip(got[part][name], values)):
+                if w is not None and not np.array_equal(g, w):
+                    out[f"{name}[{i}]"] = float(np.abs(np.asarray(g, np.float64) - w).max())
+    return out
+
+
+def host_path_graphed(label, card, graph, inp, models, n_steps: int = 2) -> dict:
+    """14h: a phase-10 graph (occluded_scene_graph or structure_graph) twice on the card,
+    one copy stepped eagerly (disable_graphs) and one with its host-path functions
+    graphed, n_steps steps (detection, the starting step and a tracking step), the
+    graphed copy loaded with the eager copy's state before each step (fused_serve.
+    read_graph_state and load_graph_state): every link pose, joint pose and histogram
+    equal bit for bit after every step, no kernel launched; the graphs captured, their
+    capture seconds and each form's seconds per step (the graphed copy's first step
+    captures)."""
+    from m3t_tpu_torch import fused_serve, graphs
+
+    graphs.clear_graphs()
+    copies = {}
+    for form in ("eager", "graph"):
+        copies[form] = graph(inp, models, "cuda")[0]
+        with contextlib.redirect_stdout(io.StringIO()):
+            if not copies[form].SetUp():
+                raise AssertionError(f"14h {label}: Tracker.SetUp failed")
+            copies[form].ExecuteDetection(start_tracking=True)
+    counters = launch_counters()
+    for counter in counters.values():
+        counter.launches = 0
+    unequal, seconds = {}, {form: [] for form in copies}
+    for i in range(n_steps):
+        fused_serve.load_graph_state(copies["graph"],
+                                     fused_serve.read_graph_state(copies["eager"]))
+        states = {}
+        for form, srv in copies.items():
+            torch.cuda.synchronize()
+            begin = time.perf_counter()
+            with (graphs.disable_graphs() if form == "eager" else contextlib.nullcontext()), \
+                    contextlib.redirect_stdout(io.StringIO()):
+                ok = (srv.UpdateCameras(i) and srv.CalculateConsistentPoses()
+                      and srv.ExecuteDetectingStep(i) and srv.ExecuteStartingStep(i)
+                      and srv.ExecuteTrackingStep(i))
+            torch.cuda.synchronize()
+            seconds[form].append(time.perf_counter() - begin)
+            if not ok:
+                raise AssertionError(f"14h {label}: step {i} failed ({form})")
+            states[form] = fused_serve.read_graph_state(srv)
+        diff = unequal_graph_states(states["graph"], states["eager"])
+        if diff:
+            unequal[i] = diff
+    launches = {name: counter.launches for name, counter in counters.items()}
+    captured = graphs.captured()
+    out = dict(path=label, card=card, steps=n_steps, equal_steps=n_steps - len(unequal),
+               unequal=unequal, kernel_launches=launches, graphs=len(captured),
+               capture_s=sum(i.capture_s for i in captured),
+               warmup_s=sum(i.warmup_s for i in captured),
+               replays=sum(i.replays for i in captured), s_per_step=seconds)
+    log(f"14h {label} ({card}): {json.dumps(out)}")
+    graphs.clear_graphs()
+    if unequal or any(launches.values()):
+        raise AssertionError(f"14h {label} ({card}): the graphed host path is not the "
+                             f"eager one: unequal {unequal}, launches {launches}")
+    return out
+
+
 def run_phase14(card: str, inp, seq, models, mc, kmc) -> dict:
     """Phase 14: every bench mode's workload at B=512 (S=256), the RGB-D scan step of
     phase 8s, the multi-camera cycles of phases 8c and 8k, --latency at B=1, 8 and 64
     and the serve graphs of phase 9l, each through eager_and_graphed (region, kinematic
-    RGB-D and 8c profiled)."""
+    RGB-D and 8c profiled); 14h, the host path of phases 10o and 10k
+    (host_path_graphed)."""
     from m3t_tpu_torch import bench
 
     begin = time.perf_counter()
@@ -4502,6 +4632,11 @@ def run_phase14(card: str, inp, seq, models, mc, kmc) -> dict:
     for rgbd in (False, True):
         label = "serve_latency_rgbd" if rgbd else "serve_latency"
         out[label] = serve_graphed(label, card, inp, seq, models, rgbd)
+    host_begin = time.perf_counter()
+    for label, graph in (("host_occluded", occluded_scene_graph),
+                         ("host_structures", structure_graph)):
+        out[label] = host_path_graphed(label, card, graph, inp, models)
+    out["phase14h_s"] = time.perf_counter() - host_begin
     out["phase14_s"] = time.perf_counter() - begin
     log(f"phase 14 took {out['phase14_s']:.1f} s ({card})")
     return out
@@ -4671,9 +4806,7 @@ def main() -> int:
     from m3t_tpu_torch import graphs
     from m3t_tpu_torch.ops import _cuda
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = card_name()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     begin = time.perf_counter()

@@ -1,13 +1,18 @@
 """DepthModality component (port of m3t_tpu/depth_modality.py; reference
 m3t/src/depth_modality.cpp), over the batched ``ops/depth_fn`` correspondences and
-Gauss-Newton terms called with a batch of one body."""
+Gauss-Newton terms called with a batch of one body.
+
+Both are graphed as the JAX package jits them (``_correspondences_jit``,
+``_gradient_hessian_jit``, graphs.py), without JAX's ``has_*`` flags (an absent input is
+None, keyed by type); the point count and ``handle_occlusions`` are (1,) tensors and the
+intrinsics and depth scale floats keyed by value, as in region_modality.py."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from m3t_tpu_torch import pipeline
+from m3t_tpu_torch import graphs, pipeline
 from m3t_tpu_torch.common import resolve_device, to_numpy
 from m3t_tpu_torch.modality import Modality
 from m3t_tpu_torch.ops import depth_fn
@@ -15,6 +20,24 @@ from m3t_tpu_torch.ops.depth_fn import (DepthConfig, DepthModeledOcclusionInputs
                                          DepthViewPoints, SilhouetteCheckInputs)
 from m3t_tpu_torch.region_modality import f32_intrinsics, shared_model_arrays, view_rows
 from m3t_tpu_torch.utils import yaml_io
+
+
+@graphs.graphed(static_argnames=("cfg", "considered_distance", "width", "height",
+                                 "measure_occlusions"))
+def _correspondences_jit(cfg, considered_distance, width, height, measure_occlusions,
+                         points, n_points, body2camera_pose, depth_image, intrin,
+                         depth_scale, handle_occlusions, modeled, silhouette):
+    return depth_fn.calculate_correspondences(
+        cfg, considered_distance, points, n_points, body2camera_pose, depth_image, *intrin,
+        width, height, depth_scale, handle_occlusions,
+        measure_occlusions=measure_occlusions, modeled_occlusion=modeled,
+        silhouette_check=silhouette)
+
+
+@graphs.graphed(static_argnames=("standard_deviation",))
+def _gradient_hessian_jit(standard_deviation, points, body2camera_pose):
+    return depth_fn.calculate_gradient_and_hessian(points, body2camera_pose,
+                                                   standard_deviation)
 
 
 class DepthModality(Modality):
@@ -247,13 +270,13 @@ class DepthModality(Modality):
         handle_occlusions = (iteration - self.first_iteration
                              ) >= self.n_unoccluded_iterations
         modeled, silhouette = self._scene_inputs()
-        self.data_points = depth_fn.calculate_correspondences(
-            self._cfg, self._considered_distance, self._points, self._n_points, pose,
-            self._tensor(cam.image)[None], *f32_intrinsics(intr), intr.width, intr.height,
+        self.data_points = _correspondences_jit(
+            self._cfg, self._considered_distance, intr.width, intr.height,
+            self.measure_occlusions, self._points,
+            torch.tensor([self._n_points], dtype=torch.int32, device=self.device), pose,
+            self._tensor(cam.image)[None], f32_intrinsics(intr),
             float(np.float32(cam.depth_scale)),
-            torch.tensor([handle_occlusions], device=self.device),
-            measure_occlusions=self.measure_occlusions, modeled_occlusion=modeled,
-            silhouette_check=silhouette)
+            torch.tensor([handle_occlusions], device=self.device), modeled, silhouette)
         return True
 
     def CalculateGradientAndHessian(self, iteration: int, corr_iteration: int,
@@ -261,9 +284,9 @@ class DepthModality(Modality):
         if not self.set_up:
             print(f"Set up depth modality {self.name} first")
             return False
-        gradient, hessian = depth_fn.calculate_gradient_and_hessian(
-            self.data_points, self._tensor(self._body2camera_pose())[None],
-            self._standard_deviation)
+        gradient, hessian = _gradient_hessian_jit(
+            self._standard_deviation, self.data_points,
+            self._tensor(self._body2camera_pose())[None])
         self.gradient, self.hessian = gradient[0], hessian[0]
         return True
 

@@ -1,15 +1,20 @@
-"""CUDA graphs for the fused cycles: the port's counterpart of the JAX package's ``jax.jit``.
+"""CUDA graphs for the fused cycles and the host path: the port's counterpart of the JAX
+package's ``jax.jit``.
 
 The JAX package jit-compiles its fused cycles (``m3t_tpu/pipeline.py``: ``tracking_cycle``,
 ``tracking_cycle_rgbd`` and ``tracking_cycle_kinematic``, each with
-``static_argnames=("pcfg",)``): one compiled program per static key, traced once and then
-run without the host.  :func:`graphed` does the same for a function of tensors on the
-card.  The first call for a key runs the function eagerly (the warm-up, which plays the
-part of tracing) and returns that result; it then captures the function into a
-``torch.cuda.CUDAGraph``.  Every later call with that key copies its tensors into the
-graph's static buffers, replays the graph and returns fresh outputs.  On CPU tensors the
-function runs eagerly, exactly as without the decorator: the port's CPU path, as
-interpret mode is the JAX package's for its Pallas kernels.
+``static_argnames=("pcfg",)``, and the multi-camera cycles) and six functions of the
+host path: the region modality's ``_correspondences_jit``, ``_gradient_hessian_jit`` and
+``_add_colors_jit``, the depth modality's ``_correspondences_jit`` and
+``_gradient_hessian_jit``, and ``ops/raster.py``'s ``rasterize``.  Each is one compiled
+program per static key, traced once and then run without the host.  :func:`graphed` does
+the same for a function of tensors on the card.  The first call for a key runs the
+function eagerly (the warm-up, which plays the part of tracing) and returns that result;
+it then captures the function into a ``torch.cuda.CUDAGraph``.  Every later call with
+that key copies its tensors into the graph's static buffers, replays the graph and
+returns fresh outputs.  On CPU tensors the function runs eagerly, exactly as without the
+decorator: the port's CPU path, as interpret mode is the JAX package's for its Pallas
+kernels.
 
 The names mirror JAX's: ``graphed(static_argnames=...)`` for
 ``functools.partial(jax.jit, static_argnames=...)``, :func:`disable_graphs` for
@@ -19,15 +24,20 @@ The names mirror JAX's: ``graphed(static_argnames=...)`` for
 The static key of a call is made of:
   * the static arguments, by value (they must be hashable, as JAX asks);
   * every Python or numpy scalar, bool and None among the other arguments, by type and
-    value;
+    value, and every numpy array by its shape, dtype and bytes;
   * the structure of tuples, lists and NamedTuples;
   * for each tensor, its shape, dtype, device and which of its dimensions are expanded
     (size > 1 and stride 0).
-One difference from JAX: JAX traces ``intr``, ``depth_intr`` and ``depth_scale``, while the
-port's cycles turn them into Python floats (``pipeline._intrinsics``), which a graph bakes
-in.  So the port keys a graph on their values.  A camera's intrinsics are fixed over a
-sequence, so this costs one capture per camera.  A bool ``handle_occlusions`` is keyed
-the same way; a tensor one is an input.
+One difference from JAX: JAX traces the camera values (``intr``, ``depth_intr``,
+``depth_scale`` of the cycles, the intrinsics of the host path's functions), while the
+port turns them into Python floats (``pipeline._intrinsics``), which a graph bakes in.
+So the port keys a graph on their values.  A camera's values are fixed over a sequence,
+so this costs one capture per camera.  A numpy array there keys apart from the tuple of
+the same values and runs alike.  A CUDA tensor there, which JAX also takes, fails at the
+capture (its value would be read on the host): pass camera values as numbers, tuples or
+numpy arrays.  A bool ``handle_occlusions`` is keyed the same way; a tensor one is an
+input (the host path passes tensors for it and for its line and point counts, which JAX
+traces, so that one graph serves every value).
 
 Static buffers.  Each tensor argument gets a buffer made before the capture, and each
 call refills it with ``copy_``.  An expanded tensor keeps its zero strides: the buffer
@@ -215,6 +225,8 @@ def _spec(x, leaves: list, where: str):
         return (list, tuple(_spec(v, leaves, f"{where}[{i}]") for i, v in enumerate(x)))
     if x is None or isinstance(x, (bool, int, float, np.generic)):
         return (type(x), repr(x))  # repr tells 0.0 from -0.0 and matches nan to nan
+    if isinstance(x, np.ndarray):
+        return (np.ndarray, x.shape, x.dtype.str, x.tobytes())
     raise TypeError(f"graphed: cannot key argument {where} of type {type(x).__name__}")
 
 

@@ -6,9 +6,11 @@ Three parts:
     are linear in pixel coordinates (u, v), so coverage and depth at a pixel are
     ``(a*u + b*v) + c`` per plane.  The scene-occlusion queries
     (ops/occlusion.py) evaluate the same planes at single pixels; :func:`rasterize`
-    evaluates them over an (H, W) image (the image mode and the renderers; a renderer
-    evaluates each chunk of triangles only over the pixels it can cover,
-    :func:`chunk_windows`).
+    evaluates them over an (H, W) image (the image mode), graphed as the JAX package
+    jits it (graphs.py; ``triangle_coefficients``, whose focused intrinsics change every
+    frame, stays outside the graph).  :func:`rasterize_windows` evaluates each chunk of
+    triangles only over the pixels it can cover (:func:`chunk_windows`, one host read),
+    eagerly: the renderers' form.
   * :func:`rasterize_np`, the host-side z-buffer of the JAX module's ``rasterize_np``,
     which renders the model views and the synthetic frames: the C++ rasterizer of
     ``native/``, or its numpy version on request.
@@ -29,7 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from m3t_tpu_torch import native
+from m3t_tpu_torch import graphs, native
 from m3t_tpu_torch.ops.depth_fn import rdiv
 
 
@@ -169,8 +171,9 @@ def chunk_windows(soup: TriangleSoup, width: int, height: int, chunk: int) -> li
     return windows
 
 
+@graphs.graphed(static_argnames=("width", "height", "chunk", "with_normals"))
 def rasterize(soup: TriangleSoup, width: int, height: int, chunk: int = 64,
-              with_normals: bool = False, windows: list | None = None):
+              with_normals: bool = False):
     """Z-buffer rasterization of B scenes (m3t_tpu/ops/raster.py:118-188).
 
     Returns (depth (B, H, W) f32 meters, +inf background; id_image (B, H, W) int32, 0
@@ -179,17 +182,28 @@ def rasterize(soup: TriangleSoup, width: int, height: int, chunk: int = 64,
     across chunks only a strictly closer triangle replaces the one stored; the id and
     the normal follow the same triangle, so that the image is the earliest of the
     closest triangles at every pixel, whatever the chunk size.  Every chunk is evaluated
-    over the whole image, with no host read, unless ``windows`` (:func:`chunk_windows`
-    of the same soup, image and chunk) limits each chunk to its window: elsewhere it
-    covers no pixel, so the images are the same."""
-    b, n_tri, _ = soup.coeffs.shape
+    over the whole image, with no host read."""
+    n_chunks = -(-soup.coeffs.shape[1] // chunk)
+    return _rasterize_chunks(soup, width, height, chunk, with_normals,
+                             [(0, width, 0, height)] * n_chunks)
+
+
+def rasterize_windows(soup: TriangleSoup, width: int, height: int, windows: list,
+                      chunk: int = 64, with_normals: bool = False):
+    """:func:`rasterize` with each chunk evaluated over its window only (``windows``:
+    :func:`chunk_windows` of the same soup, image and chunk), eagerly: elsewhere the
+    chunk covers no pixel, so the images are the same."""
+    return _rasterize_chunks(soup, width, height, chunk, with_normals, windows)
+
+
+def _rasterize_chunks(soup: TriangleSoup, width: int, height: int, chunk: int,
+                      with_normals: bool, windows: list):
+    b = soup.coeffs.shape[0]
     dev = soup.coeffs.device
     depth = torch.full((b, height, width), float("inf"), device=dev)
     id_img = torch.zeros((b, height, width), dtype=torch.int32, device=dev)
     normal_img = (torch.zeros((b, height, width, 3), device=dev) if with_normals
                   else None)
-    if windows is None:
-        windows = [(0, width, 0, height)] * -(-n_tri // chunk)
     for index, window in enumerate(windows):
         if window is None:
             continue

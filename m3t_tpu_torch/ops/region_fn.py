@@ -361,8 +361,11 @@ def _line_index_ok(n_lines, count: int, device):
 
 
 def _per_body(flag, n_bodies: int, device):
-    """A bool or a (B,) bool as a (B,) bool tensor on device."""
-    return torch.as_tensor(flag, device=device).to(torch.bool).expand(n_bodies)
+    """A bool, or a (B,) or (1,) bool tensor, as a (B,) bool tensor on device; a bool is
+    filled on the device (a graph's capture cannot copy one from the host)."""
+    if isinstance(flag, torch.Tensor):
+        return flag.to(device=device, dtype=torch.bool).expand(n_bodies)
+    return torch.full((n_bodies,), bool(flag), dtype=torch.bool, device=device)
 
 
 def _focused_size(inputs) -> int:
@@ -397,7 +400,9 @@ def calculate_correspondences(
 
     body2camera_pose (B, 4, 4); color_image (B, H, W, 3) uint8; hist_f, hist_b (B, N);
     handle_occlusions a bool or (B,) bool; n_lines a Python int or a (B,) tensor.
-    modeled_occlusion and region_check take the image or the query inputs."""
+    modeled_occlusion and region_check take the image or the query inputs.  Without
+    lookups the host's ``cfg.function_lookups()`` are copied to the device, which a
+    graph's capture refuses: a graphed caller passes device lookups."""
     n_bodies, n_max = points.center_f_body.shape[:2]
     s_seg = cfg.line_length_in_segments
     d_len = cfg.distribution_length

@@ -6,6 +6,13 @@ batch of one body) to a body, a colour camera, a sparse-viewpoint model, histogr
 optionally, a depth camera for measured occlusions.  Per-frame state is a ``DataLines``
 of tensors on the modality's device; gradients and Hessians stay there until the Link
 reads them.  The fused serve path (fused_serve.py) reads the configuration only.
+
+The three functions are graphed as the JAX package jits them (``_correspondences_jit``,
+``_gradient_hessian_jit``, ``_add_colors_jit``, graphs.py): one CUDA graph per static key
+on the card, shared by every body of the same shapes.  JAX's ``has_*`` flags are left
+out: an absent input is None, which the key tells apart by type.  The line count and
+``handle_occlusions``, which JAX traces, are (1,) tensors, so that one graph serves every
+value; the intrinsics are floats keyed by value (one graph per camera).
 """
 
 from __future__ import annotations
@@ -15,7 +22,7 @@ import weakref
 import numpy as np
 import torch
 
-from m3t_tpu_torch import pipeline
+from m3t_tpu_torch import graphs, pipeline
 from m3t_tpu_torch.common import resolve_device, to_numpy
 from m3t_tpu_torch.modality import Modality
 from m3t_tpu_torch.ops import region_fn
@@ -30,6 +37,34 @@ _VISUALIZATION_FLAGS = (
     "visualize_points_optimization", "visualize_points_histogram_image_optimization",
     "visualize_points_result", "visualize_points_histogram_image_result",
     "display_visualization", "save_visualizations")
+
+
+@graphs.graphed(static_argnames=("cfg", "scale", "width", "height"))
+def _correspondences_jit(cfg, scale, width, height, points, n_lines, body2camera_pose,
+                         color_image, hist_f, hist_b, intrin, handle_occlusions, measured,
+                         modeled, region_check, lookup_f, lookup_b):
+    return region_fn.calculate_correspondences(
+        cfg, scale, points, n_lines, body2camera_pose, color_image, hist_f, hist_b,
+        *intrin, width, height, handle_occlusions, measured_occlusion=measured,
+        modeled_occlusion=modeled, region_check=region_check, function_lookup_f=lookup_f,
+        function_lookup_b=lookup_b)
+
+
+@graphs.graphed(static_argnames=("cfg", "standard_deviation", "global_it"))
+def _gradient_hessian_jit(cfg, standard_deviation, global_it, lines, body2camera_pose,
+                          intrin):
+    return region_fn.calculate_gradient_and_hessian(
+        cfg, lines, body2camera_pose, *intrin, standard_deviation, global_it)
+
+
+@graphs.graphed(static_argnames=("cfg", "width", "height"))
+def _add_colors_jit(cfg, width, height, points, n_lines, body2camera_pose, color_image,
+                    memory_f, memory_b, intrin, handle_occlusions, measured, modeled,
+                    region_check):
+    return region_fn.add_line_pixel_colors(
+        cfg, points, n_lines, body2camera_pose, color_image, memory_f, memory_b, *intrin,
+        width, height, handle_occlusions, measured_occlusion=measured,
+        modeled_occlusion=modeled, region_check=region_check)
 
 
 def f32_intrinsics(intrinsics):
@@ -370,6 +405,11 @@ class RegionModality(Modality):
                 body_visible=self._tensor([r.IsBodyVisible(self.body_ptr.name)]))
         return measured, modeled, region_check
 
+    def _per_body_inputs(self, handle_occlusions: bool):
+        """The line count and handle_occlusions as (1,) tensors on the device."""
+        return (torch.tensor([self._n_lines], dtype=torch.int32, device=self.device),
+                torch.tensor([handle_occlusions], device=self.device))
+
     def _iteration_scale(self, corr_iteration: int):
         """LastValidValue over scales/standard_deviations (cpp:1011-1023)."""
         scale = self.scales[min(corr_iteration, len(self.scales) - 1)]
@@ -395,13 +435,13 @@ class RegionModality(Modality):
         pose = self._fetch_view()
         intr = self.color_camera_ptr.intrinsics
         measured, modeled, region_check = self._occlusion_inputs()
+        n_lines, handle = self._per_body_inputs(handle_occlusions)
         hist = self.color_histograms_ptr
-        memory_f, memory_b = region_fn.add_line_pixel_colors(
-            self._cfg, self._points, self._n_lines, pose,
+        memory_f, memory_b = _add_colors_jit(
+            self._cfg, intr.width, intr.height, self._points, n_lines, pose,
             self._tensor(self.color_camera_ptr.image)[None], hist.memory_f[None],
-            hist.memory_b[None], *f32_intrinsics(intr), intr.width, intr.height,
-            handle_occlusions, measured_occlusion=measured, modeled_occlusion=modeled,
-            region_check=region_check)
+            hist.memory_b[None], f32_intrinsics(intr), handle, measured, modeled,
+            region_check)
         hist.memory_f, hist.memory_b = memory_f[0], memory_b[0]
 
     def _handle_occlusions(self, iteration: int) -> bool:
@@ -415,14 +455,13 @@ class RegionModality(Modality):
         pose = self._fetch_view()
         intr = self.color_camera_ptr.intrinsics
         measured, modeled, region_check = self._occlusion_inputs()
+        n_lines, handle = self._per_body_inputs(self._handle_occlusions(iteration))
         hist = self.color_histograms_ptr
-        self.data_lines = region_fn.calculate_correspondences(
-            self._cfg, self._scale, self._points, self._n_lines, pose,
+        self.data_lines = _correspondences_jit(
+            self._cfg, self._scale, intr.width, intr.height, self._points, n_lines, pose,
             self._tensor(self.color_camera_ptr.image)[None], hist.histogram_f[None],
-            hist.histogram_b[None], *f32_intrinsics(intr), intr.width, intr.height,
-            self._handle_occlusions(iteration), measured_occlusion=measured,
-            modeled_occlusion=modeled, region_check=region_check,
-            function_lookup_f=self._lookup_f, function_lookup_b=self._lookup_b)
+            hist.histogram_b[None], f32_intrinsics(intr), handle, measured, modeled,
+            region_check, self._lookup_f, self._lookup_b)
         return True
 
     def CalculateGradientAndHessian(self, iteration: int, corr_iteration: int,
@@ -430,10 +469,10 @@ class RegionModality(Modality):
         if not self.set_up:
             print(f"Set up region modality {self.name} first")
             return False
-        gradient, hessian = region_fn.calculate_gradient_and_hessian(
-            self._cfg, self.data_lines, self._tensor(self._body2camera_pose())[None],
-            *f32_intrinsics(self.color_camera_ptr.intrinsics), self._standard_deviation,
-            opt_iteration < self.n_global_iterations)
+        gradient, hessian = _gradient_hessian_jit(
+            self._cfg, self._standard_deviation, opt_iteration < self.n_global_iterations,
+            self.data_lines, self._tensor(self._body2camera_pose())[None],
+            f32_intrinsics(self.color_camera_ptr.intrinsics))
         self.gradient, self.hessian = gradient[0], hessian[0]
         return True
 

@@ -6,8 +6,8 @@ draw every body into a square ``image_size`` crop whose corner and scale come fr
 projected bounding spheres of the referenced bodies, computed on the host in float64
 (renderer.cpp:348-406, kImageSizeSafetyMargin=1.05).  Images are tensors on the
 renderer's device: depth in float32 meters with +inf background, silhouettes as int32 id
-maps with 0 background, normals as (H, W, 3) float32.  ``ops/raster.rasterize`` renders
-a batch of scenes; a renderer passes one.
+maps with 0 background, normals as (H, W, 3) float32.  ``ops/raster`` renders a batch
+of scenes; a renderer passes one.
 """
 
 from __future__ import annotations
@@ -98,13 +98,16 @@ class Renderer:
                    width: int, height: int):
         """One scene through ops/raster (a batch of one), each chunk of triangles over
         its window (one host read), so that a focused render skips the chunks of the
-        bodies outside its crop; the batch dimension dropped."""
+        bodies outside its crop; the batch dimension dropped.  The graphed whole-image
+        ``raster.rasterize`` gives the same images, but on the card it renders a focused
+        scene more slowly, since its graph evaluates every chunk over the whole crop
+        (``chip_smoke.py`` phase 10 times both)."""
         tri_cam, ids, culls = self._gather_triangles(id_type)
         soup = raster.triangle_coefficients(tri_cam[None], ids[None], fu, fv, ppu, ppv,
                                             cull_backfaces=culls[None], z_min=self.z_min)
-        out = raster.rasterize(
-            soup, width, height, chunk=self.raster_chunk, with_normals=with_normals,
-            windows=raster.chunk_windows(soup, width, height, self.raster_chunk))
+        out = raster.rasterize_windows(
+            soup, width, height, raster.chunk_windows(soup, width, height, self.raster_chunk),
+            chunk=self.raster_chunk, with_normals=with_normals)
         return tuple(x[0] for x in out)
 
 

@@ -1,7 +1,8 @@
 """The port's counterpart of jax.jit: m3t_tpu_torch/graphs.py and the graphed cycles.
 
 On the CPU: the static key separates what must be separate and equates what must be
-equal (also for the two multi-camera cycles, keyed on what they were built from), the
+equal (also for the two multi-camera cycles, keyed on what they were built from, and
+for numpy camera values, which run as the same numbers do), the
 static buffers keep an argument's expanded dimensions, disable_graphs nests, a
 collective runs in place outside a capture, the decorated cycles run eagerly and capture
 nothing, and no cycle reads a value back on the host (which a capture on the card
@@ -11,7 +12,8 @@ forbids).  The inputs are those of the scale-out dry run
 both of its cameras and mesh=None).
 
 The tests marked ``cuda`` need a card and skip without one: graph equal to eager bit for
-bit for the three cycles and the two multi-camera cycles, fresh outputs, launch counts
+bit for the three cycles and the two multi-camera cycles, numpy camera values, fresh
+outputs, launch counts
 per replay, a capture that fails raising, and a function split into two segments by a
 collective.  The machine with the card has no JAX, so run them there as
 
@@ -24,12 +26,13 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from m3t_tpu_torch import graphs, parallel, pipeline
 from m3t_tpu_torch.ops import depth_fast, occlusion, region_fast
 from m3t_tpu_torch.ops.texture_fn import TexturePoints
 from m3t_tpu_torch.parallel import dryrun
+
+import torch_host_reads  # tests/torch_host_reads.py: pytest puts tests/ on sys.path
 
 CYCLES = ("region", "rgbd", "kinematic")
 SHARDED = ("sharded", "sharded_kinematic")  # the multi-camera cycles, mesh=None
@@ -333,70 +336,51 @@ def test_sharded_bool_handle_occlusions(cpu_calls, name):
         assert _equal(fn(*args, handle_occlusions=flag), fn(*args, handle_occlusions=same))
 
 
-class _HostReads(TorchDispatchMode):
-    """The aten operations that read a tensor's values back on the host, or give a
-    shape that depends on them (both a capture forbids), by name; none while
-    ``paused`` (the kernels' plain twins, which stand in for the kernels on the CPU).
-    ``_linalg_check_errors`` is torch.linalg's check of a factorization's info, which
-    reads it on the host (on the CPU without a ``_local_scalar_dense``)."""
-
-    DATA_DEPENDENT = ("nonzero", "masked_select", "unique", "_unique", "_unique2",
-                      "unique_consecutive", "unique_dim", "_local_scalar_dense",
-                      "repeat_interleave", "_linalg_check_errors")
-
-    def __init__(self):
-        super().__init__()
-        self.found, self.paused = [], False
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = func._overloadpacket.__name__
-        boolean_index = name in ("index", "index_put", "index_put_") and any(
-            isinstance(i, torch.Tensor) and i.dtype == torch.bool
-            for i in (args[1] if len(args) > 1 else ()) or ())
-        if not self.paused and (name in self.DATA_DEPENDENT or boolean_index):
-            self.found.append(str(func))
-        return func(*args, **(kwargs or {}))
-
-
 @pytest.mark.parametrize("name", CYCLES + SHARDED)
 def test_cycles_read_nothing_back_on_the_host(cpu_calls, name, monkeypatch):
     """No operation of a cycle reads a value back on the host (item, tolist, numpy, cpu,
     a data-dependent shape) or builds a tensor on the cycle's device from host data: a
     CUDA graph's capture refuses both.  Shown on the CPU for every optional input the
     dry run's problem takes; the kernels' plain twins, which run on the CPU only, are
-    left out."""
+    left out (tests/torch_host_reads.py)."""
     fn, args, kwargs = cpu_calls[name]
-    reads, made = _HostReads(), []
+    torch_host_reads.assert_reads_nothing_back(fn, args, kwargs, monkeypatch)
 
-    def refuse(what, real):
-        def method(*a, **k):
-            if not reads.paused:
-                raise AssertionError(f"the cycle calls Tensor.{what}")
-            return real(*a, **k)
-        return method
 
-    for what in ("tolist", "numpy", "cpu", "item", "__bool__", "__int__", "__float__"):
-        monkeypatch.setattr(torch.Tensor, what, refuse(what, getattr(torch.Tensor, what)))
-    for factory in ("as_tensor", "tensor"):
-        def recorded(data, *a, real=getattr(torch, factory), factory=factory, **k):
-            if (not reads.paused and k.get("device") is not None
-                    and not isinstance(data, torch.Tensor)):
-                made.append(factory)
-            return real(data, *a, **k)
-        monkeypatch.setattr(torch, factory, recorded)
-    for module, kernel in ((region_fast, "sample_lines"), (region_fast, "bin_counts"),
-                           (depth_fast, "sample_windows"), (occlusion, "query_eval")):
-        def twin(*a, real=getattr(module, kernel), **k):
-            reads.paused = True
-            try:
-                return real(*a, **k)
-            finally:
-                reads.paused = False
-        monkeypatch.setattr(module, kernel, twin)
-    with reads, graphs.disable_graphs():
-        fn(*args, **kwargs)
-    monkeypatch.undo()
-    assert reads.found == [] and made == [], (reads.found, made)
+NUMPY_INTR = np.array([500, 500, 4, 4], np.float32)
+
+
+def test_numpy_camera_values_key_by_value(cpu_calls):
+    """A numpy array as tracking_cycle's intr, and a 0-d one as tracking_cycle_rgbd's
+    depth_scale, key by value (JAX traces both): equal arrays key equal, unequal ones
+    apart."""
+    _, args, kwargs = cpu_calls["region"]
+
+    def region_key(intr):
+        return graphs.static_key(pipeline.tracking_cycle, args[0], intr, *args[2:], **kwargs)
+
+    assert region_key(NUMPY_INTR) == region_key(NUMPY_INTR.copy())
+    assert region_key(NUMPY_INTR) != region_key(NUMPY_INTR + np.float32([0, 0, 0, 1]))
+    assert region_key(NUMPY_INTR) != region_key(NUMPY_INTR.astype(np.float64))
+    _, args, kwargs = cpu_calls["rgbd"]
+
+    def rgbd_key(depth_scale):
+        return graphs.static_key(pipeline.tracking_cycle_rgbd, *args[:3], depth_scale,
+                                 *args[4:], **kwargs)
+
+    scale = np.array(dryrun.DEPTH_SCALE, np.float32)
+    assert rgbd_key(scale) == rgbd_key(scale.copy())
+    assert rgbd_key(scale) != rgbd_key(scale * np.float32(1.1))
+
+
+def test_numpy_camera_values_run_as_numbers(cpu_calls):
+    """A numpy intr and depth_scale give the state that the same values as a tuple and a
+    float give."""
+    fn, args, kwargs = cpu_calls["rgbd"]
+    args = list(args)
+    want = fn(*args, **kwargs)
+    args[1], args[3] = np.asarray(args[1]), np.array(args[3])
+    assert _equal(fn(*args, **kwargs), want)
 
 
 # ---------------------------------------------------------------------------------------
@@ -445,6 +429,19 @@ def test_graph_equals_eager_on_card(cuda_calls, name):
         assert _equal(want, got)
     (info,) = graphs.captured()
     assert info.replays == 2 and info.name == fn.__qualname__
+
+
+@pytest.mark.cuda
+def test_numpy_camera_values_on_card(cuda_calls):
+    """Graphed, a numpy intr and depth_scale (keyed apart from the tuple and the float)
+    give the states that the tuple and the float give, bit for bit."""
+    fn, args, kwargs = cuda_calls["rgbd"]
+    want = _chain(fn, args, kwargs, 2)
+    args = list(args)
+    args[1], args[3] = np.asarray(args[1]), np.array(args[3])
+    for w, g in zip(want, _chain(fn, args, kwargs, 2)):
+        assert _equal(w, g)
+    assert [i.replays for i in graphs.captured()] == [1, 1]
 
 
 @pytest.mark.cuda

@@ -208,8 +208,8 @@ def test_renderers_default_to_the_card():
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_windowed_chunks_equal_the_whole_image_loop(seed):
-    """rasterize with windows evaluates each chunk over its window only (chunk_windows,
-    as the renderers call it); on random triangles (slivers, sub-pixel ones, some off
+    """rasterize_windows evaluates each chunk over its window only (chunk_windows); on
+    random triangles (slivers, sub-pixel ones, some off
     the image, some behind the camera) in two scenes, the images equal those of every
     chunk over the whole image."""
     rng = np.random.default_rng(seed)
@@ -229,7 +229,7 @@ def test_windowed_chunks_equal_the_whole_image_loop(seed):
     windows = traster.chunk_windows(soup, 200, 150, 32)
     assert windows[0] == (0, 200, 0, 150) and windows[-2:] == [None, None]
     assert sum((u1 - u0) * (v1 - v0) < 200 * 150 for u0, u1, v0, v1 in windows[1:-2]) >= 4
-    got = traster.rasterize(soup, 200, 150, chunk=32, with_normals=True, windows=windows)
+    got = traster.rasterize_windows(soup, 200, 150, windows, chunk=32, with_normals=True)
     want = traster.rasterize(soup, 200, 150, chunk=32, with_normals=True)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
