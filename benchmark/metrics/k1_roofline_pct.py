@@ -1,0 +1,15 @@
+"""The line-sampling kernel's (K1, sample_lines_kernel) share of its roofline: the least
+time the chip could take for one cycle's K1 calls (benchmark/harness/roofline.py, from
+the calls' inputs) over the kernel's device time per cycle (profiler)."""
+
+from benchmark.harness import roofline
+
+
+def read(run):
+    if run.trace is None or run.work is None or run.peaks is None:
+        return None
+    spent = run.trace.kernel_s("sample_lines_kernel")
+    if not spent or "sample_lines" not in run.work:
+        return None
+    return 100.0 * roofline.bound_s(*run.work["sample_lines"], run.peaks) / (
+        spent / run.trace.steps)
