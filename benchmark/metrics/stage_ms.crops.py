@@ -1,0 +1,10 @@
+"""Device milliseconds per cycle of the cycle's `crops` stage: the focused crops and the
+ratio table (`_prepare_crops`, `ratio_table`). Read off the event nodes that mark the
+stages inside the cycle's CUDA graph, over the traced stretch's replays of
+`tracking_cycle` (harness/stages.py)."""
+
+from benchmark.harness import stages
+
+
+def read(run):
+    return stages.stage_ms("crops")

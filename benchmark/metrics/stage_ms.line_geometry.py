@@ -1,0 +1,10 @@
+"""Device milliseconds per cycle of the cycle's `line_geometry` stage: the lines'
+geometry (`region_fast.line_geometry`), each correspondence iteration. Read off the
+event nodes that mark the stages inside the cycle's CUDA graph, over the traced
+stretch's replays of `tracking_cycle` (harness/stages.py)."""
+
+from benchmark.harness import stages
+
+
+def read(run):
+    return stages.stage_ms("line_geometry")

@@ -166,6 +166,10 @@ class ChoiEvaluator:
                         "calculate_gradient_and_hessian", "calculate_optimization",
                         "calculate_results")
         }
+        # Whether every step served through the fused cycle (its phases then come from
+        # the cycle's stage marks).
+        mean_times["fused"] = bool(phase_times) and all(t.get("fused", False)
+                                                        for t in phase_times)
         return {
             "rmse_x": metrics.rmse([e["error_x"] for e in errors]),
             "rmse_y": metrics.rmse([e["error_y"] for e in errors]),

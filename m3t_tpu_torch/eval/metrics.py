@@ -165,19 +165,31 @@ def execute_measured_tracking_step(tracker, iteration: int) -> dict:
 
 
 def execute_tracking_step_maybe_fused(tracker, iteration: int) -> dict:
-    """execute_measured_tracking_step, or one whole-step timing when the tracker serves
-    through the fused cycle (m3t_tpu_torch/fused_serve.py: the phases then run inside one
-    cycle and cannot be timed apart).  The fused step ends at a host read of the
-    poses."""
+    """execute_measured_tracking_step, or, when the tracker serves through the fused
+    cycle (m3t_tpu_torch/fused_serve.py), one whole-step timing that ends at a host read
+    of the poses, with the phases read off the cycle's stage marks: the tracer is on for
+    the step, and each phase is the device seconds of its stages
+    (``pipeline.STAGE_PHASES``; utils/timing.py).  The copies into the graph's buffers
+    and the outputs' clones belong to no phase."""
     if getattr(tracker, "use_fused_cycle", False) \
             and tracker._fused_serve_backend() is not None:
-        begin = time.perf_counter()
-        if not tracker.ExecuteTrackingStep(iteration):
-            return {}
-        return {"complete_cycle": time.perf_counter() - begin,
-                "calculate_correspondences": 0.0,
-                "calculate_gradient_and_hessian": 0.0,
-                "calculate_optimization": 0.0,
-                "calculate_results": 0.0,
-                "fused": True}
+        from m3t_tpu_torch.pipeline import STAGE_PHASES
+        from m3t_tpu_torch.utils import timing
+
+        times = dict.fromkeys(("calculate_correspondences",
+                               "calculate_gradient_and_hessian", "calculate_optimization",
+                               "calculate_results"), 0.0)
+        with timing.tracing():
+            before = timing.stage_seconds()
+            begin = time.perf_counter()
+            if not tracker.ExecuteTrackingStep(iteration):
+                return {}
+            complete = time.perf_counter() - begin
+            after = timing.stage_seconds()
+        for graph, stages in after.items():
+            for stage, (seconds, _) in stages.items():
+                if stage in STAGE_PHASES:
+                    earlier = before.get(graph, {}).get(stage, (0.0, 0))[0]
+                    times[STAGE_PHASES[stage]] += seconds - earlier
+        return dict(complete_cycle=complete, **times, fused=True)
     return execute_measured_tracking_step(tracker, iteration)

@@ -281,6 +281,10 @@ class OPTEvaluator:
                         "calculate_gradient_and_hessian", "calculate_optimization",
                         "calculate_results")
         }
+        # Whether every step served through the fused cycle (its phases then come from
+        # the cycle's stage marks).
+        mean_times["fused"] = bool(phase_times) and all(t.get("fused", False)
+                                                        for t in phase_times)
         return {
             "auc": float(np.mean(curve)),
             "curve": curve.tolist(),

@@ -27,6 +27,7 @@ from m3t_tpu_torch import pipeline
 from m3t_tpu_torch.common import to_numpy
 from m3t_tpu_torch.depth_modality import DepthModality
 from m3t_tpu_torch.region_modality import RegionModality, f32_intrinsics
+from m3t_tpu_torch.utils import timing
 
 
 def _batch_models(arrays):
@@ -236,22 +237,30 @@ class FusedServeBackend:
         return frame.expand((len(self.optimizers),) + frame.shape)
 
     def Execute(self, iteration: int) -> bool:  # noqa: N802
-        """One fused tracking step == ExecuteTrackingStep + CalculateResults."""
-        state = self._gather_state()
-        images = self._frames(self.color_camera.image, planar=True)
-        handle_occlusions = torch.tensor([
-            iteration - m.first_iteration >= m.n_unoccluded_iterations
-            for m in self.region_modalities], device=self.device)
-        if self.pcfg.use_depth:
-            state = pipeline.tracking_cycle_rgbd(
-                self.pcfg, self.intr, self.depth_intr, self.depth_scale, images,
-                self._frames(self.depth_camera.image, planar=False), self.model_arrays,
-                self.depth_model_arrays, state, handle_occlusions=handle_occlusions)
-        else:
-            state = pipeline.tracking_cycle(self.pcfg, self.intr, images,
-                                            self.model_arrays, state,
-                                            handle_occlusions=handle_occlusions)
-        self._scatter_state(state)
+        """One fused tracking step == ExecuteTrackingStep + CalculateResults (spans
+        ``serve.gather``, ``serve.frames``, ``serve.cycle``, ``serve.scatter``)."""
+        with timing.span("serve.gather"):
+            state = self._gather_state()
+        with timing.span("serve.frames"):
+            images = self._frames(self.color_camera.image, planar=True)
+            depth_images = None
+            if self.pcfg.use_depth:
+                depth_images = self._frames(self.depth_camera.image, planar=False)
+            handle_occlusions = torch.tensor([
+                iteration - m.first_iteration >= m.n_unoccluded_iterations
+                for m in self.region_modalities], device=self.device)
+        with timing.span("serve.cycle"):
+            if self.pcfg.use_depth:
+                state = pipeline.tracking_cycle_rgbd(
+                    self.pcfg, self.intr, self.depth_intr, self.depth_scale, images,
+                    depth_images, self.model_arrays, self.depth_model_arrays, state,
+                    handle_occlusions=handle_occlusions)
+            else:
+                state = pipeline.tracking_cycle(self.pcfg, self.intr, images,
+                                                self.model_arrays, state,
+                                                handle_occlusions=handle_occlusions)
+        with timing.span("serve.scatter"):
+            self._scatter_state(state)
         return True
 
 

@@ -62,6 +62,7 @@ from m3t_tpu_torch.ops.texture_fn import TexturePoints
 from m3t_tpu_torch.ops.region_fn import (MeasuredOcclusionInputs, ModeledOcclusionInputs,
                                           ModeledOcclusionQueryInputs, RegionCheckInputs,
                                           RegionCheckQueryInputs, RegionConfig)
+from m3t_tpu_torch.utils import timing
 
 
 def _as_tensor(a, device, dtype=None) -> torch.Tensor:
@@ -505,12 +506,15 @@ def _region_terms(pcfg: PipelineConfig, intr, scale, points, poses, n_lines,
     fu, fv, ppu, ppv = _intrinsics(intr)
     cfg = pcfg.cfg
     kp = region_fast.round_up(cfg.line_length_in_segments * scale, 8)
+    timing.stage("line_geometry")
     geo = region_fast.line_geometry(
         cfg, scale, points, n_lines, poses, fu, fv, ppu, ppv, width, height,
         corner_u, corner_v, pcfg.crop_size, pcfg.lp, region_check=region_check,
         measured_occlusion=measured_occlusion, modeled_occlusion=modeled_occlusion,
         handle_occlusions=handle_occlusions)
+    timing.stage("sample_lines")
     samples = region_fast.sample_lines(geo.params, bin_crop, rtab, kp)
+    timing.stage("lines")
     return region_fast.lines_from_samples(cfg, scale, geo, samples)
 
 
@@ -524,6 +528,7 @@ def _histogram_memories(pcfg: PipelineConfig, intr, points, poses, n_lines,
         cfg, points, n_lines, poses, fu, fv, ppu, ppv, width, height,
         corner_u, corner_v, pcfg.crop_size, lp2)
     kp2 = mask.shape[-1]
+    timing.stage("histogram_count")
     bins = region_fast.sample_lines(params, bin_crop, None, kp2, output="bins")
     bins = bins.transpose(1, 2)  # (B, lp2, kp2) to align with mask
     b = bins.shape[0]
@@ -563,6 +568,7 @@ def _region_measured_occlusion(pcfg: PipelineConfig, depth: _DepthInputs | None,
     height, width = depth.images.shape[1], depth.images.shape[2]
     presampled = None
     if depth.corner_u is not None:
+        timing.stage("depth_correspondences")
         presampled = depth_fast.presample_occlusion_windows(
             pcfg.cfg.measured_occlusion_radius, False, points.center_f_body.transpose(1, 2),
             pose, depth.images, depth.corner_u, depth.corner_v, pcfg.crop_size,
@@ -674,6 +680,28 @@ class _Poses(NamedTuple):
     step: Callable  # (dof, gradient (B, 6), hessian (B, 6, 6)) -> dof
 
 
+# The cycles' stages (utils/timing.stage) and the phase of M3T's tracking step each
+# belongs to (the evaluators' ExecutionTimes, rbot_evaluator.h:50-56).  A stage is marked
+# where it begins; the next mark ends it.
+STAGE_PHASES = {
+    "crops": "calculate_correspondences",  # _prepare_crops, ratio_table
+    "scene_render": "calculate_correspondences",  # the focused scene at the pose
+    "view": "calculate_correspondences",  # _select_view_cl, _adaptive_n_lines
+    "line_geometry": "calculate_correspondences",  # region_fast.line_geometry
+    "sample_lines": "calculate_correspondences",  # K1, ratio mode
+    "lines": "calculate_correspondences",  # lines_from_samples
+    "depth_correspondences": "calculate_correspondences",  # corners, K3, depth terms
+    "gradient_hessian": "calculate_gradient_and_hessian",  # gradient_hessian_cl
+    "depth_gradient_hessian": "calculate_gradient_and_hessian",
+    "texture_gradient_hessian": "calculate_gradient_and_hessian",
+    "camera_sum": "calculate_gradient_and_hessian",  # the cameras' terms summed
+    "newton_step": "calculate_optimization",  # poses.step
+    "histogram_walk": "calculate_results",  # the last view, histogram_walk_geometry
+    "histogram_count": "calculate_results",  # K1 in bins mode, both K2 calls
+    "histogram_blend": "calculate_results",  # both calculate_histogram calls
+}
+
+
 def _per_entry(value, n: int, device):
     """A per-batch-entry input (a scalar, or a tensor that broadcasts to (n,)) as an
     (n,) tensor on device, with torch.as_tensor's dtype.  A scalar is filled on the
@@ -693,7 +721,11 @@ def _cycle_core(pcfg: PipelineConfig, intr, images, model: RegionModelArrays, do
     freedom before every correspondence and update iteration and before the histogram
     walk.  handle_occlusions: a bool or a (B,) bool; None means True.  model_index (B,)
     int64: the row of the region and depth models that each batch entry reads (None:
-    its own).  Returns (dof, hist_f, hist_b)."""
+    its own).  Returns (dof, hist_f, hist_b).
+
+    The cycle marks its stages (utils/timing.stage; STAGE_PHASES lists them), which
+    tile it from the first mark to the end of the cycle."""
+    timing.stage("crops")
     cfg = pcfg.cfg
     fu, fv, ppu, ppv = _intrinsics(intr)
     width, height = _image_size(images)
@@ -714,11 +746,15 @@ def _cycle_core(pcfg: PipelineConfig, intr, images, model: RegionModelArrays, do
 
     for corr_iteration in range(pcfg.n_corr_iterations):
         scale, std = pcfg.iteration_scale(corr_iteration)
+        timing.stage("scene_render" if render_scene else "view")
         pose = poses.flat(dof)
         # Correspondence renderers StartRendering (tracker.cpp:448-451): the full scene
         # at the current pose estimate.
-        rend = (_render_scene_for(pcfg, scene_geom, poses.scene(pose), intr, width, height)
-                if render_scene else None)
+        rend = None
+        if render_scene:
+            rend = _render_scene_for(pcfg, scene_geom, poses.scene(pose), intr, width,
+                                     height)
+            timing.stage("view")
         points = _select_view_cl(model, pose, model_index)
         n_lines = _adaptive_n_lines(pcfg, model, pose, model_index)
         region_check, modeled = _scene_region_inputs(pcfg, rend, scene_geom)
@@ -729,6 +765,7 @@ def _cycle_core(pcfg: PipelineConfig, intr, images, model: RegionModelArrays, do
                               modeled_occlusion=modeled,
                               handle_occlusions=handle_occlusions)
         if use_depth:
+            timing.stage("depth_correspondences")
             d_modeled, d_sil = _scene_depth_inputs(pcfg, rend, scene_geom)
             depth_points = _depth_terms(pcfg, depth, corr_iteration, pose,
                                         handle_occlusions, d_modeled, d_sil,
@@ -737,29 +774,35 @@ def _cycle_core(pcfg: PipelineConfig, intr, images, model: RegionModelArrays, do
         if use_texture:
             texture_std = pcfg.iteration_texture_std(corr_iteration)
         for update_iteration in range(pcfg.n_update_iterations):
+            timing.stage("gradient_hessian")
             pose = poses.flat(dof)
             gradient, hessian = region_fast.gradient_hessian_cl(
                 cfg, lines, pose, fu, fv, ppu, ppv, std,
                 update_iteration < cfg.n_global_iterations)
             if use_depth:
+                timing.stage("depth_gradient_hessian")
                 dg, dh = depth_fn.calculate_gradient_and_hessian(depth_points, pose,
                                                                  depth_std)
                 gradient = gradient + dg
                 hessian = hessian + dh
             if use_texture:
+                timing.stage("texture_gradient_hessian")
                 tg, th = texture_fn.calculate_gradient_and_hessian(
                     texture_points, pose, fu, fv, ppu, ppv, texture_std,
                     pcfg.tukey_norm_constant)
                 gradient = gradient + tg
                 hessian = hessian + th
+            timing.stage("newton_step")
             dof = poses.step(dof, gradient, hessian)
 
     # CalculateResults: online histogram adaptation (tracker.cpp:503-517).
+    timing.stage("histogram_walk")
     pose = poses.flat(dof)
     points = _select_view_cl(model, pose, model_index)
     n_lines = _adaptive_n_lines(pcfg, model, pose, model_index)
     mem_f, mem_b = _histogram_memories(pcfg, intr, points, pose, n_lines,
                                        bin_crop, corner_u, corner_v, width, height)
+    timing.stage("histogram_blend")
     hist_f = hist_ops.calculate_histogram(hist_f, mem_f, pcfg.learning_rate_f)
     hist_b = hist_ops.calculate_histogram(hist_b, mem_b, pcfg.learning_rate_b)
     return dof, hist_f, hist_b
@@ -828,6 +871,7 @@ def tracking_cycle_rgbd(pcfg: PipelineConfig, intr, depth_intr, depth_scale, ima
     pose = state.body2camera_pose
     corner_u = corner_v = None
     if pcfg.use_depth:
+        timing.stage("depth_correspondences")
         corner_u, corner_v = depth_fast.depth_corners(
             depth_images, pose, *_intrinsics(depth_intr), pcfg.crop_size)
     depth = _DepthInputs(depth_images, _intrinsics(depth_intr), float(depth_scale),
@@ -942,6 +986,7 @@ def tracking_cycle_kinematic(pcfg: PipelineConfig, intr, images, model: RegionMo
     n_hist = state.histogram_f.shape[-1]
     depth = None
     if pcfg.use_depth and depth_images is not None:
+        timing.stage("depth_correspondences")
         depth_flat = _repeat_each(depth_images, nl)
         _, pose_flat = _kinematic_flat_poses(kin, state.joint2parent)
         corner_u, corner_v = depth_fast.depth_corners(
@@ -1050,6 +1095,7 @@ def _camera_sum(mesh, gradient, hessian, lead: tuple):
     "camera", m3t_tpu/pipeline.py:948-949): (lead[:-1] + (6,), lead[:-1] + (6, 6)).
     Gradient and Hessian travel in one all_reduce, which a graph runs between two of
     its segments (graphs.collective); a group of one rank is skipped."""
+    timing.stage("camera_sum")
     g = gradient.reshape(lead + (6,)).sum(-2)
     h = hessian.reshape(lead + (6, 6)).sum(-3)
     if mesh is not None and mesh.n_camera > 1:
@@ -1057,6 +1103,7 @@ def _camera_sum(mesh, gradient, hessian, lead: tuple):
         graphs.collective(functools.partial(torch.distributed.all_reduce,
                                             group=mesh.camera_group), both)
         g, h = both[:g.numel()].view(g.shape), both[g.numel():].view(h.shape)
+    timing.stage("newton_step")
     return g, h
 
 
@@ -1082,6 +1129,7 @@ def _flat_depth(pcfg: PipelineConfig, depth_intr, depth, flat_pose):
     depth_images, depth_scale, depth_model = depth
     if depth_images is None:
         return None
+    timing.stage("depth_correspondences")
     corner_u, corner_v = depth_fast.depth_corners(
         depth_images, flat_pose, *_intrinsics(depth_intr), pcfg.crop_size)
     return _DepthInputs(depth_images, _intrinsics(depth_intr), float(depth_scale),

@@ -14,7 +14,7 @@ import time
 
 from m3t_tpu_torch.common import (add_ptr_if_name_not_exists, delete_ptr_if_name_exists,
                             set_up_object_ptrs)
-from m3t_tpu_torch.utils import yaml_io
+from m3t_tpu_torch.utils import timing, yaml_io
 
 
 def _add_ptrs(ptrs, target):
@@ -400,53 +400,58 @@ class Tracker:
     # -- steps -------------------------------------------------------------------------
 
     def UpdateCameras(self, iteration: int) -> bool:  # noqa: N802
-        for camera in self.camera_ptrs:
-            if not camera.UpdateImage(self.synchronize_cameras):
-                return False
-        return True
+        with timing.span("tracker.update_cameras", iteration):
+            for camera in self.camera_ptrs:
+                if not camera.UpdateImage(self.synchronize_cameras):
+                    return False
+            return True
 
     def UpdateSubscribers(self, iteration: int) -> bool:  # noqa: N802
-        for subscriber in self.subscriber_ptrs:
-            if not subscriber.UpdateSubscriber(iteration):
-                return False
-        return True
+        with timing.span("tracker.update_subscribers", iteration):
+            for subscriber in self.subscriber_ptrs:
+                if not subscriber.UpdateSubscriber(iteration):
+                    return False
+            return True
 
     def UpdatePublishers(self, iteration: int) -> bool:  # noqa: N802
-        for publisher in self.publisher_ptrs:
-            if not publisher.UpdatePublisher(iteration):
-                return False
-        return True
+        with timing.span("tracker.update_publishers", iteration):
+            for publisher in self.publisher_ptrs:
+                if not publisher.UpdatePublisher(iteration):
+                    return False
+            return True
 
     def UpdateViewers(self, iteration: int) -> bool:  # noqa: N802
-        for viewer in self.viewer_ptrs:
-            viewer.UpdateViewer(iteration)
-        # Keyboard control mirrors the reference (tracker.cpp:378-389): d = detect,
-        # x = detect + track, t = track, s = stop, q = quit.
-        if self.viewer_ptrs and any(getattr(v, "display_images", False)
-                                    for v in self.viewer_ptrs):
-            try:
-                import cv2
+        with timing.span("tracker.update_viewers", iteration):
+            for viewer in self.viewer_ptrs:
+                viewer.UpdateViewer(iteration)
+            # Keyboard control mirrors the reference (tracker.cpp:378-389): d = detect,
+            # x = detect + track, t = track, s = stop, q = quit.
+            if self.viewer_ptrs and any(getattr(v, "display_images", False)
+                                        for v in self.viewer_ptrs):
+                try:
+                    import cv2
 
-                key = cv2.waitKey(self.viewer_time)
-            except Exception:
-                return True
-            if key == ord("d"):
-                self.ExecuteDetection(False)
-            elif key == ord("x"):
-                self.ExecuteDetection(True)
-            elif key == ord("t"):
-                self.StartTracking()
-            elif key == ord("s"):
-                self.StopTracking()
-            elif key == ord("q"):
-                self.quit_tracker_process = True
-        return True
+                    key = cv2.waitKey(self.viewer_time)
+                except Exception:
+                    return True
+                if key == ord("d"):
+                    self.ExecuteDetection(False)
+                elif key == ord("x"):
+                    self.ExecuteDetection(True)
+                elif key == ord("t"):
+                    self.StartTracking()
+                elif key == ord("s"):
+                    self.StopTracking()
+                elif key == ord("q"):
+                    self.quit_tracker_process = True
+            return True
 
     def CalculateConsistentPoses(self) -> bool:  # noqa: N802
-        for optimizer in self.optimizer_ptrs:
-            if not optimizer.CalculateConsistentPoses():
-                return False
-        return True
+        with timing.span("tracker.consistent_poses"):
+            for optimizer in self.optimizer_ptrs:
+                if not optimizer.CalculateConsistentPoses():
+                    return False
+            return True
 
     def DetectPoses(self, names, detected_names: set) -> bool:  # noqa: N802
         """Run every detecting detector (tracker.cpp:408-414)."""
@@ -463,31 +468,33 @@ class Tracker:
         return True
 
     def ExecuteDetectingStep(self, iteration: int) -> bool:  # noqa: N802
-        if not self.names_detecting:
+        with timing.span("tracker.detecting_step", iteration):
+            if not self.names_detecting:
+                return True
+            self._move_back_poses(self.names_detecting)
+            names_detected: set[str] = set()
+            if not self.DetectPoses(self.names_detecting, names_detected):
+                return False
+            if not self.RefinePoses(names_detected):
+                return False
+            if not self.CalculateConsistentPoses():
+                return False
+            if self.start_tracking_after_detection:
+                self.names_starting |= names_detected
+            self.names_detecting -= names_detected
+            self._assemble_internally_used_object_ptrs()
             return True
-        self._move_back_poses(self.names_detecting)
-        names_detected: set[str] = set()
-        if not self.DetectPoses(self.names_detecting, names_detected):
-            return False
-        if not self.RefinePoses(names_detected):
-            return False
-        if not self.CalculateConsistentPoses():
-            return False
-        if self.start_tracking_after_detection:
-            self.names_starting |= names_detected
-        self.names_detecting -= names_detected
-        self._assemble_internally_used_object_ptrs()
-        return True
 
     def ExecuteStartingStep(self, iteration: int) -> bool:  # noqa: N802
-        if not self.names_starting:
+        with timing.span("tracker.starting_step", iteration):
+            if not self.names_starting:
+                return True
+            if not self.StartModalities(iteration):
+                return False
+            self.names_tracking |= self.names_starting
+            self.names_starting = set()
+            self._assemble_internally_used_object_ptrs()
             return True
-        if not self.StartModalities(iteration):
-            return False
-        self.names_tracking |= self.names_starting
-        self.names_starting = set()
-        self._assemble_internally_used_object_ptrs()
-        return True
 
     def _fused_serve_backend(self):
         """Cached FusedServeBackend for the current tracking set (or None)."""
@@ -506,30 +513,31 @@ class Tracker:
         return self._fused_backend
 
     def ExecuteTrackingStep(self, iteration: int) -> bool:  # noqa: N802
-        if self.use_fused_cycle:
-            backend = self._fused_serve_backend()
-            if backend is not None:
-                return backend.Execute(iteration)
-        for corr_iteration in range(self.n_corr_iterations):
-            corr_save_idx = iteration * self.n_corr_iterations + corr_iteration
-            if not self.CalculateCorrespondences(iteration, corr_iteration):
+        with timing.span("tracker.tracking_step", iteration):
+            if self.use_fused_cycle:
+                backend = self._fused_serve_backend()
+                if backend is not None:
+                    return backend.Execute(iteration)
+            for corr_iteration in range(self.n_corr_iterations):
+                corr_save_idx = iteration * self.n_corr_iterations + corr_iteration
+                if not self.CalculateCorrespondences(iteration, corr_iteration):
+                    return False
+                if not self.VisualizeCorrespondences(corr_save_idx):
+                    return False
+                for update_iteration in range(self.n_update_iterations):
+                    update_save_idx = (corr_save_idx * self.n_update_iterations
+                                       + update_iteration)
+                    if not self.CalculateGradientAndHessian(iteration, corr_iteration,
+                                                            update_iteration):
+                        return False
+                    if not self.CalculateOptimization(iteration, corr_iteration,
+                                                      update_iteration):
+                        return False
+                    if not self.VisualizeOptimization(update_save_idx):
+                        return False
+            if not self.CalculateResults(iteration):
                 return False
-            if not self.VisualizeCorrespondences(corr_save_idx):
-                return False
-            for update_iteration in range(self.n_update_iterations):
-                update_save_idx = (corr_save_idx * self.n_update_iterations
-                                   + update_iteration)
-                if not self.CalculateGradientAndHessian(iteration, corr_iteration,
-                                                        update_iteration):
-                    return False
-                if not self.CalculateOptimization(iteration, corr_iteration,
-                                                  update_iteration):
-                    return False
-                if not self.VisualizeOptimization(update_save_idx):
-                    return False
-        if not self.CalculateResults(iteration):
-            return False
-        return self.VisualizeResults(iteration)
+            return self.VisualizeResults(iteration)
 
     def VisualizeCorrespondences(self, save_idx: int) -> bool:  # noqa: N802
         for modality in self.tracking_modality_ptrs:
@@ -568,44 +576,48 @@ class Tracker:
         return True
 
     def CalculateCorrespondences(self, iteration: int, corr_iteration: int) -> bool:  # noqa: N802
-        for renderer in self.tracking_correspondence_renderer_ptrs:
-            if not renderer.StartRendering():
-                return False
-        for modality in self.tracking_modality_ptrs:
-            if not modality.CalculateCorrespondences(iteration, corr_iteration):
-                return False
-        return True
+        with timing.span("tracker.correspondences", iteration):
+            for renderer in self.tracking_correspondence_renderer_ptrs:
+                if not renderer.StartRendering():
+                    return False
+            for modality in self.tracking_modality_ptrs:
+                if not modality.CalculateCorrespondences(iteration, corr_iteration):
+                    return False
+            return True
 
     def CalculateGradientAndHessian(self, iteration: int, corr_iteration: int,
                                     update_iteration: int) -> bool:  # noqa: N802
-        for modality in self.tracking_modality_ptrs:
-            if not modality.CalculateGradientAndHessian(iteration, corr_iteration,
-                                                        update_iteration):
-                return False
-        return True
+        with timing.span("tracker.gradient_hessian", iteration):
+            for modality in self.tracking_modality_ptrs:
+                if not modality.CalculateGradientAndHessian(iteration, corr_iteration,
+                                                            update_iteration):
+                    return False
+            return True
 
     def CalculateOptimization(self, iteration: int, corr_iteration: int,
                               update_iteration: int) -> bool:  # noqa: N802
-        for optimizer in self.tracking_optimizer_ptrs:
-            if not optimizer.CalculateOptimization(iteration, corr_iteration,
-                                                   update_iteration):
-                return False
-        return True
+        with timing.span("tracker.optimization", iteration):
+            for optimizer in self.tracking_optimizer_ptrs:
+                if not optimizer.CalculateOptimization(iteration, corr_iteration,
+                                                       update_iteration):
+                    return False
+            return True
 
     def CalculateResults(self, iteration: int) -> bool:  # noqa: N802
-        for renderer in self.tracking_results_renderer_ptrs:
-            if not renderer.StartRendering():
-                return False
-        for histograms in self.tracking_color_histograms_ptrs:
-            if not histograms.ClearMemory():
-                return False
-        for modality in self.tracking_modality_ptrs:
-            if not modality.CalculateResults(iteration):
-                return False
-        for histograms in self.tracking_color_histograms_ptrs:
-            if not histograms.UpdateHistograms():
-                return False
-        return True
+        with timing.span("tracker.results", iteration):
+            for renderer in self.tracking_results_renderer_ptrs:
+                if not renderer.StartRendering():
+                    return False
+            for histograms in self.tracking_color_histograms_ptrs:
+                if not histograms.ClearMemory():
+                    return False
+            for modality in self.tracking_modality_ptrs:
+                if not modality.CalculateResults(iteration):
+                    return False
+            for histograms in self.tracking_color_histograms_ptrs:
+                if not histograms.UpdateHistograms():
+                    return False
+            return True
 
     # -- internals ---------------------------------------------------------------------
 
