@@ -27,13 +27,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      depth modeled-occlusion (Q=7200) calls of one RGB-D cycle with a cube occluder and
      all four scene checks, on 1600 random triangles, which take four shared-memory
      tiles, on the calls of one kinematic cycle (B=512 per-link scenes), and on the
-     adversarial case at B=512 (adversarial_queries)); every result
-     must equal its twin exactly (query_eval's inverse depths bit for bit).  Each
+     adversarial case at B=512 (adversarial_queries)); newton_step on the first Newton
+     step of one region cycle (B=512) and on its body 0 alone; every result must equal
+     its twin exactly (query_eval's inverse depths bit for bit), but newton_step's poses
+     within NEWTON_STEP_ATOL (its pose @ variation sums in another order), here and
+     wherever a recorded call is held against its twin.  Each
      kernel is timed twice: by replaying a CUDA graph of 20 calls (``ms``, the host
      left out) and by 20 eager calls (``eager_ms``); the twins and torch.bincount
      eagerly, torch.take (sample_windows' yardstick: the same windows from a float32
-     copy of the zero-padded frames) by graph replay.  query_eval's rows add the work
-     its inputs ask for (query_work);
+     copy of the zero-padded frames) by graph replay, newton_step's twin both ways.
+     query_eval's rows add the work its inputs ask for (query_work);
   3. the flagship region cycle, bench.py's default workload: B=512 bodies, 640x512
      frames, 200 lines, scales {6,4,2,1}, 5 correspondence x 2 update iterations,
      histogram adaptation, the sphere model of phase 0m, through initialize_histograms
@@ -197,13 +200,15 @@ Phases (any failure exits non-zero; no phase catches its own failure):
          sequences with ground-truth depth), OPT (1920x1080) and Choi (640x480);
      11r. RBOT through the entry point's configuration (modelled occlusions and region
          checking, 200 lines): 72 runs and 18 hidden partners, B = 90, fused, every
-         kernel launch counted from 0: sample_lines, bin_counts and query_eval launched in
-         every frame's cycle; tracking success, seconds per body-frame, peak memory; then
-         python -m m3t_tpu_torch.examples.evaluate_rbot_dataset on the same files must
-         print the same tracking success;
+         kernel launch counted from 0: sample_lines, bin_counts, query_eval and
+         newton_step launched in every frame's cycle; tracking success, seconds per
+         body-frame, peak memory; then python -m
+         m3t_tpu_torch.examples.evaluate_rbot_dataset on the same files must print the
+         same tracking success;
      11y, 11k, 11o. YCB-Video fused RGB-D, RTB fused kinematic with depth, OPT and Choi
          through the serve path (execute_tracking_step_maybe_fused): sample_lines,
-         bin_counts and sample_windows launched in every cycle or step, scores held;
+         bin_counts and sample_windows launched in every cycle or step (and newton_step
+         but on RTB's articulated cycle), scores held;
      11h. RBOT, YCB-Video and RTB on the host path, 3 frames each;
      11x. card against CPU on the same files: RBOT (2 bodies x a_regular and d_occlusion,
          5 frames), YCB-Video, RTB, OPT and Choi: per batch entry the same success flag
@@ -222,15 +227,15 @@ Phases (any failure exits non-zero; no phase catches its own failure):
          cameras.py fakes it) whose frames show phase 11's four-sphere cluster along a
          known path; the PNG files must read back as the frames and the loader metafile
          give the device's intrinsics; run_on_recorded_sequence replays them through that
-         metafile (phase 11's region model), fused, then with --host-path: exit 0, K1 6
-         and K2 2 launches in every fused tracking step and none in the starting step,
-         none on the host path, the final pose within 5 mm of the path; the first step's
+         metafile (phase 11's region model), fused, then with --host-path: exit 0, K1 6,
+         K2 2 and K5 10 launches in every fused tracking step and none in the starting
+         step, none on the host path, the final pose within 5 mm of the path; the first step's
          ms, the median of the warm steps, peak memory;
      12r, 12g and 12p hold every kernel call of their runs against its plain twin on
          the same inputs after each run (twin_checked);
      12g. run_generated_tracker over a generator config with one link over 12r's
-         recording (use_fused_cycle in its tracker metafile), --max-iterations 10: K1 6
-         and K2 2 per step; run_pen_paper_demo on the same config exits 1 with
+         recording (use_fused_cycle in its tracker metafile), --max-iterations 10: K1 6,
+         K2 2 and K5 10 per step; run_pen_paper_demo on the same config exits 1 with
          "trajectory points: 0" (its main() adds the publisher after SetUp, a fault of
          the JAX script that the port keeps), and its DrawingPublisher, added before the
          tracker's last SetUp, projects 10 tip points;
@@ -243,8 +248,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
          learning_rate_f (phase 11's sequence laid out as the published run qu_tr_1_b,
          depth rendered from the published depth camera, so it serves on the host path)
          and Choi over n_corr_iterations: per row the printed scores, seconds, cycles and
-         each kernel's launches per cycle, K1 and K2 (and K3 with depth) in every fused
-         cycle;
+         each kernel's launches per cycle, K1 and K2 (and K3 with depth, K5 but on
+         RTB's articulated cycle) in every fused cycle;
      12x. card against CPU (compare_runs, as 11x): the fused replay of 12r and each
          study's first row (the RBOT studies over 2 bodies x a_regular and d_occlusion,
          5 frames), each fused cycle from the CPU's state, every kernel call of the card's
@@ -341,8 +346,16 @@ FP32_OPS_PER_S = 67e12     # H100 SXM data sheet: float32 outside the tensor cor
 # 2 min/max per output sample (its column; a window row's K samples share its row);
 # query_eval 8 mul and 8 add for the four planes, 4 compares and 3 ands for the
 # coverage test and 1 select for its value, 1 compare and 2 selects for the chain
-# update, per (query, triangle under the scene's loop bound).
+# update, per (query, triangle under the scene's loop bound); newton_step per body 141
+# for the LDLT factors, 66 for the two substitutions, 6 NaN tests, 11 for so3_exp's
+# scalars (sinf, cosf and sqrtf one each), 63 for the variation's rotation and 112 for
+# pose @ variation.
 SAMPLE_LINES_OPS, BIN_COUNTS_OPS, SAMPLE_WINDOWS_OPS, QUERY_EVAL_OPS = 10, 4, 5, 27
+NEWTON_STEP_OPS = 399
+# newton_step reads a body's gradient, Hessian and pose and writes its pose, float32.
+NEWTON_STEP_BYTES = (6 + 36 + 16 + 16) * 4
+# newton_step against its twin: every pose entry (the matmul's order parts a few ulps).
+NEWTON_STEP_ATOL = 1e-6
 # Rows of sample_lines' (B, 8, LP) params that it reads: R0, S0, STEP, UDOM and DIR.
 SAMPLE_LINES_PARAM_ROWS = 5
 WIDTH, HEIGHT, N_LINES, N_POINTS, N_BODIES = 640, 512, 200, 200, 512
@@ -350,6 +363,7 @@ DEPTH_SCALE = 0.001
 REGION_SOURCE = "m3t_tpu_torch/csrc/region_kernels.cu"
 DEPTH_SOURCE = "m3t_tpu_torch/csrc/depth_kernels.cu"
 OCCLUSION_SOURCE = "m3t_tpu_torch/csrc/occlusion_kernels.cu"
+NEWTON_SOURCE = "m3t_tpu_torch/csrc/newton_kernels.cu"
 CUBE_HALF, CUBE_POSITION = 0.03, (-0.04, 0.0, 0.45)  # the occluder of phase 7, camera frame
 PHASE7_ATOL = 1e-4  # card against CPU, every state field
 
@@ -769,10 +783,10 @@ def kinematic_cycle(pcfg_key):
 
 def kernel_modules():
     """Each kernel wrapper's name and the module that holds it and its ``_plain`` twin."""
-    from m3t_tpu_torch.ops import depth_fast, occlusion, region_fast
+    from m3t_tpu_torch.ops import depth_fast, newton, occlusion, region_fast
 
     return {"sample_lines": region_fast, "bin_counts": region_fast,
-            "sample_windows": depth_fast, "query_eval": occlusion}
+            "sample_windows": depth_fast, "query_eval": occlusion, "newton_step": newton}
 
 
 def launch_counters():
@@ -839,7 +853,7 @@ def recorded_queries():
 def twin_mismatches(calls) -> list:
     """The names of the recorded kernel calls whose result is not its plain twin's on the
     same inputs, compared as phase 2 compares them (query_eval's inverse depths bit for
-    bit)."""
+    bit, newton_step's poses within NEWTON_STEP_ATOL)."""
     modules, bad = kernel_modules(), []
     for name, args, kwargs, got in calls:
         twin = getattr(modules[name], f"{name}_plain")
@@ -847,6 +861,9 @@ def twin_mismatches(calls) -> list:
         if name == "query_eval":
             same = (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
                     and torch.equal(got[1], want[1]))
+        elif name == "newton_step":
+            same = torch.allclose(got, want, rtol=0.0, atol=NEWTON_STEP_ATOL,
+                                  equal_nan=True)
         else:
             same = torch.equal(got, want)
         if not same:
@@ -1067,11 +1084,34 @@ def sample_windows_row(name, args, per_cycle):
                 **bound(n_bytes, SAMPLE_WINDOWS_OPS * got.numel()))
 
 
+def newton_step_row(name, args, per_cycle):
+    """newton_step on args = (gradient, hessian, pose, tikhonov_rotation,
+    tikhonov_translation) against its twin (every pose entry within NEWTON_STEP_ATOL),
+    timed, with its bound; its twin also timed graphed (``plain_graph_ms``), the form in
+    which a graphed cycle ran it before the kernel."""
+    from m3t_tpu_torch.ops import newton
+
+    b = args[0].shape[0]
+    got = newton.newton_step(*args)
+    want = newton.newton_step_plain(*args)
+    torch.cuda.synchronize()
+    err = (got.double() - want.double()).abs().nan_to_num(0.0).max().item()
+    if not torch.allclose(got, want, rtol=0.0, atol=NEWTON_STEP_ATOL, equal_nan=True):
+        raise AssertionError(f"newton_step {name}: kernel != plain (max diff {err})")
+    return dict(kernel="newton_step", case=f"{name} B={b}", per_cycle=per_cycle,
+                max_abs_err=err, unequal_entries=int((got != want).sum()),
+                **kernel_times(lambda: newton.newton_step(*args)),
+                plain_ms=time_ms(lambda: newton.newton_step_plain(*args), 5),
+                plain_graph_ms=time_ms(lambda: newton.newton_step_plain(*args), 20,
+                                       graph=True),
+                library_ms=None, **bound(NEWTON_STEP_BYTES * b, NEWTON_STEP_OPS * b))
+
+
 def check_kernels(inp, kin):
     """Phase 2: every kernel against its plain twin at the flagship shapes (kin: the
     articulated paths' inputs).  Each row's ``per_cycle`` is its number of calls in one
-    flagship cycle of its path (region for sample_lines and bin_counts, RGB-D for
-    sample_windows, occlusion for query_eval; 0: not on that path)."""
+    flagship cycle of its path (region for sample_lines, bin_counts and newton_step,
+    RGB-D for sample_windows, occlusion for query_eval; 0: not on that path)."""
     from m3t_tpu_torch import pipeline
     from m3t_tpu_torch.ops import depth_fast as df
     from m3t_tpu_torch.ops import occlusion
@@ -1252,16 +1292,27 @@ def check_kernels(inp, kin):
                                                 pixels[0], pixels[1]), soup.bbox), 0,
                           plain_iters=1))
     shapes.append(k4_case("adversarial", adversarial_queries(b, dev), 0))
+    # newton_step on the first of the Newton steps of one flagship region cycle, and on
+    # its first body alone (the latency batch's shape).
+    with recorded_launches() as calls:
+        region_cycle(inp, bt, state)
+    steps = [args for name, args, _, _ in calls if name == "newton_step"]
+    shapes.append(newton_step_row("region path", steps[0], len(steps)))
+    shapes.append(newton_step_row("region path, body 0", tuple(
+        a[:1].contiguous() if torch.is_tensor(a) else a for a in steps[0]), 0))
     for s in shapes:
         library = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f}"
         log(f"{s['kernel']:<14} {s['case']:<44} x{s['per_cycle']} ms {s['ms']:.4f}"
             f"  eager {s['eager_ms']:.4f}  plain {s['plain_ms']:.4f}"
-            f"  bound {s['bound_ms']:.4f}  library {library}  max_abs_err {s['max_abs_err']}")
+            f"  bound {s['bound_ms']:.4g}  library {library}  max_abs_err {s['max_abs_err']}")
         if s["kernel"] == "query_eval":
             log(f"{'':<14} {'':<44} without cull ms {s['no_cull_ms']:.4f}  in-box pairs "
                 f"{s['in_box_share']:.4f}  half-warp tests surviving "
                 f"{s['halfwarp_survive_share']:.4f}  (warp, triangle) pairs evaluated "
                 f"{s['warp_evaluated_share']:.4f}")
+        if s["kernel"] == "newton_step":
+            log(f"{'':<14} {'':<44} plain graphed ms {s['plain_graph_ms']:.4f}  unequal "
+                f"entries {s['unequal_entries']}")
     return shapes
 
 
@@ -1292,8 +1343,8 @@ def run_path(label, inp, cycle, want_per_cycle, want_at_init, n_windows=3,
         window_s.append(time.perf_counter() - begin)
     launches = {name: fn.launches for name, fn in counters.items()}
     n_cycles = n_warmup + n_windows * cycles_per_window
-    want = {name: want_at_init.get(name, 0) + n * n_cycles
-            for name, n in want_per_cycle.items()}
+    want = {name: want_at_init.get(name, 0) + want_per_cycle.get(name, 0) * n_cycles
+            for name in counters}
     if launches != want:
         raise AssertionError(f"{label}: kernel launches {launches}, expected {want}")
 
@@ -1772,7 +1823,8 @@ def run_scan(label, inp, rgbd: bool, want_per_step, want_at_init, n_windows: int
         window_s.append(time.perf_counter() - begin)
     launches = {name: fn.launches for name, fn in counters.items()}
     n_steps = (SCAN_FRAMES - 1) * (1 + n_windows)
-    want = {name: want_at_init.get(name, 0) + n * n_steps for name, n in want_per_step.items()}
+    want = {name: want_at_init.get(name, 0) + want_per_step.get(name, 0) * n_steps
+            for name in counters}
     if launches != want:
         raise AssertionError(f"{label}: kernel launches {launches}, expected {want}")
     poses = poses.cpu().numpy()
@@ -2008,7 +2060,7 @@ def run_serve(label, inp, seq, models, n_bodies: int, rgbd: bool, want_per_step:
         raise AssertionError(f"{label}: the fused serve backend was not built: "
                              f"{printed.getvalue()!r}")
     got = launches()
-    want = {name: n * n_frames for name, n in want_per_step.items()}
+    want = {name: want_per_step.get(name, 0) * n_frames for name in counters}
     if got != want or any(start_launches.values()):
         raise AssertionError(f"{label}: kernel launches {got} (starting step "
                              f"{start_launches}), expected {want} and none at the start")
@@ -3534,7 +3586,8 @@ def run_phase11(root: Path):
     # occlusion sequence's hidden partners, B = 90, through the entry point's
     # configuration; then the entry point itself in a process of its own.
     run = card_eval("11r rbot", rbot_case(ds, names, EVAL_RBOT_SEQUENCES), pipeline,
-                    "tracking_cycle", ("sample_lines", "bin_counts", "query_eval"))
+                    "tracking_cycle",
+                    ("sample_lines", "bin_counts", "query_eval", "newton_step"))
     res = run["results"]
     n_runs = len(res["per_run"])
     rbot = dict(batch=n_runs + len(names), runs=n_runs, frames=EVAL_RBOT_FRAMES,
@@ -3572,13 +3625,15 @@ def run_phase11(root: Path):
     # Choi through the serve path.
     fused = {
         "ycb": (ycb_case(ds), pipeline, "tracking_cycle_rgbd",
-                ("sample_lines", "bin_counts", "sample_windows"), "add_auc", 0.8),
+                ("sample_lines", "bin_counts", "sample_windows", "newton_step"), "add_auc",
+                0.8),
         "rtb": (rtb_case(ds), pipeline, "tracking_cycle_kinematic",
                 ("sample_lines", "bin_counts", "sample_windows"), "add_auc", 0.8),
         "opt": (serve_case(ds, "opt"), metrics, "execute_tracking_step_maybe_fused",
-                ("sample_lines", "bin_counts", "sample_windows"), "auc", 0.7),
+                ("sample_lines", "bin_counts", "sample_windows", "newton_step"), "auc", 0.7),
         "choi": (serve_case(ds, "choi"), metrics, "execute_tracking_step_maybe_fused",
-                 ("sample_lines", "bin_counts", "sample_windows"), None, None)}
+                 ("sample_lines", "bin_counts", "sample_windows", "newton_step"), None,
+                 None)}
     for label, (make, owner, name, want, score, floor) in fused.items():
         run = card_eval(f"11 {label}", make, owner, name, want)
         res = run["results"]
@@ -3645,7 +3700,8 @@ REC_SIZE = (640, 480)  # 12r: the size of the video device's frames
 GEN_ITERATIONS = 10    # 12g: --max-iterations of the generated trackers
 STUDY_CPU_FRAMES = 5   # 12x: RBOT frames per sequence of the CPU comparison
 # 12r, 12g: the launches of one region tracking step through the fused backend (9l's)
-STEP_LAUNCHES = {"sample_lines": 6, "bin_counts": 2, "sample_windows": 0, "query_eval": 0}
+STEP_LAUNCHES = {"sample_lines": 6, "bin_counts": 2, "sample_windows": 0, "query_eval": 0,
+                 "newton_step": 10}
 
 
 def recorded_pose(i: int) -> np.ndarray:
@@ -4057,7 +4113,7 @@ def study_cases(ds, names) -> dict:
     grid entry and its two values (parameter_study.py: its --param), the evaluator's
     module and class, the attributes bound to it, the module attributes set (the YCB
     study's BODY_NAMES), the fused call counted per cycle (owner, name), and whether
-    every cycle must launch each of K1, K2 (and K3))."""
+    every cycle must launch each of K1, K2 (and K3, and K5 on a rigid cycle))."""
     from m3t_tpu_torch import pipeline
     from m3t_tpu_torch.eval import (choi_evaluator, metrics, opt_evaluator, rbot_evaluator,
                                     rtb_evaluator, ycb_evaluator)
@@ -4072,24 +4128,25 @@ def study_cases(ds, names) -> dict:
     rbot = [str(ds["rbot"]), str(ds["rbot_ext"]), "--bodies", *names,
             "--sequences", *EVAL_RBOT_SEQUENCES]
     region = ("sample_lines", "bin_counts")
+    rigid = region + ("newton_step",)
     return {
         "parameter_study rbot": (
             parameter_study, ["rbot", *rbot], ("n_lines_max", [100, 200]),
             rbot_evaluator, "RBOTEvaluator",
             dict(region_model_setter=rbot_model, n_frames=EVAL_RBOT_FRAMES), {},
-            (pipeline, "tracking_cycle"), region),
+            (pipeline, "tracking_cycle"), rigid),
         "rbot": (
             parameter_study_rbot_dataset, [*rbot, "--fused", "--n-frames",
                                            str(EVAL_RBOT_FRAMES)],
             ("region_modality.n_lines_max", [100, 200]), rbot_evaluator, "RBOTEvaluator",
-            dict(region_model_setter=rbot_model), {}, (pipeline, "tracking_cycle"), region),
+            dict(region_model_setter=rbot_model), {}, (pipeline, "tracking_cycle"), rigid),
         "ycb": (
             parameter_study_ycb_dataset, [str(ds["ycb"]), str(ds["ycb_ext"]), "--sequences",
                                           *map(str, EVAL_YCB_SEQUENCES)],
             ("tracker.n_corr_iterations", [4, 2]), ycb_evaluator, "YCBEvaluator",
             dict(region_model_setter=model, depth_model_setter=model),
             {"BODY_NAMES": list(EVAL_YCB_BODIES)}, (pipeline, "tracking_cycle_rgbd"),
-            region + ("sample_windows",)),
+            rigid + ("sample_windows",)),
         "rtb": (
             parameter_study_rtb_dataset, [str(ds["rtb"]), str(ds["rtb"]), "--objects",
                                           "two_link", "--difficulties", "easy", "--depths",
@@ -4108,7 +4165,7 @@ def study_cases(ds, names) -> dict:
                                            "kinect_box"],
             ("tracker.n_corr_iterations", [4, 2]), choi_evaluator, "ChoiEvaluator",
             dict(region_model_setter=model, depth_model_setter=model), {},
-            (metrics, "execute_tracking_step_maybe_fused"), region + ("sample_windows",)),
+            (metrics, "execute_tracking_step_maybe_fused"), rigid + ("sample_windows",)),
     }
 
 
@@ -4164,7 +4221,8 @@ def run_study(case, values, device="cuda", argv_extra=(), bound_extra=None) -> d
 def run_studies(ds, names) -> dict:
     """12p: each study over its two-value grid on the card: per row its printed scores,
     seconds, cycles (fused cycles or tracking steps) and the launches of each kernel per
-    cycle; on the fused paths every cycle launches K1 and K2 (and K3 with depth), and
+    cycle; on the fused paths every cycle launches K1 and K2 (and K3 with depth, K5 on
+    the rigid cycles), and
     every kernel call equals its twin.  Two
     faults of the JAX studies show on the card as they do in the CPU tests (ROADMAP
     Queue C): parameter_study.py's RBOT rows and the YCB study's n_corr_iterations rows
@@ -4277,20 +4335,21 @@ BENCH_LATENCY_KEYS = {"metric", "value", "unit", "vs_baseline", "latency_ms_per_
 BENCH_TIMEOUT_S = 240.0
 BENCH_CYCLES = 3  # 13k: cycles after StartModality
 # 13k: kernel launches per cycle of each bench mode (the kinematic modes start from
-# uniform histograms: no StartModality launch).
+# uniform histograms: no StartModality launch; their KKT step launches no newton_step).
 BENCH_LAUNCHES = {
-    "region": {"sample_lines": 6, "bin_counts": 2},
-    "rgbd": {"sample_lines": 6, "bin_counts": 2, "sample_windows": 5},
-    "ycb": {"sample_lines": 5, "bin_counts": 2, "sample_windows": 12},
-    "occlusion": {"sample_lines": 6, "bin_counts": 2, "query_eval": 5},
+    "region": {"sample_lines": 6, "bin_counts": 2, "newton_step": 10},
+    "rgbd": {"sample_lines": 6, "bin_counts": 2, "sample_windows": 5, "newton_step": 10},
+    "ycb": {"sample_lines": 5, "bin_counts": 2, "sample_windows": 12, "newton_step": 8},
+    "occlusion": {"sample_lines": 6, "bin_counts": 2, "query_eval": 5, "newton_step": 10},
     "kinematic": {"sample_lines": 6, "bin_counts": 2, "query_eval": 5},
     "kinematic_rgbd": {"sample_lines": 6, "bin_counts": 2, "sample_windows": 5,
                        "query_eval": 5},
-    "latency": {"sample_lines": 6, "bin_counts": 2}}
+    "latency": {"sample_lines": 6, "bin_counts": 2, "newton_step": 10}}
 # Phase 8c's cycle: three scene evaluations per correspondence iteration (region checks and
-# modeled occlusions, depth modeled occlusions, silhouette check) over the B x C batch.
+# modeled occlusions, depth modeled occlusions, silhouette check) over the B x C batch, and
+# one Newton step of every body after each camera sum.
 MULTICAMERA_LAUNCHES = {"sample_lines": 6, "bin_counts": 2, "sample_windows": 5,
-                        "query_eval": 15}
+                        "query_eval": 15, "newton_step": 10}
 
 
 def run_bench_cli(mode: str, card: str) -> dict:
@@ -4759,7 +4818,9 @@ def kernel_line(shapes, paths, evaluation, phase12, phase13):
             ("sample_lines", REGION_SOURCE, "m3t_tpu/ops/region_fast.py:232", "region"),
             ("bin_counts", REGION_SOURCE, "m3t_tpu/ops/region_fast.py:723", "region"),
             ("sample_windows", DEPTH_SOURCE, "m3t_tpu/ops/depth_fast.py:98", "rgbd"),
-            ("query_eval", OCCLUSION_SOURCE, "m3t_tpu/ops/occlusion.py:347", "occlusion")):
+            ("query_eval", OCCLUSION_SOURCE, "m3t_tpu/ops/occlusion.py:347", "occlusion"),
+            ("newton_step", NEWTON_SOURCE,
+             "m3t_tpu/pipeline.py:345 (no Pallas kernel: XLA fuses the step)", "region")):
         rows = [s for s in shapes if s["kernel"] == name]
 
         def per_cycle(key, rows=rows):
@@ -4775,6 +4836,8 @@ def kernel_line(shapes, paths, evaluation, phase12, phase13):
             bound_by=max(("bytes", "operations"), key=lambda by, rows=rows: sum(
                 s["bound_ms"] * s["per_cycle"] for s in rows if s["bound_by"] == by)),
             library_ms=None if None in library else per_cycle("library_ms"),
+            **({"plain_graph_ms": per_cycle("plain_graph_ms")}
+               if all("plain_graph_ms" in s for s in rows) else {}),
             host_path_launches=sum(paths[p]["kernel_launches"]
                                    for p in ("host_occluded", "host_structures")),
             eval_launches={label: evaluation[label]["launches"][name]
@@ -4832,8 +4895,10 @@ def main() -> int:
     took("phases 1, 0m and the kernels' build")
     shapes = check_kernels(inp, kin)
     took("phase 2")
+    # Every rigid cycle launches newton_step once per Newton step (5 x 2; YCB 4 x 2), the
+    # articulated cycles never; StartModality takes no step.
     region_launches = {"sample_lines": 6, "bin_counts": 2, "sample_windows": 0,
-                       "query_eval": 0}
+                       "query_eval": 0, "newton_step": 10}
     at_init = {"sample_lines": 1, "bin_counts": 2}
     paths, tensors = {}, {}
     paths["region"], tensors["region"] = run_path(
@@ -4846,7 +4911,8 @@ def main() -> int:
     # either modality.
     paths["ycb"], tensors["ycb"] = run_path(
         "ycb", inp, rgbd_cycle("ycb_pcfg"),
-        {"sample_lines": 5, "bin_counts": 2, "sample_windows": 12, "query_eval": 0},
+        {"sample_lines": 5, "bin_counts": 2, "sample_windows": 12, "query_eval": 0,
+         "newton_step": 8},
         at_init, n_windows=1)
     # bench.py --occlusion: one combined scene evaluation per correspondence iteration.
     paths["occlusion"], tensors["occlusion"] = run_path(
@@ -4854,13 +4920,12 @@ def main() -> int:
         dict(region_launches, query_eval=5), at_init)
     # bench.py --kinematic and --kinematic-rgbd: the region path's launches plus one
     # combined scene evaluation per correspondence iteration (and the RGB-D path's
-    # window fetches).
+    # window fetches), and no newton_step.
     paths["kinematic"], tensors["kinematic"] = run_path(
-        "kinematic", kin, kinematic_cycle("pcfg"), dict(region_launches, query_eval=5),
-        at_init)
+        "kinematic", kin, kinematic_cycle("pcfg"), BENCH_LAUNCHES["kinematic"], at_init)
     paths["kinematic_rgbd"], tensors["kinematic_rgbd"] = run_path(
         "kinematic_rgbd", kin, kinematic_cycle("rgbd_pcfg"),
-        dict(region_launches, sample_windows=5, query_eval=5), at_init)
+        BENCH_LAUNCHES["kinematic_rgbd"], at_init)
     # No depth crop on the RGB-D paths: no aten operation of a cycle reads the frame.
     reads = {label: depth_frame_reads(path_inp, cycle, tensors[label])
              for label, path_inp, cycle in (
@@ -4922,7 +4987,7 @@ def main() -> int:
     # fused serve backend: the region and RGB-D graphs at B=512 (9s, 9d) and at B=1
     # (9l), each step beside the bare cycle of the same path (phases 3 and 4).
     serve_launches = {"sample_lines": 6, "bin_counts": 2, "sample_windows": 0,
-                      "query_eval": 0}
+                      "query_eval": 0, "newton_step": 10}
     for label, bodies, rgbd, steps, bare in (
             ("serve", N_BODIES, False, 5, "region"),
             ("serve_rgbd", N_BODIES, True, 5, "rgbd"),

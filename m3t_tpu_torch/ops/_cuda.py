@@ -91,6 +91,8 @@ def library() -> ctypes.CDLL:
     lib.m3t_sample_windows.restype = i32
     lib.m3t_query_eval.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
     lib.m3t_query_eval.restype = i32
+    lib.m3t_newton_step.argtypes = [ptr] * 4 + [i32, ctypes.c_float, ctypes.c_float, ptr]
+    lib.m3t_newton_step.restype = i32
     return lib
 
 

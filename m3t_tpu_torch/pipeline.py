@@ -32,8 +32,9 @@ Hot-path structure:
      modeled-occlusion, region and silhouette checks sample (or, with
      ``occlusion_queries=False``, the scene is rasterized into focused crops);
   3. per update iteration: gradient/Hessian (region, depth and texture terms) and a
-     batched Tikhonov 6x6 LDLT Newton step (articulated: the KKT step of every
-     structure, the link poses recomputed from the joint state before each);
+     batched Tikhonov 6x6 LDLT Newton step, the ``newton_step`` kernel (ops/newton.py;
+     articulated: the KKT step of every structure, the link poses recomputed from the
+     joint state before each);
   4. histogram adaptation: ``sample_lines`` in bins mode walks the fg/bg color lines and
      the ``bin_counts`` kernel counts the bins.
 
@@ -51,10 +52,11 @@ import torch
 import torch.distributed
 
 from m3t_tpu_torch import graphs
-from m3t_tpu_torch.common import pose_variation, resolve_device
+from m3t_tpu_torch.common import resolve_device
 from m3t_tpu_torch.ops import depth_fast, depth_fn, occlusion, texture_fn
 from m3t_tpu_torch.ops import histogram as hist_ops
 from m3t_tpu_torch.ops import kinematics as kin_ops
+from m3t_tpu_torch.ops import newton
 from m3t_tpu_torch.ops import region_fast
 from m3t_tpu_torch.ops.depth_fn import DepthConfig, DepthViewPoints
 from m3t_tpu_torch.ops.region_fast import ViewPointsCL
@@ -435,40 +437,6 @@ def _prepare_crops(pcfg: PipelineConfig, intr, images, poses):
     return bin_crop, corner_u, corner_v
 
 
-def _ldlt_solve_6x6(a, b):
-    """Unrolled batched LDLT solve for symmetric 6x6 systems: a (B, 6, 6), b (B, 6).
-
-    The Tikhonov-regularized system is symmetric positive definite, so the reference's
-    LDLT (optimizer.cpp:162-163) applies; every operation is elementwise over the batch.
-    """
-    n = 6
-    low = [[None] * n for _ in range(n)]
-    diag = [None] * n
-    for j in range(n):
-        s = a[:, j, j]
-        for k in range(j):
-            s = s - low[j][k] * low[j][k] * diag[k]
-        diag[j] = s
-        for i in range(j + 1, n):
-            t = a[:, i, j]
-            for k in range(j):
-                t = t - low[i][k] * low[j][k] * diag[k]
-            low[i][j] = t / s
-    y = [None] * n
-    for i in range(n):
-        t = b[:, i]
-        for k in range(i):
-            t = t - low[i][k] * y[k]
-        y[i] = t
-    x = [None] * n
-    for i in reversed(range(n)):
-        t = y[i] / diag[i]
-        for k in range(i + 1, n):
-            t = t - low[k][i] * x[k]
-        x[i] = t
-    return torch.stack(x, dim=1)
-
-
 def _solve_and_update(pcfg: PipelineConfig, gradient, hessian, pose, group=None):
     """Batched Tikhonov-regularized Newton step (optimizer.cpp:144-167, single link).
 
@@ -482,17 +450,9 @@ def _solve_and_update(pcfg: PipelineConfig, gradient, hessian, pose, group=None)
         group = group.to(torch.int64)
         gradient = torch.zeros_like(gradient).index_add_(0, group, gradient)[group]
         hessian = torch.zeros_like(hessian).index_add_(0, group, hessian)[group]
-    # Filled on the device (no host-to-device copy), as the articulated step does.
-    diagonal = torch.full((6,), pcfg.tikhonov_rotation, dtype=torch.float32,
-                          device=pose.device)
-    diagonal[3:] = pcfg.tikhonov_translation
-    a = -hessian + torch.diag(diagonal)[None, :, :]
-    theta = _ldlt_solve_6x6(a, gradient)
-    theta = torch.where(torch.isnan(theta).any(dim=-1, keepdim=True),
-                        torch.zeros_like(theta), theta)
-    # Single root link with identity body2joint: pose' = pose @ variation
-    # (link.cpp:236-238 with body2joint == I).
-    return pose @ pose_variation(theta)
+    return newton.newton_step(gradient.contiguous(), hessian.contiguous(),
+                              pose.contiguous(), pcfg.tikhonov_rotation,
+                              pcfg.tikhonov_translation)
 
 
 def _region_terms(pcfg: PipelineConfig, intr, scale, points, poses, n_lines,

@@ -28,7 +28,7 @@ import pytest
 import torch
 
 from m3t_tpu_torch import graphs, parallel, pipeline
-from m3t_tpu_torch.ops import depth_fast, occlusion, region_fast
+from m3t_tpu_torch.ops import depth_fast, newton, occlusion, region_fast
 from m3t_tpu_torch.ops.texture_fn import TexturePoints
 from m3t_tpu_torch.parallel import dryrun
 
@@ -383,6 +383,17 @@ def test_numpy_camera_values_run_as_numbers(cpu_calls):
     assert _equal(fn(*args, **kwargs), want)
 
 
+# Every hand-written kernel's wrapper, each of which counts its launches.
+KERNEL_COUNTERS = (region_fast.sample_lines, region_fast.bin_counts,
+                   depth_fast.sample_windows, occlusion.query_eval, newton.newton_step)
+
+
+def test_kernel_counters_are_every_wrapper():
+    """A graph adds the launches of exactly the five kernel wrappers to their counts."""
+    counted = tuple(getattr(module, name) for module, name in graphs._kernel_counters())
+    assert counted == KERNEL_COUNTERS
+
+
 # ---------------------------------------------------------------------------------------
 # On the card (marker "cuda")
 # ---------------------------------------------------------------------------------------
@@ -466,8 +477,7 @@ def test_graph_launch_counts_per_replay(cuda_calls, name):
     """Every call counts its eager twin's kernel launches: the capturing call its
     warm-up's, each replay those the capture recorded."""
     fn, args, kwargs = cuda_calls[name]
-    counters = (region_fast.sample_lines, region_fast.bin_counts, depth_fast.sample_windows,
-                occlusion.query_eval)
+    counters = KERNEL_COUNTERS
 
     def counted(call):
         before = [c.launches for c in counters]
@@ -508,10 +518,6 @@ def test_capture_failure_raises(cuda_calls):
         eager = _chain(fn, args, kwargs, 2)
     for want, got in zip(eager, _chain(fn, args, kwargs, 2)):
         assert _equal(want, got)
-
-
-KERNEL_COUNTERS = (region_fast.sample_lines, region_fast.bin_counts,
-                   depth_fast.sample_windows, occlusion.query_eval)
 
 
 @pytest.mark.cuda

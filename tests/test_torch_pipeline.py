@@ -28,6 +28,7 @@ from m3t_tpu.ops.region_fn import RegionConfig as JRegionConfig
 from m3t_tpu_torch import common as tcommon
 from m3t_tpu_torch import pipeline as tpipe
 from m3t_tpu_torch.ops import histogram as thist
+from m3t_tpu_torch.ops import newton as tnewton
 from m3t_tpu_torch.ops.depth_fn import DepthConfig as TDepthConfig
 from m3t_tpu_torch.ops.region_fn import RegionConfig as TRegionConfig
 from tests import fixtures
@@ -90,7 +91,7 @@ def test_ldlt_solve_matches_jax(rng):
     a = np.einsum("bij,bkj->bik", h, h) + np.eye(6, dtype=np.float32) * 1000.0
     b = rng.normal(size=(64, 6)).astype(np.float32)
     want = np.asarray(jpipe._ldlt_solve_6x6(jnp.asarray(a), jnp.asarray(b)))
-    got = tpipe._ldlt_solve_6x6(_t(a), _t(b)).numpy()
+    got = tnewton._ldlt_solve_6x6(_t(a), _t(b)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-8)
 
 
