@@ -1,0 +1,16 @@
+"""Device milliseconds per cycle of the articulated cycle's `kkt_solve` stage: the
+batched KKT solve and the joint update (`kinematics.update_structures`), each update
+iteration. Read off the event nodes that mark the stages inside the cycle's CUDA graph,
+over the traced stretch's replays of `tracking_cycle_kinematic` (harness/stages.py);
+nothing where the program marks no such stage."""
+
+from benchmark.harness import stages
+
+GRAPH = "tracking_cycle_kinematic"
+
+
+def read(run):
+    found = stages.report()
+    if found is None or "kkt_solve" not in found.stages.get(GRAPH, {}):
+        return None
+    return stages.stage_ms("kkt_solve", graph=GRAPH)

@@ -96,7 +96,9 @@ into the static buffers and ``graphs.clone`` around the outputs' clones, so that
 stages tile it from the first copy to the last clone.  The graph's events are recorded
 anew by every replay, so a traced replay's marks are read before the graph's next
 replay (or by ``timing.report()``); :func:`clear_graphs` leaves what the tracer holds.
-``_Graph.load`` counts the bytes it copies, ``graphs.copy_bytes``.
+``_Graph.load`` counts the bytes it copies, ``graphs.copy_bytes``; the counts that the
+function makes (``timing.count``) are taken into the graph at its capture and counted
+again by every replay.
 
 Collectives between captured segments.  The JAX package's multi-camera cycles sum their
 cameras' terms with a ``psum`` inside the jitted program.  A CUDA graph cannot hold a
@@ -378,6 +380,7 @@ class _Graph:
         self.warmup_s = self.capture_s = 0.0
         self.replays = 0
         self.marks = []  # the captured stage marks, [(name, external event)]
+        self.counts = []  # the captured counts, [(name, n)], counted by every replay
         self.pending = None  # the call record of a traced replay, its marks unread
 
     def info(self) -> GraphInfo:
@@ -425,6 +428,8 @@ class _Graph:
                     fn(tensor)
         for (module, name), n in self.launches:
             getattr(module, name).launches += n
+        for name, n in self.counts:
+            timing.count(name, n)
         self.replays += 1
         with timing.span("graphs.clone"):
             timing.stage("graphs.clone")
@@ -483,7 +488,7 @@ def _capture(fn, bound: inspect.BoundArguments, static: frozenset, leaves: list,
         entry.pool = _POOLS[device]
         begin = time.perf_counter()
         try:
-            with _tracing(entry), timing.capturing(entry.marks), \
+            with _tracing(entry), timing.capturing(entry.marks, entry.counts), \
                     torch.cuda.stream(side):
                 entry.begin_segment()
                 try:

@@ -26,6 +26,7 @@ import torch
 from m3t_tpu_torch.common import (adjoint, pose_inverse, pose_variation, resolve_device,
                                   skew, so3_log, xcotx)
 from m3t_tpu_torch.ops.depth_fn import rdiv
+from m3t_tpu_torch.utils import timing
 
 _DTYPES = dict(parent=torch.int32, link_valid=torch.bool, c_link1=torch.int32,
                c_link2=torch.int32, c_valid=torch.bool, s_link1=torch.int32,
@@ -251,6 +252,20 @@ def _solve(a, b):
         torch.backends.cuda.preferred_linalg_library(preferred)
 
 
+def kkt_rows(model: KinematicModel) -> int:
+    """Rows of each structure's KKT system in the full-width layout: NL * 6 + NC * 6."""
+    return (model.n_links + model.c_link1.shape[1]) * 6
+
+
+def count_work(model: KinematicModel) -> None:
+    """Count one cycle's structures, links and KKT rows (utils/timing counters
+    ``kinematics.structures``, ``kinematics.links`` and ``kinematics.kkt_rows``)."""
+    s, nl = model.parent.shape
+    timing.count("kinematics.structures", s)
+    timing.count("kinematics.links", s * nl)
+    timing.count("kinematics.kkt_rows", s * kkt_rows(model))
+
+
 def update_structures(model: KinematicModel, joint2parent, gradients, hessians,
                       tikhonov_rotation: float, tikhonov_translation: float):
     """One Newton step for S structures, soft constraints included
@@ -260,13 +275,18 @@ def update_structures(model: KinematicModel, joint2parent, gradients, hessians,
     the per-link modality sums in the body frame (link.cpp:184-193).  The (NL*6 + NC*6)^2 KKT systems are solved in
     one batched call (_solve), and nothing is copied from the host, so the host never
     waits on the device here; a step that is not finite (a singular system) becomes zero.
-    Returns the updated joint2parent (S, NL, 4, 4)."""
+    Returns the updated joint2parent (S, NL, 4, 4).
+
+    Two stages are marked (utils/timing.stage): ``kinematic_terms`` (forward
+    kinematics, the link Jacobians, the soft and hard constraint terms and the KKT
+    assembly) and ``kkt_solve`` (the batched solve and the pose update)."""
     s, nl = model.parent.shape
     nc = model.c_link1.shape[1]
     d = nl * 6
-    size = d + nc * 6
+    size = kkt_rows(model)
     dev = joint2parent.device
 
+    timing.stage("kinematic_terms")
     body2camera = forward_kinematics(model, joint2parent)
     jac = link_jacobians(model, joint2parent)
 
@@ -305,6 +325,7 @@ def update_structures(model: KinematicModel, joint2parent, gradients, hessians,
                           torch.where(row_active, diag[:, d:], one[:, d:])], dim=-1))
     b = b * torch.cat([col_free, row_active], dim=-1)
 
+    timing.stage("kkt_solve")
     theta = _solve(a, b[..., None])[..., 0]
     theta = torch.where(torch.isfinite(theta).all(dim=-1, keepdim=True), theta,
                         torch.zeros_like(theta))

@@ -656,6 +656,9 @@ STAGE_PHASES = {
     "texture_gradient_hessian": "calculate_gradient_and_hessian",
     "camera_sum": "calculate_gradient_and_hessian",  # the cameras' terms summed
     "newton_step": "calculate_optimization",  # poses.step
+    # The KKT step of the articulated cycles (ops/kinematics.update_structures).
+    "kinematic_terms": "calculate_optimization",  # kinematics, Jacobians, constraints
+    "kkt_solve": "calculate_optimization",  # the batched solve, the pose update
     "histogram_walk": "calculate_results",  # the last view, histogram_walk_geometry
     "histogram_count": "calculate_results",  # K1 in bins mode, both K2 calls
     "histogram_blend": "calculate_results",  # both calculate_histogram calls
@@ -940,10 +943,12 @@ def tracking_cycle_kinematic(pcfg: PipelineConfig, intr, images, model: RegionMo
     add per-link depth terms when ``pcfg.use_depth`` (the Mb-ICG/RTB configuration,
     link.cpp:184-193), always with depth_cfg.n_points_max points.  texture_points
     (leading B) add texture terms when ``pcfg.use_texture``.  As in the reference, the
-    region lines take no measured occlusions here.
+    region lines take no measured occlusions here.  Each call counts its structures,
+    links and KKT rows (kin_ops.count_work).
     """
     s, nl = kin.parent.shape
     n_hist = state.histogram_f.shape[-1]
+    kin_ops.count_work(kin)
     depth = None
     if pcfg.use_depth and depth_images is not None:
         timing.stage("depth_correspondences")

@@ -14,7 +14,9 @@ profiler's timeline shows it beside the kernels.  A span times the host: around 
 the card it measures what the host waited for only where that work ends in a
 synchronizing read.
 
-Counters (:func:`count`) add while the tracer is on.
+Counters (:func:`count`) add while the tracer is on.  A count made inside a graphed
+function is taken into its graph at the capture, and each replay adds it again, so a
+graphed call counts what its eager twin counts.
 
 Device marks (:func:`stage`).  A graphed call (``graphs.graphed``) opens a call record,
 and ``stage(name)`` marks where, on the device's stream, the call's work passes to the
@@ -132,6 +134,7 @@ class _Local(threading.local):
         self.spans = []      # open spans, innermost last
         self.calls = []      # open call records, innermost last
         self.sink = None     # the marks list of the graph being captured
+        self.counts = None   # the counts list of the graph being captured
 
 
 class Tracer:
@@ -321,7 +324,12 @@ def stage_seconds() -> dict:
 
 
 def count(name: str, n: int = 1) -> None:
-    if TRACER.depth > 0 or _profiler._is_profiler_enabled:
+    """Add n to counter ``name``: into the graph being captured (each replay adds it),
+    else at once while the tracer is on."""
+    counts = TRACER.local.counts
+    if counts is not None:
+        counts.append((name, n))
+    elif TRACER.depth > 0 or _profiler._is_profiler_enabled:
         TRACER.counters[name] += n
 
 
@@ -429,14 +437,16 @@ def stage(name: str | None) -> None:
 
 
 @contextlib.contextmanager
-def capturing(marks: list):
-    """Inside the block, marks go into ``marks``: a graph's capture."""
+def capturing(marks: list, counts: list):
+    """Inside the block, marks go into ``marks`` and counts into ``counts``: a graph's
+    capture."""
     local = TRACER.local
-    saved, local.sink = local.sink, marks
+    saved = local.sink, local.counts
+    local.sink, local.counts = marks, counts
     try:
         yield
     finally:
-        local.sink = saved
+        local.sink, local.counts = saved
 
 
 class ExecutionTimer:

@@ -80,7 +80,7 @@ def _expected_stages(name: str, pcfg) -> list:
     prologue (the RGB-D cycles' depth crop corners), per correspondence iteration the
     scene, the view, the region lines (measured occlusions from the depth frames
     first) and the depth terms, per update iteration the gradient terms and the Newton
-    step, then the histograms."""
+    step (the articulated cycle's KKT step in its two stages), then the histograms."""
     rgbd, kinematic = name == "rgbd", name == "kinematic"
     depth = pcfg.use_depth and (rgbd or kinematic)
     stages = ["graphs.run"] + ["depth_correspondences"] * depth + ["crops"]
@@ -95,6 +95,7 @@ def _expected_stages(name: str, pcfg) -> list:
             stages += ["depth_gradient_hessian"] * depth
             stages += ["texture_gradient_hessian"] * (rgbd and pcfg.use_texture)
             stages.append("newton_step")
+            stages += ["kinematic_terms", "kkt_solve"] * kinematic
     return stages + ["histogram_walk", "histogram_count", "histogram_blend"]
 
 
@@ -392,3 +393,20 @@ def test_the_tracer_leaves_graph_outputs_as_they_are(cuda_calls, name):
     for a, b, c in zip(untraced, traced, eager):
         for x, y, z in zip(a, b, c):
             assert torch.equal(x, y) and torch.equal(x, z)
+
+
+@pytest.mark.cuda
+def test_kinematic_counters_count_every_replay(cuda_calls):
+    """The articulated cycle's counters (taken into its graph at the capture) count the
+    first call and each replay: S structures, S * NL links, S * (NL + NC) * 6 KKT rows."""
+    from m3t_tpu_torch.ops import kinematics as kin_ops
+
+    fn, args, kwargs = cuda_calls["kinematic"]
+    kin = args[4]
+    s, nl = kin.parent.shape
+    with timing.tracing():
+        _replays(fn, args, kwargs, 2)
+    assert timing.report().counters == {
+        "graphs.copy_bytes": timing.report().counters["graphs.copy_bytes"],
+        "kinematics.structures": 3 * s, "kinematics.links": 3 * s * nl,
+        "kinematics.kkt_rows": 3 * s * kin_ops.kkt_rows(kin)}
