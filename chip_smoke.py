@@ -28,15 +28,18 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      all four scene checks, on 1600 random triangles, which take four shared-memory
      tiles, on the calls of one kinematic cycle (B=512 per-link scenes), and on the
      adversarial case at B=512 (adversarial_queries)); newton_step on the first Newton
-     step of one region cycle (B=512) and on its body 0 alone; every result must equal
+     step of one region cycle (B=512) and on its body 0 alone; scene_coeffs on the first
+     focused scenes of one occlusion-path cycle and of one kinematic cycle, and on the
+     kinematic cell's shape (robot_scenes: 1792 scenes of 2240 triangles, its four
+     outputs, not only what the queries read); every result must equal
      its twin exactly (query_eval's inverse depths bit for bit), but newton_step's poses
      within NEWTON_STEP_ATOL (its pose @ variation sums in another order), here and
      wherever a recorded call is held against its twin.  Each
      kernel is timed twice: by replaying a CUDA graph of 20 calls (``ms``, the host
      left out) and by 20 eager calls (``eager_ms``); the twins and torch.bincount
      eagerly, torch.take (sample_windows' yardstick: the same windows from a float32
-     copy of the zero-padded frames) by graph replay, newton_step's twin both ways.
-     query_eval's rows add the work its inputs ask for (query_work);
+     copy of the zero-padded frames) by graph replay, newton_step's and scene_coeffs'
+     twins both ways.  query_eval's rows add the work its inputs ask for (query_work);
   3. the flagship region cycle, bench.py's default workload: B=512 bodies, 640x512
      frames, 200 lines, scales {6,4,2,1}, 5 correspondence x 2 update iterations,
      histogram adaptation, the sphere model of phase 0m, through initialize_histograms
@@ -53,7 +56,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
   6. the flagship occlusion path, bench.py --occlusion: phase 3 with modeled occlusions
      and region checking against the focused scene (the tracked sphere decimated to 98
      triangles, 128x128 focused crop), evaluated at the current pose every
-     correspondence iteration through query_eval (5 launches per cycle);
+     correspondence iteration through scene_coeffs and query_eval (5 launches each per
+     cycle);
   6k. the articulated paths, bench.py --kinematic and --kinematic-rgbd: S=256 two-link
      structures (B=512 links) of the committed bench structure
      (m3t_tpu_torch/data/bench_kinematic_model.npz: the sphere, a child sphere on a
@@ -352,6 +356,12 @@ FP32_OPS_PER_S = 67e12     # H100 SXM data sheet: float32 outside the tensor cor
 # pose @ variation.
 SAMPLE_LINES_OPS, BIN_COUNTS_OPS, SAMPLE_WINDOWS_OPS, QUERY_EVAL_OPS = 10, 4, 5, 27
 NEWTON_STEP_OPS = 399
+# scene_coeffs per triangle: 54 for the camera frame, 27 for the projections and inverse
+# depths, 18 for the edges, 4 for the area, 10 for the flags, sign and safe area, 18 for
+# the inverse-depth plane, 9 for the signs and 8 for the box; it reads the vertices,
+# owner, id and two flags (46 B) and writes the row, box, id and flag (69 B).
+SCENE_COEFFS_OPS = 148
+SCENE_COEFFS_BYTES = (36 + 4 + 4 + 1 + 1) + (48 + 16 + 4 + 1)
 # newton_step reads a body's gradient, Hessian and pose and writes its pose, float32.
 NEWTON_STEP_BYTES = (6 + 36 + 16 + 16) * 4
 # newton_step against its twin: every pose entry (the matmul's order parts a few ulps).
@@ -786,7 +796,8 @@ def kernel_modules():
     from m3t_tpu_torch.ops import depth_fast, newton, occlusion, region_fast
 
     return {"sample_lines": region_fast, "bin_counts": region_fast,
-            "sample_windows": depth_fast, "query_eval": occlusion, "newton_step": newton}
+            "sample_windows": depth_fast, "query_eval": occlusion, "newton_step": newton,
+            "scene_coeffs": occlusion}
 
 
 def launch_counters():
@@ -864,6 +875,8 @@ def twin_mismatches(calls) -> list:
         elif name == "newton_step":
             same = torch.allclose(got, want, rtol=0.0, atol=NEWTON_STEP_ATOL,
                                   equal_nan=True)
+        elif name == "scene_coeffs":
+            same = all(torch.equal(x, y) for x, y in zip(got, want))
         else:
             same = torch.equal(got, want)
         if not same:
@@ -1107,11 +1120,62 @@ def newton_step_row(name, args, per_cycle):
                 library_ms=None, **bound(NEWTON_STEP_BYTES * b, NEWTON_STEP_OPS * b))
 
 
+def robot_scenes(device, n_structures: int = 256, n_links: int = 7, seed: int = 6):
+    """scene_coeffs arguments at the kinematic cell's shape: n_structures chains of
+    n_links 320-face icospheres (r 3.5 cm, 7 cm apart, 0.75-0.9 m from a 1280x960
+    camera at fu = fv = 1000, each link moved by up to 1 cm), one scene per link holding
+    every link of its chain, focused on that link (200-pixel crops)."""
+    from m3t_tpu_torch.ops import occlusion
+    from m3t_tpu_torch.utils import procedural
+
+    vertices, triangles = procedural.icosphere(2, 0.035)
+    bodies = [occlusion.SceneBody(vertices, triangles, body_id=k + 1, region_id=k + 1)
+              for k in range(n_links)]
+    one = occlusion.build_kinematic_scene_geometry(
+        [bodies], referenced=[[k] for k in range(n_links)], device=device)
+    geom = type(one)(*(a.repeat((n_structures,) + (1,) * (a.dim() - 1)) for a in one))
+    rng = np.random.default_rng(seed)
+    links = np.tile(np.eye(4, dtype=np.float32), (n_structures, n_links, 1, 1))
+    links[..., 0, 3] = 0.07 * (np.arange(n_links) - (n_links - 1) / 2)
+    links[..., 2, 3] = rng.uniform(0.75, 0.9, (n_structures, 1))
+    links[..., :3, 3] += rng.uniform(-0.01, 0.01, (n_structures, n_links, 3))
+    poses = torch.as_tensor(np.repeat(links, n_links, axis=0), device=device)
+    projection = occlusion._focused_projection(geom, poses, (1000.0, 1000.0, 640.0, 480.0),
+                                               1280, 960, 200, 0.02, 10.0)[4]
+    return (geom.triangles, geom.owner, geom.sil_id, geom.tri_valid, geom.cull, poses,
+            *projection, 0.02)
+
+
+def scene_coeffs_row(name, args, per_cycle):
+    """scene_coeffs on args (its wrapper's arguments): its four outputs equal to its
+    twin's on the same inputs, times by graph replay and eagerly, the twin's both ways,
+    and the bound from SCENE_COEFFS_BYTES and SCENE_COEFFS_OPS a triangle."""
+    from m3t_tpu_torch.ops import occlusion
+
+    got = occlusion.scene_coeffs(*args)
+    want = occlusion.scene_coeffs_plain(*args)
+    torch.cuda.synchronize()
+    unequal = [field for field, x, y in zip(("coeffs", "tri_valid", "sil_id", "bbox"), got,
+                                            want) if not torch.equal(x, y)]
+    if unequal:
+        raise AssertionError(f"scene_coeffs {name}: kernel != plain in {unequal}")
+    b, t = args[0].shape[:2]
+    return dict(kernel="scene_coeffs", case=f"{name} B={b} T={t}", per_cycle=per_cycle,
+                max_abs_err=0.0, valid_share=float(got[1].float().mean()),
+                **kernel_times(lambda: occlusion.scene_coeffs(*args)),
+                plain_ms=time_ms(lambda: occlusion.scene_coeffs_plain(*args), 3, 3),
+                plain_graph_ms=time_ms(lambda: occlusion.scene_coeffs_plain(*args), 3, 3,
+                                       graph=True),
+                library_ms=None,
+                **bound(SCENE_COEFFS_BYTES * b * t, SCENE_COEFFS_OPS * b * t))
+
+
 def check_kernels(inp, kin):
     """Phase 2: every kernel against its plain twin at the flagship shapes (kin: the
     articulated paths' inputs).  Each row's ``per_cycle`` is its number of calls in one
     flagship cycle of its path (region for sample_lines, bin_counts and newton_step,
-    RGB-D for sample_windows, occlusion for query_eval; 0: not on that path)."""
+    RGB-D for sample_windows, occlusion for query_eval, kinematic for scene_coeffs; 0:
+    not on that path)."""
     from m3t_tpu_torch import pipeline
     from m3t_tpu_torch.ops import depth_fast as df
     from m3t_tpu_torch.ops import occlusion
@@ -1300,6 +1364,18 @@ def check_kernels(inp, kin):
     shapes.append(newton_step_row("region path", steps[0], len(steps)))
     shapes.append(newton_step_row("region path, body 0", tuple(
         a[:1].contiguous() if torch.is_tensor(a) else a for a in steps[0]), 0))
+    # scene_coeffs on the first focused scenes of one occlusion-path cycle and of one
+    # kinematic cycle, and at the kinematic cell's shape.
+    for label, path_inp, cycle, path_state, counted in (
+            ("occlusion path", occ, region_cycle, state, False),
+            ("kinematic path", kin, kinematic_cycle("pcfg"), None, True)):
+        path_bt = path_inp["kind"].batch(path_inp, b, dev)
+        with recorded_launches() as calls:
+            cycle(path_inp, path_bt, path_state if path_state is not None
+                  else path_inp["kind"].start(path_inp, path_bt))
+        scenes = [args for name, args, _, _ in calls if name == "scene_coeffs"]
+        shapes.append(scene_coeffs_row(label, scenes[0], len(scenes) if counted else 0))
+    shapes.append(scene_coeffs_row("robot scenes", robot_scenes(dev), 0))
     for s in shapes:
         library = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f}"
         log(f"{s['kernel']:<14} {s['case']:<44} x{s['per_cycle']} ms {s['ms']:.4f}"
@@ -1313,6 +1389,9 @@ def check_kernels(inp, kin):
         if s["kernel"] == "newton_step":
             log(f"{'':<14} {'':<44} plain graphed ms {s['plain_graph_ms']:.4f}  unequal "
                 f"entries {s['unequal_entries']}")
+        if s["kernel"] == "scene_coeffs":
+            log(f"{'':<14} {'':<44} plain graphed ms {s['plain_graph_ms']:.4f}  valid "
+                f"share {s['valid_share']:.4f}")
     return shapes
 
 
@@ -3587,7 +3666,8 @@ def run_phase11(root: Path):
     # configuration; then the entry point itself in a process of its own.
     run = card_eval("11r rbot", rbot_case(ds, names, EVAL_RBOT_SEQUENCES), pipeline,
                     "tracking_cycle",
-                    ("sample_lines", "bin_counts", "query_eval", "newton_step"))
+                    ("sample_lines", "bin_counts", "query_eval", "newton_step",
+                     "scene_coeffs"))
     res = run["results"]
     n_runs = len(res["per_run"])
     rbot = dict(batch=n_runs + len(names), runs=n_runs, frames=EVAL_RBOT_FRAMES,
@@ -4340,16 +4420,17 @@ BENCH_LAUNCHES = {
     "region": {"sample_lines": 6, "bin_counts": 2, "newton_step": 10},
     "rgbd": {"sample_lines": 6, "bin_counts": 2, "sample_windows": 5, "newton_step": 10},
     "ycb": {"sample_lines": 5, "bin_counts": 2, "sample_windows": 12, "newton_step": 8},
-    "occlusion": {"sample_lines": 6, "bin_counts": 2, "query_eval": 5, "newton_step": 10},
-    "kinematic": {"sample_lines": 6, "bin_counts": 2, "query_eval": 5},
+    "occlusion": {"sample_lines": 6, "bin_counts": 2, "query_eval": 5, "newton_step": 10,
+                  "scene_coeffs": 5},
+    "kinematic": {"sample_lines": 6, "bin_counts": 2, "query_eval": 5, "scene_coeffs": 5},
     "kinematic_rgbd": {"sample_lines": 6, "bin_counts": 2, "sample_windows": 5,
-                       "query_eval": 5},
+                       "query_eval": 5, "scene_coeffs": 5},
     "latency": {"sample_lines": 6, "bin_counts": 2, "newton_step": 10}}
-# Phase 8c's cycle: three scene evaluations per correspondence iteration (region checks and
-# modeled occlusions, depth modeled occlusions, silhouette check) over the B x C batch, and
-# one Newton step of every body after each camera sum.
+# Phase 8c's cycle: one focused scene per correspondence iteration over the B x C batch,
+# queried three times (region checks and modeled occlusions, depth modeled occlusions,
+# silhouette check), and one Newton step of every body after each camera sum.
 MULTICAMERA_LAUNCHES = {"sample_lines": 6, "bin_counts": 2, "sample_windows": 5,
-                        "query_eval": 15, "newton_step": 10}
+                        "query_eval": 15, "newton_step": 10, "scene_coeffs": 5}
 
 
 def run_bench_cli(mode: str, card: str) -> dict:
@@ -4820,7 +4901,10 @@ def kernel_line(shapes, paths, evaluation, phase12, phase13):
             ("sample_windows", DEPTH_SOURCE, "m3t_tpu/ops/depth_fast.py:98", "rgbd"),
             ("query_eval", OCCLUSION_SOURCE, "m3t_tpu/ops/occlusion.py:347", "occlusion"),
             ("newton_step", NEWTON_SOURCE,
-             "m3t_tpu/pipeline.py:345 (no Pallas kernel: XLA fuses the step)", "region")):
+             "m3t_tpu/pipeline.py:345 (no Pallas kernel: XLA fuses the step)", "region"),
+            ("scene_coeffs", OCCLUSION_SOURCE,
+             "m3t_tpu/ops/occlusion.py:232 focused_scene_coeffs (no Pallas kernel: XLA "
+             "fuses it)", "kinematic")):
         rows = [s for s in shapes if s["kernel"] == name]
 
         def per_cycle(key, rows=rows):
@@ -4917,7 +5001,7 @@ def main() -> int:
     # bench.py --occlusion: one combined scene evaluation per correspondence iteration.
     paths["occlusion"], tensors["occlusion"] = run_path(
         "occlusion", occlusion_path(inp), region_cycle,
-        dict(region_launches, query_eval=5), at_init)
+        dict(region_launches, query_eval=5, scene_coeffs=5), at_init)
     # bench.py --kinematic and --kinematic-rgbd: the region path's launches plus one
     # combined scene evaluation per correspondence iteration (and the RGB-D path's
     # window fetches), and no newton_step.

@@ -1,10 +1,11 @@
-// Hopper kernel of the scene-occlusion queries, with a plain C interface (loaded through
-// ctypes by m3t_tpu_torch/ops/_cuda.py, which links every csrc/*.cu into one library).
+// Hopper kernels of the scene occlusions, the focused scenes' coefficients and the point
+// queries, with a plain C interface (loaded through ctypes by m3t_tpu_torch/ops/_cuda.py,
+// which links every csrc/*.cu into one library).
 // Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c -Xcompiler -fPIC \
 //        -o occlusion_kernels.o occlusion_kernels.cu
-// The entry point launches on the caller's stream, never synchronizes, allocates
-// nothing, and returns cudaGetLastError() (0 on success).
+// The entry points launch on the caller's stream, never synchronize, allocate nothing,
+// and return cudaGetLastError() (0 on success).
 //
 // ---------------------------------------------------------------------------------------
 // query_points  (replaces the Pallas kernel m3t_tpu/ops/occlusion.py::_query_eval,
@@ -63,6 +64,58 @@
 //   equals the twin's NaN-propagating min(e0, e1, e2) >= 0 for every input.  int32 query
 //   pixels are converted with __int2float_rn, as the twin's cast does.  The result
 //   equals the plain PyTorch twin bit for bit.
+// ---------------------------------------------------------------------------------------
+//
+// ---------------------------------------------------------------------------------------
+// scene_coeffs  (replaces no Pallas kernel: the JAX package leaves
+//                m3t_tpu/ops/occlusion.py::focused_scene_coeffs to XLA, which fuses it
+//                into the jitted cycle; the port's plain form, ops/occlusion.py::
+//                scene_coeffs_plain, writes every intermediate to device memory: a
+//                (B, T, 4, 4) pose per triangle, batched 3x3 products, some 60
+//                elementwise passes, stacks, a stable argsort and four gathers)
+//   For scene b and triangle t, with P = poses[b, owner[b, t]] and vertices (x, y, z):
+//     camera frame, row i:  c_i = ((P[i][0]*x + P[i][1]*y) + P[i][2]*z) + P[i][3]
+//     vertex k:  front_k = c_z > z_min,  z_k = front_k ? c_z : 1,
+//                u_k = (c_x*fu)/z_k + pu,  v_k = (c_y*fv)/z_k + pv,  iz_k = 1/z_k
+//     edge e (vertex e to n = e+1 mod 3):  dv = v_n - v_e,  du = u_n - u_e,
+//                a_e = -dv,  b_e = du,  c_e = dv*u_e - du*v_e
+//     area = (a0*u2 + b0*v2) + c0,  big = |area| > 1e-12,  sign = area >= 0 ? 1 : -1
+//     valid = front_0 && front_1 && front_2 && big && (area < 0 || !cull) && tri_valid
+//     az = ((a1*iz0 + a2*iz1) + a0*iz2) / (big ? area : 1);  bz, cz alike with b, c
+//     row = (a0, b0, c0, a1, b1, c1, a2, b2, c2) * sign, az, bz, cz
+//     box = (min u, max u, min v, max v)
+//   The row, box, id and flag of t go to row n_before(t) of the scene if t is valid, else
+//   to n_valid + (t - n_before(t)), where n_before(t) counts the valid triangles before
+//   t: the permutation of a stable argsort of !valid.  The query kernel's loop bound and
+//   its tie rule (chains by the parity of t) rest on that order.
+//
+//   Bound on this card: bytes.  A triangle reads 46 B (its vertices, owner, id and two
+//   flags) and writes 69 B (row, box, id, flag), with about 110 scalar operations: the
+//   kinematic cell's B = 1792 scenes of T = 2240 triangles are 462 MB a call, 0.138 ms
+//   at 3.35 TB/s.
+//
+//   Design: one block a scene, kThreads wide (T rounded up to a warp for scenes of up to
+//   128 triangles, else 256: ops/occlusion.py::_block_width), walking the scene in tiles
+//   of one triangle a thread.
+//   - Pass 1 evaluates each triangle's validity and counts the scene's valid ones
+//     (__syncthreads_count, tile by tile).
+//   - Pass 2 evaluates each triangle again and finds its row by a block-wide exclusive
+//     scan of the flags (a ballot and popcount within the warp, the warps' counts through
+//     shared memory), carried from tile to tile.  The tile's valid rows and its invalid
+//     rows are two runs of consecutive output rows: the threads stage their results in
+//     shared memory in that order, and the block then stores the runs as 16-byte words,
+//     neighbouring threads on neighbouring words.
+//   - A triangle reads its owner's pose (12 floats, through L1: a warp's triangles mostly
+//     share one owner); no pose per triangle is written anywhere.
+//   - Pass 2 reads the scene's inputs again, from L2 where they still are.  Holding a
+//     scene's results until its count is known would take 69 B x T of shared memory
+//     (155 KB at T = 2240) and leave one block on an SM.
+//   Numerics: every product, sum and quotient is one __fmul_rn, __fadd_rn, __fsub_rn or
+//   __fdiv_rn in the plain twin's order (one PyTorch kernel per operation there), so
+//   nvcc contracts nothing into a fused multiply-add; z_min and 1e-12 are compared as
+//   float32, as PyTorch compares a float32 tensor with a Python number; min and max
+//   propagate NaN, as PyTorch's amin and amax do.  The result equals the plain twin on
+//   the same inputs bit for bit.
 // ---------------------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
@@ -283,6 +336,215 @@ void launch(const void* coeffs, const void* tri_valid, const void* sil_id, const
   }
 }
 
+
+// ---------------------------------------------------------------------------------------
+// scene_coeffs
+// ---------------------------------------------------------------------------------------
+
+constexpr int kTriangleFloats = 9;
+constexpr int kPoseFloats = 16;
+constexpr int kBoxFloats = 4;
+
+struct Posed {
+  float row[kNCoeff];
+  float box[kBoxFloats];
+  bool valid;
+};
+
+__device__ __forceinline__ float nan_min(float a, float b) { return (a < b || isnan(a)) ? a : b; }
+__device__ __forceinline__ float nan_max(float a, float b) { return (a > b || isnan(a)) ? a : b; }
+
+// One triangle's focused-space row, box and validity (see "scene_coeffs" above).
+__device__ __forceinline__ Posed pose_triangle(const float* __restrict__ tri,
+                                               const float* __restrict__ pose, float fu,
+                                               float fv, float pu, float pv, float z_min,
+                                               bool cull, bool listed) {
+  float u[3], v[3], iz[3];
+  bool in_front = true;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float x = tri[3 * k], y = tri[3 * k + 1], z = tri[3 * k + 2];
+    float c[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float* r = pose + 4 * i;
+      c[i] = __fadd_rn(
+          __fadd_rn(__fadd_rn(__fmul_rn(r[0], x), __fmul_rn(r[1], y)), __fmul_rn(r[2], z)),
+          r[3]);
+    }
+    const bool front = c[2] > z_min;
+    in_front &= front;
+    const float zs = front ? c[2] : 1.0f;
+    u[k] = __fadd_rn(__fdiv_rn(__fmul_rn(c[0], fu), zs), pu);
+    v[k] = __fadd_rn(__fdiv_rn(__fmul_rn(c[1], fv), zs), pv);
+    iz[k] = __fdiv_rn(1.0f, zs);
+  }
+  float a[3], b[3], c[3];
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    const int n = (e + 1) % 3;
+    const float dv = __fsub_rn(v[n], v[e]);
+    const float du = __fsub_rn(u[n], u[e]);
+    a[e] = -dv;
+    b[e] = du;
+    c[e] = __fsub_rn(__fmul_rn(dv, u[e]), __fmul_rn(du, v[e]));
+  }
+  const float area = __fadd_rn(__fadd_rn(__fmul_rn(a[0], u[2]), __fmul_rn(b[0], v[2])), c[0]);
+  const bool big = fabsf(area) > 1e-12f;
+  const float sign = area >= 0.0f ? 1.0f : -1.0f;
+  const float safe = big ? area : 1.0f;
+  Posed p;
+  p.valid = in_front && big && (area < 0.0f || !cull) && listed;
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    p.row[3 * e] = __fmul_rn(a[e], sign);
+    p.row[3 * e + 1] = __fmul_rn(b[e], sign);
+    p.row[3 * e + 2] = __fmul_rn(c[e], sign);
+  }
+  p.row[9] = __fdiv_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(a[1], iz[0]), __fmul_rn(a[2], iz[1])), __fmul_rn(a[0], iz[2])),
+      safe);
+  p.row[10] = __fdiv_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(b[1], iz[0]), __fmul_rn(b[2], iz[1])), __fmul_rn(b[0], iz[2])),
+      safe);
+  p.row[11] = __fdiv_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(c[1], iz[0]), __fmul_rn(c[2], iz[1])), __fmul_rn(c[0], iz[2])),
+      safe);
+  p.box[0] = nan_min(nan_min(u[0], u[1]), u[2]);
+  p.box[1] = nan_max(nan_max(u[0], u[1]), u[2]);
+  p.box[2] = nan_min(nan_min(v[0], v[1]), v[2]);
+  p.box[3] = nan_max(nan_max(v[0], v[1]), v[2]);
+  return p;
+}
+
+// The inputs of one scene: its rows of each (B, T, ...) input (a scene stride of 0 for a
+// batch expanded from one scene), its poses and its focused intrinsics.
+struct Scene {
+  const float* tri;
+  const int32_t* owner;
+  const int32_t* sil;
+  const bool* listed;
+  const bool* cull;
+  const float* poses;
+  float fu, fv, pu, pv;
+
+  __device__ __forceinline__ Posed evaluate(int t, float z_min) const {
+    return pose_triangle(tri + static_cast<size_t>(t) * kTriangleFloats,
+                         poses + static_cast<size_t>(owner[t]) * kPoseFloats, fu, fv, pu, pv,
+                         z_min, cull[t], listed[t]);
+  }
+};
+
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads)
+scene_coeffs_kernel(const float* __restrict__ triangles, const int32_t* __restrict__ owner,
+                    const int32_t* __restrict__ sil_id, const bool* __restrict__ tri_valid,
+                    const bool* __restrict__ cull, long long tri_stride,
+                    long long owner_stride, long long sil_stride, long long valid_stride,
+                    long long cull_stride, const float* __restrict__ poses,
+                    const float* __restrict__ fu, const float* __restrict__ fv,
+                    const float* __restrict__ pu, const float* __restrict__ pv,
+                    float* __restrict__ coeffs_out, bool* __restrict__ valid_out,
+                    int32_t* __restrict__ sil_out, float* __restrict__ bbox_out, int n_tri,
+                    int n_poses, float z_min) {
+  constexpr int kWarps = kThreads / kWarp;
+  __shared__ __align__(16) float s_row[kThreads * kNCoeff];
+  __shared__ __align__(16) float s_box[kThreads * kBoxFloats];
+  __shared__ int32_t s_sil[kThreads];
+  __shared__ bool s_valid[kThreads];
+  __shared__ int s_warp_valid[kWarps];
+
+  const int b = blockIdx.x;
+  const Scene scene = {triangles + b * tri_stride,
+                       owner + b * owner_stride,
+                       sil_id + b * sil_stride,
+                       tri_valid + b * valid_stride,
+                       cull + b * cull_stride,
+                       poses + static_cast<size_t>(b) * n_poses * kPoseFloats,
+                       fu[b], fv[b], pu[b], pv[b]};
+
+  // Pass 1: the scene's valid triangles.
+  int n_valid = 0;
+  for (int base = 0; base < n_tri; base += kThreads) {
+    const int t = base + threadIdx.x;
+    n_valid += __syncthreads_count(t < n_tri && scene.evaluate(t, z_min).valid);
+  }
+
+  // Pass 2: each triangle to its row, valid rows first, each run in the order of t.
+  const size_t out_row0 = static_cast<size_t>(b) * n_tri;
+  float4* coeffs4 = reinterpret_cast<float4*>(coeffs_out + out_row0 * kNCoeff);
+  float4* bbox4 = reinterpret_cast<float4*>(bbox_out + out_row0 * kBoxFloats);
+  const float4* s_row4 = reinterpret_cast<const float4*>(s_row);
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  int valid_done = 0, invalid_done = 0;  // rows of each run written by earlier tiles
+  for (int base = 0; base < n_tri; base += kThreads) {
+    const int t = base + threadIdx.x;
+    const int count = min(kThreads, n_tri - base);
+    const bool active = t < n_tri;
+    Posed p;
+    if (active) p = scene.evaluate(t, z_min);
+    const bool valid = active && p.valid;
+    const unsigned ballot = __ballot_sync(kFull, valid);
+    if (lane == 0) s_warp_valid[warp] = __popc(ballot);
+    __syncthreads();  // the warps' counts are in, and the last tile's rows are stored
+    int before = __popc(ballot & ((1u << lane) - 1u));
+    int tile_valid = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int n = s_warp_valid[w];
+      before += w < warp ? n : 0;
+      tile_valid += n;
+    }
+    if (active) {
+      const int slot = valid ? before : tile_valid + (threadIdx.x - before);
+      float4* row = reinterpret_cast<float4*>(s_row + slot * kNCoeff);
+      row[0] = make_float4(p.row[0], p.row[1], p.row[2], p.row[3]);
+      row[1] = make_float4(p.row[4], p.row[5], p.row[6], p.row[7]);
+      row[2] = make_float4(p.row[8], p.row[9], p.row[10], p.row[11]);
+      reinterpret_cast<float4*>(s_box)[slot] = make_float4(p.box[0], p.box[1], p.box[2],
+                                                           p.box[3]);
+      s_sil[slot] = scene.sil[t];
+      s_valid[slot] = valid;
+    }
+    __syncthreads();
+    const int invalid_row0 = n_valid + invalid_done - tile_valid;
+    for (int i = threadIdx.x; i < count * 3; i += kThreads) {
+      const int slot = i / 3;
+      const int dest = slot < tile_valid ? valid_done + slot : invalid_row0 + slot;
+      coeffs4[static_cast<size_t>(dest) * 3 + (i - 3 * slot)] = s_row4[i];
+    }
+    if (threadIdx.x < count) {
+      const int slot = threadIdx.x;
+      const int dest = slot < tile_valid ? valid_done + slot : invalid_row0 + slot;
+      bbox4[dest] = reinterpret_cast<const float4*>(s_box)[slot];
+      sil_out[out_row0 + dest] = s_sil[slot];
+      valid_out[out_row0 + dest] = s_valid[slot];
+    }
+    valid_done += tile_valid;
+    invalid_done += count - tile_valid;
+  }
+}
+
+template <int kThreads>
+void launch_scene_coeffs(const void* triangles, const void* owner, const void* sil_id,
+                         const void* tri_valid, const void* cull, long long tri_stride,
+                         long long owner_stride, long long sil_stride,
+                         long long valid_stride, long long cull_stride, const void* poses,
+                         const void* fu, const void* fv, const void* pu, const void* pv,
+                         void* coeffs_out, void* valid_out, void* sil_out, void* bbox_out,
+                         int b, int n_tri, int n_poses, float z_min, cudaStream_t stream) {
+  scene_coeffs_kernel<kThreads><<<b, kThreads, 0, stream>>>(
+      static_cast<const float*>(triangles), static_cast<const int32_t*>(owner),
+      static_cast<const int32_t*>(sil_id), static_cast<const bool*>(tri_valid),
+      static_cast<const bool*>(cull), tri_stride, owner_stride, sil_stride, valid_stride,
+      cull_stride, static_cast<const float*>(poses), static_cast<const float*>(fu),
+      static_cast<const float*>(fv), static_cast<const float*>(pu),
+      static_cast<const float*>(pv), static_cast<float*>(coeffs_out),
+      static_cast<bool*>(valid_out), static_cast<int32_t*>(sil_out),
+      static_cast<float*>(bbox_out), n_tri, n_poses, z_min);
+}
+
 }  // namespace
 
 extern "C" {
@@ -300,6 +562,32 @@ int m3t_query_eval(const void* coeffs, const void* tri_valid, const void* sil_id
     (cull ? launch<float, true> : launch<float, false>)(
         coeffs, tri_valid, sil_id, u, v, inv_out, id_out, b, n_tri, n_query, s);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One block a scene: threads is 32, 64, 128 or 256.  triangles (B, T, 3, 3) f32, owner
+// and sil_id (B, T) int32, tri_valid and cull (B, T) bool, each scene's rows contiguous
+// at the given scene stride (in elements); poses (B, n_poses, 4, 4) f32 and fu, fv, pu,
+// pv (B,) f32 contiguous.  Out: coeffs (B, T, 12) f32, valid (B, T) bool, sil (B, T)
+// int32 and bbox (B, T, 4) f32, contiguous.
+int m3t_scene_coeffs(const void* triangles, const void* owner, const void* sil_id,
+                     const void* tri_valid, const void* cull, long long tri_stride,
+                     long long owner_stride, long long sil_stride, long long valid_stride,
+                     long long cull_stride, const void* poses, const void* fu,
+                     const void* fv, const void* pu, const void* pv, void* coeffs_out,
+                     void* valid_out, void* sil_out, void* bbox_out, int b, int n_tri,
+                     int n_poses, float z_min, int threads, void* stream) {
+  decltype(&launch_scene_coeffs<kWarp>) launch_fn = nullptr;
+  switch (threads) {
+    case 32: launch_fn = launch_scene_coeffs<32>; break;
+    case 64: launch_fn = launch_scene_coeffs<64>; break;
+    case 128: launch_fn = launch_scene_coeffs<128>; break;
+    case 256: launch_fn = launch_scene_coeffs<256>; break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  launch_fn(triangles, owner, sil_id, tri_valid, cull, tri_stride, owner_stride, sil_stride,
+            valid_stride, cull_stride, poses, fu, fv, pu, pv, coeffs_out, valid_out, sil_out,
+            bbox_out, b, n_tri, n_poses, z_min, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

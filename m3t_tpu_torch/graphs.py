@@ -72,8 +72,8 @@ allocator.  Graphs must therefore not be replayed concurrently on two streams.
 
 Launch counters.  Each kernel wrapper counts its launches (``sample_lines.launches`` and
 ``bin_counts.launches`` in ``ops/region_fast.py``, ``sample_windows.launches`` in
-``ops/depth_fast.py``, ``query_eval.launches`` in ``ops/occlusion.py``,
-``newton_step.launches`` in ``ops/newton.py``).  A capture notes
+``ops/depth_fast.py``, ``query_eval.launches`` and ``scene_coeffs.launches`` in
+``ops/occlusion.py``, ``newton_step.launches`` in ``ops/newton.py``).  A capture notes
 how many launches of each kernel it records (and takes them off again: a capture
 launches nothing), and each replay adds them to the wrappers' counts.  So a graphed call
 counts what its eager twin counts, the first call included.
@@ -335,7 +335,7 @@ def _kernel_counters():
 
     return ((region_fast, "sample_lines"), (region_fast, "bin_counts"),
             (depth_fast, "sample_windows"), (occlusion, "query_eval"),
-            (newton, "newton_step"))
+            (newton, "newton_step"), (occlusion, "scene_coeffs"))
 
 
 def _launch_counts() -> list:

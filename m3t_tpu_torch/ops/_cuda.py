@@ -91,6 +91,9 @@ def library() -> ctypes.CDLL:
     lib.m3t_sample_windows.restype = i32
     lib.m3t_query_eval.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
     lib.m3t_query_eval.restype = i32
+    lib.m3t_scene_coeffs.argtypes = ([ptr] * 5 + [ctypes.c_longlong] * 5 + [ptr] * 9
+                                     + [i32] * 3 + [ctypes.c_float, i32, ptr])
+    lib.m3t_scene_coeffs.restype = i32
     lib.m3t_newton_step.argtypes = [ptr] * 4 + [i32, ctypes.c_float, ctypes.c_float, ptr]
     lib.m3t_newton_step.restype = i32
     return lib

@@ -9,9 +9,10 @@ of two modes:
   * query mode (the pipeline's default): :func:`focused_scene_coeffs` computes each
     scene's focused-crop parameters and per-triangle plane coefficients, and
     :func:`query_eval` evaluates the closest triangle at exactly the pixels the checks
-    sample.  ``query_eval`` is a hand-written Hopper kernel
-    (``csrc/occlusion_kernels.cu``) for CUDA tensors and its plain PyTorch twin
-    (:func:`query_eval_plain`) for CPU tensors, with no fallback from one to the other;
+    sample.  The coefficients (:func:`scene_coeffs`) and the queries are hand-written
+    Hopper kernels (``csrc/occlusion_kernels.cu``) for CUDA tensors and their plain
+    PyTorch twins (:func:`scene_coeffs_plain`, :func:`query_eval_plain`) for CPU
+    tensors, with no fallback from one to the other;
   * image mode: :func:`focused_render` rasterizes (B, S, S) depth and silhouette crops
     with ops/raster.rasterize.
 
@@ -24,6 +25,7 @@ the scene batch is a leading dimension.  Host inputs are :class:`SceneBody` reco
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -33,6 +35,7 @@ from m3t_tpu_torch.common import resolve_device
 from m3t_tpu_torch.ops import _cuda, raster
 from m3t_tpu_torch.ops._cuda import require as _require
 from m3t_tpu_torch.ops.depth_fn import rdiv
+from m3t_tpu_torch.utils import timing
 
 KIMAGE_SIZE_SAFETY_MARGIN = 1.05  # renderer.cpp:352
 
@@ -255,26 +258,160 @@ def _crop_params(ref_centers, ref_radius, ref_valid, fu: float, fv: float, ppu: 
     return corner_u, corner_v, scale, visible
 
 
-def _focused_soup(geom: SceneGeometry, scene_poses, intr, width: int, height: int,
-                  image_size: int, z_min: float, z_max: float):
-    """Crop parameters and focused-space triangle soup of every scene (the shared
-    prologue of focused_scene_coeffs and focused_render, occlusion.py:246-259)."""
+def _focused_projection(geom: SceneGeometry, scene_poses, intr, width: int, height: int,
+                        image_size: int, z_min: float, z_max: float):
+    """Every scene's focused crop and the projection into it: (corner_u, corner_v,
+    scale, visible, (fu * scale, fv * scale, (ppu - corner_u) * scale, (ppv - corner_v)
+    * scale)), each (B,) (the shared prologue of both modes, occlusion.py:246-259)."""
     fu, fv, ppu, ppv = (float(x) for x in intr)
-    b = scene_poses.shape[0]
-    scene = torch.arange(b, device=scene_poses.device)[:, None]
-    pose_t = scene_poses[scene, geom.owner.long()]                      # (B, T, 4, 4)
-    v_cam = (geom.triangles @ pose_t[..., :3, :3].transpose(-1, -2)
-             + pose_t[..., None, :3, 3])                                # (B, T, 3, 3)
+    scene = torch.arange(scene_poses.shape[0], device=scene_poses.device)[:, None]
     ref_centers = scene_poses[scene, geom.ref_owner.long()][..., :3, 3]  # (B, NR, 3)
     corner_u, corner_v, scale, visible = _crop_params(
         ref_centers, geom.ref_radius, geom.ref_valid, fu, fv, ppu, ppv,
         width, height, image_size, z_min, z_max)
-    soup = raster.triangle_coefficients(
-        v_cam, geom.sil_id, fu * scale, fv * scale,
-        (ppu - corner_u) * scale, (ppv - corner_v) * scale,
-        cull_backfaces=geom.cull, z_min=z_min)
-    return soup._replace(valid=soup.valid & geom.tri_valid), corner_u, corner_v, scale, \
-        visible
+    projection = (fu * scale, fv * scale, (ppu - corner_u) * scale,
+                  (ppv - corner_v) * scale)
+    return corner_u, corner_v, scale, visible, projection
+
+
+def _posed_soup(triangles, owner, sil_id, tri_valid, cull, scene_poses, fu, fv, pu, pv,
+                z_min: float) -> raster.TriangleSoup:
+    """The triangles posed by their owners' poses and projected with the (B,) focused
+    intrinsics, invalid where ``tri_valid`` is False.  Each camera-frame coordinate is
+    ``((r0*x + r1*y) + r2*z) + t``, one rounding per operation, as the scene_coeffs
+    kernel computes it."""
+    scene = torch.arange(scene_poses.shape[0], device=scene_poses.device)[:, None]
+    pose = scene_poses[scene, owner.long()]                             # (B, T, 4, 4)
+    rot, shift = pose[..., None, :3, :3], pose[..., None, :3, 3]
+    x, y, z = (triangles[..., k, None] for k in range(3))               # (B, T, 3, 1)
+    v_cam = ((rot[..., 0] * x + rot[..., 1] * y) + rot[..., 2] * z) + shift  # (B, T, 3, 3)
+    soup = raster.triangle_coefficients(v_cam, sil_id, fu, fv, pu, pv,
+                                        cull_backfaces=cull, z_min=z_min)
+    return soup._replace(valid=soup.valid & tri_valid)
+
+
+def _focused_soup(geom: SceneGeometry, scene_poses, intr, width: int, height: int,
+                  image_size: int, z_min: float, z_max: float):
+    """Crop parameters and focused-space triangle soup of every scene (image mode)."""
+    corner_u, corner_v, scale, visible, projection = _focused_projection(
+        geom, scene_poses, intr, width, height, image_size, z_min, z_max)
+    soup = _posed_soup(geom.triangles, geom.owner, geom.sil_id, geom.tri_valid, geom.cull,
+                       scene_poses, *projection, z_min)
+    return soup, corner_u, corner_v, scale, visible
+
+
+# ----------------------------------------------------------------------------------------
+# Kernel 6: the focused scenes' coefficients
+# ----------------------------------------------------------------------------------------
+
+
+def scene_coeffs_plain(triangles, owner, sil_id, tri_valid, cull, scene_poses, fu, fv,
+                       pu, pv, z_min: float):
+    """Plain PyTorch twin of the scene_coeffs kernel (same arithmetic, same order):
+    :func:`_posed_soup`, then the triangles front-compacted by validity with a stable
+    sort."""
+    soup = _posed_soup(triangles, owner, sil_id, tri_valid, cull, scene_poses, fu, fv, pu,
+                       pv, z_min)
+    order = torch.argsort((~soup.valid).to(torch.int32), dim=-1, stable=True)
+
+    def take(x):
+        idx = order if x.dim() == 2 else order[..., None].expand(x.shape)
+        return torch.gather(x, 1, idx)
+
+    return take(soup.coeffs), take(soup.valid), take(soup.ids), take(soup.bbox)
+
+
+def _scene_rows(x):
+    """x with each scene's rows contiguous, and its scene stride in elements (0 for a
+    batch expanded from one scene)."""
+    if not x[0].is_contiguous():
+        x = x.contiguous()
+    return x, x.stride(0)
+
+
+def _check_scene_inputs(triangles, owner, sil_id, tri_valid, cull, scene_poses,
+                        projection):
+    _require(triangles.dtype == torch.float32 and triangles.dim() == 4
+             and tuple(triangles.shape[2:]) == (3, 3),
+             "triangles must be (B, T, 3, 3) float32")
+    b, t = triangles.shape[:2]
+    for name, x, dtype in (("owner", owner, torch.int32), ("sil_id", sil_id, torch.int32),
+                           ("tri_valid", tri_valid, torch.bool), ("cull", cull, torch.bool)):
+        _require(x.dtype == dtype and tuple(x.shape) == (b, t),
+                 f"{name} must be a (B, T) {dtype} tensor")
+    _require(scene_poses.dtype == torch.float32 and scene_poses.dim() == 4
+             and scene_poses.shape[0] == b and tuple(scene_poses.shape[2:]) == (4, 4),
+             "scene_poses must be (B, NO, 4, 4) float32")
+    _require(all(p.dtype == torch.float32 and tuple(p.shape) == (b,) for p in projection),
+             "fu, fv, pu and pv must be (B,) float32 tensors")
+    devices = {x.device for x in (triangles, owner, sil_id, tri_valid, cull, scene_poses,
+                                  *projection)}
+    _require(len(devices) == 1, f"inputs on different devices: {devices}")
+
+
+def _block_width(n_tri: int) -> int:
+    """Threads of the scene_coeffs kernel's block (one block a scene): 32, 64 or 128 for
+    scenes of up to that many triangles, else 256."""
+    return next((w for w in (32, 64, 128) if n_tri <= w), 256)
+
+
+def scene_coeffs(triangles, owner, sil_id, tri_valid, cull, scene_poses, fu, fv, pu, pv,
+                 z_min: float):
+    """Focused-space triangle coefficients of B scenes, valid triangles first.
+
+    triangles (B, T, 3, 3) f32 in their owners' frames; owner, sil_id (B, T) int32 (each
+    owner indexes the scene's poses); tri_valid, cull (B, T) bool; scene_poses (B, NO,
+    4, 4) f32 body-to-camera; fu, fv, pu, pv (B,) f32, the focused crop's intrinsics.
+    Returns (coeffs (B, T, 12) f32, tri_valid (B, T) bool, sil_id (B, T) int32, bbox
+    (B, T, 4) f32): :func:`raster.triangle_coefficients`' planes and boxes of the posed
+    triangles, invalid where culled, degenerate, not wholly in front of ``z_min`` or
+    not listed, in a stable valid-first order (the query kernel's loop bound and its
+    tie rule rest on it).  One hand-written kernel for CUDA tensors, equal to its plain
+    twin bit for bit; the twin for CPU tensors.  Counts ``occlusion.scene_triangles``,
+    B * T, with the tracer on (a capture takes the count into its graph)."""
+    projection = (fu, fv, pu, pv)
+    _check_scene_inputs(triangles, owner, sil_id, tri_valid, cull, scene_poses, projection)
+    b, t = triangles.shape[:2]
+    timing.count("occlusion.scene_triangles", b * t)
+    if triangles.device.type == "cpu":
+        return scene_coeffs_plain(triangles, owner, sil_id, tri_valid, cull, scene_poses,
+                                  *projection, z_min)
+    _require(triangles.device.type == "cuda", f"unsupported device {triangles.device}")
+    dev = triangles.device
+    coeffs = torch.empty((b, t, 12), dtype=torch.float32, device=dev)
+    valid = torch.empty((b, t), dtype=torch.bool, device=dev)
+    ids = torch.empty((b, t), dtype=torch.int32, device=dev)
+    bbox = torch.empty((b, t, 4), dtype=torch.float32, device=dev)
+    if b == 0 or t == 0:
+        return coeffs, valid, ids, bbox
+    rows = [_scene_rows(x) for x in (triangles, owner, sil_id, tri_valid, cull)]
+    poses = scene_poses.contiguous()
+    projection = [p.contiguous() for p in projection]
+    with torch.cuda.device(dev):
+        err = _cuda.library().m3t_scene_coeffs(
+            *(x.data_ptr() for x, _ in rows), *(stride for _, stride in rows),
+            poses.data_ptr(), *(p.data_ptr() for p in projection), coeffs.data_ptr(),
+            valid.data_ptr(), ids.data_ptr(), bbox.data_ptr(), b, t, poses.shape[1],
+            ctypes.c_float(z_min), _block_width(t), _cuda.stream_handle(dev))
+    _cuda.check(err, "scene_coeffs")
+    scene_coeffs.launches += 1
+    return coeffs, valid, ids, bbox
+
+
+scene_coeffs.launches = 0
+
+
+def _focused_scene_coeffs(evaluate, geom: SceneGeometry, scene_poses, intr, width: int,
+                          height: int, image_size: int, z_min: float,
+                          z_max: float) -> SceneCoeffs:
+    corner_u, corner_v, scale, visible, projection = _focused_projection(
+        geom, scene_poses, intr, width, height, image_size, z_min, z_max)
+    coeffs, tri_valid, sil_id, bbox = evaluate(
+        geom.triangles, geom.owner, geom.sil_id, geom.tri_valid, geom.cull, scene_poses,
+        *projection, z_min)
+    return SceneCoeffs(coeffs=coeffs, tri_valid=tri_valid, sil_id=sil_id, bbox=bbox,
+                       corner_u=corner_u, corner_v=corner_v, scale=scale,
+                       body_visible=visible)
 
 
 def focused_scene_coeffs(geom: SceneGeometry, scene_poses, intr, width: int, height: int,
@@ -283,23 +420,24 @@ def focused_scene_coeffs(geom: SceneGeometry, scene_poses, intr, width: int, hei
     """Crop parameters + focused-space triangle coefficients, no rasterization
     (m3t_tpu/ops/occlusion.py:232-269).
 
-    scene_poses: (B, NO, 4, 4) body-to-camera poses per scene body.  Triangles are
-    front-compacted by validity with a stable sort (backface-culled, degenerate and
-    behind-camera triangles move to the tail, the others keep their order, which
-    decides ties), so the query kernel's per-scene loop bound skips them.
+    scene_poses: (B, NO, 4, 4) body-to-camera poses per scene body.  The crops are
+    computed here; the coefficients by :func:`scene_coeffs` (the kernel on CUDA
+    tensors).  Triangles are front-compacted by validity in a stable order
+    (backface-culled, degenerate and behind-camera triangles move to the tail, the
+    others keep their order, which decides ties), so the query kernel's per-scene loop
+    bound skips them.
     """
-    soup, corner_u, corner_v, scale, visible = _focused_soup(
-        geom, scene_poses, intr, width, height, image_size, z_min, z_max)
-    order = torch.argsort((~soup.valid).to(torch.int32), dim=-1, stable=True)
+    return _focused_scene_coeffs(scene_coeffs, geom, scene_poses, intr, width, height,
+                                 image_size, z_min, z_max)
 
-    def take(x):
-        idx = order if x.dim() == 2 else order[..., None].expand(x.shape)
-        return torch.gather(x, 1, idx)
 
-    return SceneCoeffs(coeffs=take(soup.coeffs), tri_valid=take(soup.valid),
-                       sil_id=take(soup.ids), bbox=take(soup.bbox),
-                       corner_u=corner_u, corner_v=corner_v, scale=scale,
-                       body_visible=visible)
+def focused_scene_coeffs_plain(geom: SceneGeometry, scene_poses, intr, width: int,
+                               height: int, image_size: int = 200, z_min: float = 0.02,
+                               z_max: float = 10.0) -> SceneCoeffs:
+    """:func:`focused_scene_coeffs` through the plain twin :func:`scene_coeffs_plain`
+    on any device (the kernel's yardstick on the card)."""
+    return _focused_scene_coeffs(scene_coeffs_plain, geom, scene_poses, intr, width,
+                                 height, image_size, z_min, z_max)
 
 
 # ----------------------------------------------------------------------------------------

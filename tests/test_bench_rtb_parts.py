@@ -106,7 +106,8 @@ def test_neighbouring_links_overlap_in_the_image():
 def test_kinematic_stages_tile_the_cycle_and_count_its_work():
     """On the configuration's structure at S = 2: the marks tile one articulated RGB-D
     cycle (each Newton step in ``kinematic_terms`` and ``kkt_solve``), and the counters
-    read S, S * NL and S * 48."""
+    read S, S * NL, S * 48 and, per correspondence iteration, the S * NL scenes' NL
+    meshes' triangles."""
     from m3t_tpu_torch import pipeline
     from m3t_tpu_torch.utils import timing
 
@@ -136,9 +137,34 @@ def test_kinematic_stages_tile_the_cycle_and_count_its_work():
             assert names[i - 1] == "newton_step" and names[i + 1] == "kkt_solve"
     assert {"scene_render", "depth_correspondences", "depth_gradient_hessian"} <= set(names)
     assert set(names) - {"graphs.run"} <= set(pipeline.STAGE_PHASES)
+    faces = 20 * 4 ** driver.config["body_subdivisions"]
     assert report.counters == {"kinematics.structures": 2, "kinematics.links": 14,
-                               "kinematics.kkt_rows": 96}
+                               "kinematics.kkt_rows": 96,
+                               "occlusion.scene_triangles":
+                                   driver.config["n_corr_iterations"] * 14 * 7 * faces}
 
+
+def test_every_scene_query_finds_its_scene_boxes():
+    """An eager articulated RGB-D cycle at S = 2 inside roofline_scene.recorded_calls():
+    every K4 call is paired with the boxes of the focused scene whose coefficients it
+    reads (the same tensor the pipeline hands on), so ``k4_roofline_pct`` has its work."""
+    from tests.test_bench_rtb_kinematic import small_config, small_traffic
+
+    cell = spec.cell("rtb_kinematic_rgbd.eval_s256")
+    driver = _driver_module().Driver(cell, small_config(), small_traffic(), 7,
+                                     torch.device("cpu"))
+    driver.setup()
+    frame = driver.frame(driver.t + 1)
+    with roofline_scene.recorded_calls() as calls:
+        driver.side.cycle(driver.seq.colour[frame], driver.seq.depth[frame], driver.state)
+    queries = calls["query_eval"]
+    # Per correspondence iteration: the region lines' and the depth points' modeled
+    # occlusions.
+    assert len(queries) == 2 * driver.config["n_corr_iterations"]
+    for args, _, bbox in queries:
+        assert bbox is not None and bbox.shape == args[0].shape[:2] + (4,)
+    n_bytes, n_ops = roofline_scene.cycle_work(calls)["query_eval"]
+    assert n_bytes > 0 and n_ops > 0
 
 def test_counts_inside_a_capture_go_to_the_graph():
     """A count made while a graph is captured is the graph's, added by each replay, not

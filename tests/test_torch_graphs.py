@@ -385,11 +385,12 @@ def test_numpy_camera_values_run_as_numbers(cpu_calls):
 
 # Every hand-written kernel's wrapper, each of which counts its launches.
 KERNEL_COUNTERS = (region_fast.sample_lines, region_fast.bin_counts,
-                   depth_fast.sample_windows, occlusion.query_eval, newton.newton_step)
+                   depth_fast.sample_windows, occlusion.query_eval, newton.newton_step,
+                   occlusion.scene_coeffs)
 
 
 def test_kernel_counters_are_every_wrapper():
-    """A graph adds the launches of exactly the five kernel wrappers to their counts."""
+    """A graph adds the launches of exactly the six kernel wrappers to their counts."""
     counted = tuple(getattr(module, name) for module, name in graphs._kernel_counters())
     assert counted == KERNEL_COUNTERS
 

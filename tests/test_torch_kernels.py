@@ -110,6 +110,52 @@ def _query_inputs(device, n_tri=None, n_bodies=4, n_query=3000):
     return coeffs, valid, sil, u.to(torch.int32), v.to(torch.int32)
 
 
+def _scene_inputs(device, n_scenes, n_tri, cull="mixed", seed=0, expanded=False):
+    """scene_coeffs arguments on random scenes of n_tri triangles and three bodies:
+    scene 0 lists no triangle, scene 1 every triangle, in front of the camera and
+    unculled (all valid); in the others some triangles are culled, some unlisted, and
+    the third body sits across z_min (triangles wholly and partly behind it).
+    ``expanded``: scene 0's triangles, ids and flags broadcast over the batch (a scene
+    stride of 0) and every scene listing its triangles."""
+    rng = np.random.default_rng(seed)
+    tri = rng.uniform(-0.05, 0.05, (n_scenes, n_tri, 3, 3)).astype(np.float32)
+    owner = rng.integers(0, 3, (n_scenes, n_tri)).astype(np.int32)
+    sil = rng.integers(1, 1 << 16, (n_scenes, n_tri)).astype(np.int32)
+    listed = rng.random((n_scenes, n_tri)) > 0.15
+    culled = {"mixed": rng.random((n_scenes, n_tri)) > 0.5,
+              "off": np.zeros((n_scenes, n_tri), bool)}[cull]
+    poses = np.tile(np.eye(4, dtype=np.float32), (n_scenes, 3, 1, 1))
+    for k in range(3):
+        angles = rng.uniform(-np.pi, np.pi, (n_scenes, 3))
+        for axis in range(3):
+            c, s = np.cos(angles[:, axis]), np.sin(angles[:, axis])
+            turn = np.tile(np.eye(3), (n_scenes, 1, 1))
+            i, j = [a for a in range(3) if a != axis]
+            turn[:, i, i], turn[:, i, j], turn[:, j, i], turn[:, j, j] = c, -s, s, c
+            poses[:, k, :3, :3] = (turn @ poses[:, k, :3, :3]).astype(np.float32)
+    poses[:, :, :2, 3] = rng.uniform(-0.05, 0.05, (n_scenes, 3, 2))
+    poses[:, :2, 2, 3] = rng.uniform(0.3, 0.8, (n_scenes, 2))
+    poses[:, 2, 2, 3] = 0.02 + rng.uniform(-0.03, 0.03, n_scenes)  # across z_min
+    listed[0] = False
+    if n_scenes > 1:
+        owner[1] %= 2
+        listed[1], culled[1] = True, False
+    if expanded:
+        listed[:] = True
+    focal = rng.uniform(250.0, 350.0, (2, n_scenes)).astype(np.float32)
+    centre = rng.uniform(40.0, 80.0, (2, n_scenes)).astype(np.float32)
+
+    def t(a, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+    args = [t(tri), t(owner), t(sil), t(listed), t(culled), t(poses), *map(t, focal),
+            *map(t, centre), 0.02]
+    if expanded:
+        for i in range(5):
+            args[i] = args[i][:1].expand(args[i].shape)
+    return args
+
+
 def _window_inputs(device, considered_distance):
     """sample_windows arguments (image, u_min, v_min, stride, corner_u, corner_v,
     crop_size, k) of the correspondence windows (considered_distance > 0) or of the
@@ -207,6 +253,60 @@ def test_plain_query_eval_matches_scalar_chains(n_tri):
     assert (ids != 0).float().mean() > 0.05
 
 
+@pytest.mark.parametrize("mask", ["random", "sparse", "dense", "all", "none"])
+def test_plain_scene_coeffs_order_is_a_stable_partition(mask):
+    """The twin's front compaction equals a numpy stable partition of each scene's
+    triangles by validity (the valid ones, then the others, each in their order), on
+    validity masks set by tri_valid over triangles that are otherwise all valid: the
+    order that the kernel's scan has to give."""
+    n_scenes, n_tri = 6, 300
+    tri, owner, _, _, cull, poses, fu, fv, pu, pv, z_min = _scene_inputs(
+        "cpu", n_scenes, n_tri, cull="off", seed=4)
+    poses[:, 2] = poses[:, 0]  # every body in front of the camera
+    rng = np.random.default_rng(8)
+    share = {"random": 0.5, "sparse": 0.05, "dense": 0.95, "all": 1.0, "none": 0.0}[mask]
+    listed = rng.random((n_scenes, n_tri)) < share
+    ids = torch.arange(n_tri, dtype=torch.int32).expand(n_scenes, n_tri)
+    coeffs, valid, sil, bbox = oc.scene_coeffs_plain(
+        tri, owner, ids, torch.as_tensor(listed), cull, poses, fu, fv, pu, pv, z_min)
+    for b in range(n_scenes):
+        index = np.arange(n_tri)
+        want = np.concatenate([index[listed[b]], index[~listed[b]]])
+        assert np.array_equal(sil[b].numpy(), want)
+        assert np.array_equal(valid[b].numpy(), listed[b][want])
+    soup = oc._posed_soup(tri, owner, ids, torch.ones_like(valid), cull, poses, fu, fv,
+                          pu, pv, z_min)
+    assert soup.valid.all()
+    order = sil.long()
+    assert torch.equal(coeffs, torch.gather(soup.coeffs, 1, order[..., None].expand(
+        coeffs.shape)))
+    assert torch.equal(bbox, torch.gather(soup.bbox, 1, order[..., None].expand(bbox.shape)))
+
+
+def test_focused_scene_coeffs_counts_its_triangles():
+    """With the tracer on, an eager call counts B x T scene triangles; its CPU form is
+    the plain one, which counts nothing and launches nothing."""
+    from m3t_tpu_torch.utils import timing
+
+    pcfg, intr, _, _, poses, _, _, geom, occluder_poses = _occluded_scene("cpu")
+    scene_poses = torch.cat([poses[:, None], occluder_poses], 1)
+    b, t = geom.tri_valid.shape
+    launches = oc.scene_coeffs.launches
+    timing.reset()
+    try:
+        with timing.tracing():
+            got = oc.focused_scene_coeffs(geom, scene_poses, intr, 320, 240,
+                                          pcfg.focused_image_size)
+            assert timing.report().counters == {"occlusion.scene_triangles": b * t}
+            want = oc.focused_scene_coeffs_plain(geom, scene_poses, intr, 320, 240,
+                                                 pcfg.focused_image_size)
+            assert timing.report().counters == {"occlusion.scene_triangles": b * t}
+    finally:
+        timing.reset()
+    assert oc.scene_coeffs.launches == launches
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
 def test_wrappers_reject_bad_inputs():
     params = torch.zeros((2, 8, 128))
     crop = torch.zeros((2, 16, 16), dtype=torch.int32)
@@ -236,13 +336,21 @@ def test_wrappers_reject_bad_inputs():
         oc.query_eval(coeffs[..., :11], valid, sil, queries, queries)
     with pytest.raises(ValueError):
         oc.query_eval(coeffs, valid, sil, queries, queries[:, :3])
-    counters = (rf.sample_lines, rf.bin_counts, df.sample_windows, oc.query_eval)
+    scene_args = _scene_inputs("cpu", 2, 4)
+    for at, bad in ((0, scene_args[0][..., :2]), (1, scene_args[1].long()),
+                    (3, scene_args[3][:, :3]), (5, scene_args[5][:, :, :3]),
+                    (6, scene_args[6].double()), (9, scene_args[9][:1])):
+        with pytest.raises(ValueError):
+            oc.scene_coeffs(*scene_args[:at], bad, *scene_args[at + 1:])
+    counters = (rf.sample_lines, rf.bin_counts, df.sample_windows, oc.query_eval,
+                oc.scene_coeffs)
     before = [fn.launches for fn in counters]
     rf.sample_lines(params, crop, table, 8)
     rf.bin_counts(torch.zeros((2, 10), dtype=torch.int32),
                   torch.ones((2, 10), dtype=torch.bool))
     df.sample_windows(*window_args)
     oc.query_eval(coeffs, valid, sil, queries, queries)
+    oc.scene_coeffs(*scene_args)
     assert [fn.launches for fn in counters] == before, \
         "the CPU twins must not count as kernel launches"
 
@@ -491,6 +599,108 @@ def test_query_eval_kernel_adversarial(cuda_device, cull):
     assert torch.equal(inv.view(torch.int32), want_inv.view(torch.int32))
     assert torch.equal(ids, want_ids)
     assert set(ids.unique().tolist()) == {0, 11, 15}
+
+
+def _robot_scenes(device, seed, n_structures=4):
+    """(geom, scene_poses, intr, width, height): the kinematic cell's per-link scenes
+    (its configuration's seven icospheres, scene l focused on link l) of n_structures
+    robots, each joint turned by up to 8 degrees and the root moved by up to 2 cm from
+    the configured pose (seeded), on the cell's camera."""
+    import sys
+
+    repo = str(Path(__file__).resolve().parents[1])
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    from benchmark.harness import spec
+    from benchmark.traffic import generator
+
+    module = spec.load_module("drivers", "fused_kinematic")
+    config = spec.config("rtb_kinematic_rgbd")
+    vertices, triangles = module.scene_meshes(config)
+    nl = len(config["structure"]["parent"])
+    bodies = [oc.SceneBody(vertices, triangles, body_id=link + 1, region_id=link + 1)
+              for link in range(nl)]
+    one = oc.build_kinematic_scene_geometry([bodies], referenced=[[k] for k in range(nl)],
+                                            device=device)
+    geom = type(one)(*(a.repeat((n_structures,) + (1,) * (a.dim() - 1)) for a in one))
+    body2joint, joint2parent = module.joint_poses(config)
+    rng = np.random.default_rng(seed)
+    joints = np.tile(joint2parent.astype(np.float64), (n_structures, 1, 1, 1))
+    for s in range(n_structures):
+        for link in range(nl):
+            axis = rng.normal(size=3)
+            axis *= np.deg2rad(rng.uniform(-8, 8)) / np.linalg.norm(axis)
+            k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                          [-axis[1], axis[0], 0]])
+            angle = np.linalg.norm(axis)
+            turn = np.eye(3) + np.sin(angle) / angle * k + (
+                1 - np.cos(angle)) / angle ** 2 * k @ k
+            joints[s, link, :3, :3] = joints[s, link, :3, :3] @ turn
+        joints[s, 0, :3, 3] += rng.uniform(-0.02, 0.02, 3)
+    links = generator.forward_kinematics(config["structure"]["parent"], joints,
+                                         body2joint.astype(np.float64))
+    scene_poses = torch.as_tensor(np.repeat(links, nl, axis=0), dtype=torch.float32,
+                                  device=device)
+    intr = tuple(float(config[k]) for k in ("fu", "fv", "ppu", "ppv"))
+    return geom, scene_poses, intr, int(config["width"]), int(config["height"])
+
+
+def _assert_same_scene(got, want):
+    for name, x, y in zip(oc.SceneCoeffs._fields, got, want):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_scene_coeffs_kernel_matches_plain_on_robot_scenes(cuda_device, seed):
+    """The kinematic cell's robot scenes at S = 4 (28 scenes of 2240 triangles): every
+    SceneCoeffs field of the kernel's focused scenes equals the plain twin's on the same
+    card inputs, one launch a call, and the query kernel on both gives the same inverse
+    depths and ids at every pixel of a grid over the crop."""
+    geom, scene_poses, intr, width, height = _robot_scenes(cuda_device, seed)
+    launches = oc.scene_coeffs.launches
+    got = oc.focused_scene_coeffs(geom, scene_poses, intr, width, height, 200)
+    torch.cuda.synchronize()
+    assert oc.scene_coeffs.launches == launches + 1
+    want = oc.focused_scene_coeffs_plain(geom, scene_poses, intr, width, height, 200)
+    _assert_same_scene(got, want)
+    n_valid = got.tri_valid.sum(1)
+    assert (n_valid > 0).all() and (n_valid < got.tri_valid.shape[1]).all()
+    grid = torch.arange(0, 200, 3, dtype=torch.int32, device=cuda_device)
+    u = grid[None, :].expand(len(grid), -1).reshape(1, -1).expand(geom.owner.shape[0], -1)
+    v = grid[:, None].expand(-1, len(grid)).reshape(1, -1).expand_as(u)
+    inv, ids = oc.query_eval(got.coeffs, got.tri_valid, got.sil_id, u, v)
+    want_inv, want_ids = oc.query_eval(want.coeffs, want.tri_valid, want.sil_id, u, v)
+    torch.cuda.synchronize()
+    assert torch.equal(inv.view(torch.int32), want_inv.view(torch.int32))
+    assert torch.equal(ids, want_ids)
+    assert len(ids.unique()) > 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_scenes,n_tri,cull,expanded", [
+    (7, 300, "mixed", False),    # T not a multiple of the 256-thread tile
+    (5, 20, "mixed", False),     # T under one warp
+    (9, 100, "mixed", False),    # a 128-thread block
+    (3, 1000, "off", False),     # culling off, four tiles
+    (6, 600, "mixed", True),     # one scene's rows broadcast: scene stride 0
+])
+def test_scene_coeffs_kernel_matches_plain(cuda_device, n_scenes, n_tri, cull, expanded):
+    """Random scenes, scene 0 with no valid triangle and scene 1 with every triangle
+    valid, triangles wholly and partly behind z_min: the kernel's four outputs equal the
+    plain twin's on the same card inputs, one launch a call."""
+    args = _scene_inputs(cuda_device, n_scenes, n_tri, cull, seed=n_tri, expanded=expanded)
+    launches = oc.scene_coeffs.launches
+    got = oc.scene_coeffs(*args)
+    torch.cuda.synchronize()
+    assert oc.scene_coeffs.launches == launches + 1
+    want = oc.scene_coeffs_plain(*args)
+    for name, x, y in zip(("coeffs", "tri_valid", "sil_id", "bbox"), got, want):
+        assert torch.equal(x, y), name
+    n_valid = got[1].sum(1)
+    if not expanded:
+        assert n_valid[0] == 0 and n_valid[1] == n_tri
+        assert (n_valid[2:] > 0).all() and (n_valid[2:] < n_tri).all()
 
 
 @pytest.mark.cuda

@@ -398,15 +398,18 @@ def test_the_tracer_leaves_graph_outputs_as_they_are(cuda_calls, name):
 @pytest.mark.cuda
 def test_kinematic_counters_count_every_replay(cuda_calls):
     """The articulated cycle's counters (taken into its graph at the capture) count the
-    first call and each replay: S structures, S * NL links, S * (NL + NC) * 6 KKT rows."""
+    first call and each replay: S structures, S * NL links, S * (NL + NC) * 6 KKT rows,
+    and B * T scene triangles per correspondence iteration."""
     from m3t_tpu_torch.ops import kinematics as kin_ops
 
     fn, args, kwargs = cuda_calls["kinematic"]
-    kin = args[4]
+    pcfg, kin = args[0], args[4]
     s, nl = kin.parent.shape
+    b, t = kwargs["scene_geom"].tri_valid.shape
     with timing.tracing():
         _replays(fn, args, kwargs, 2)
     assert timing.report().counters == {
         "graphs.copy_bytes": timing.report().counters["graphs.copy_bytes"],
         "kinematics.structures": 3 * s, "kinematics.links": 3 * s * nl,
-        "kinematics.kkt_rows": 3 * s * kin_ops.kkt_rows(kin)}
+        "kinematics.kkt_rows": 3 * s * kin_ops.kkt_rows(kin),
+        "occlusion.scene_triangles": 3 * pcfg.n_corr_iterations * b * t}
