@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""On-card smoke test and measurement of the PyTorch/CUDA port (m3t_tpu_torch).
+"""On-card check of the PyTorch/CUDA port (m3t_tpu_torch): every kernel against its
+plain twin, every path, entry point and graph run to its checks.  It times nothing:
+benchmark/run.py measures the port on the card.
 
 Run from the repository root on a machine with one CUDA device:
 
-    python3 chip_smoke.py [--profile TABLE_FILE]
+    python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase catches its own failure):
   1. the card: name and power limit from nvidia-smi;
@@ -13,33 +15,28 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      started together, each timed in its process, and held
      equal to the committed m3t_tpu_torch/data npz (every array and the checksum); the
      phases below stack them with from_models, not from the npz;
-  2. build the Hopper kernels from m3t_tpu_torch/csrc and hold each against its plain
-     PyTorch twin at the flagship shapes, on inputs the flagship paths produce
-     (sample_lines ratio mode at kp 136/120/80/40/24, the scales of every path driven
-     below, bins mode on the kp=120 and kp=24 lines and the walk's LP=512 kp=24;
-     bin_counts at (512, 6144, 4096); sample_windows on the RGB-D path's shared frame
-     at K = 11, 5, 3 for the correspondence windows, K = 6 for the measured-occlusion
-     windows and K = 7 (the kernel's runtime-K instantiation), at K = 11 on 512
-     distinct frames (the shared frame rolled by a per-body offset, 335 MB: not
-     L2-resident) and on a 200x160 frame under the 256-pixel crop (0 beyond the
-     frame); query_eval, with and without its cull, on the calls
-     that one occlusion-path cycle makes (B=512, Q=9600), on the silhouette (Q=200) and
-     depth modeled-occlusion (Q=7200) calls of one RGB-D cycle with a cube occluder and
-     all four scene checks, on 1600 random triangles, which take four shared-memory
-     tiles, on the calls of one kinematic cycle (B=512 per-link scenes), and on the
-     adversarial case at B=512 (adversarial_queries)); newton_step on the first Newton
-     step of one region cycle (B=512) and on its body 0 alone; scene_coeffs on the first
-     focused scenes of one occlusion-path cycle and of one kinematic cycle, and on the
-     kinematic cell's shape (robot_scenes: 1792 scenes of 2240 triangles, its four
-     outputs, not only what the queries read); every result must equal
-     its twin exactly (query_eval's inverse depths bit for bit), but newton_step's poses
-     within NEWTON_STEP_ATOL (its pose @ variation sums in another order), here and
-     wherever a recorded call is held against its twin.  Each
-     kernel is timed twice: by replaying a CUDA graph of 20 calls (``ms``, the host
-     left out) and by 20 eager calls (``eager_ms``); the twins and torch.bincount
-     eagerly, torch.take (sample_windows' yardstick: the same windows from a float32
-     copy of the zero-padded frames) by graph replay, newton_step's and scene_coeffs'
-     twins both ways.  query_eval's rows add the work its inputs ask for (query_work);
+  2. build the Hopper kernels from m3t_tpu_torch/csrc (ops/_cuda.py declares them) and
+     hold each against its plain PyTorch twin at the flagship shapes, on inputs the
+     flagship paths produce (sample_lines ratio mode at kp 136/120/80/40/24, the scales
+     of every path driven below, bins mode on the kp=120 and kp=24 lines and the walk's
+     LP=512 kp=24; bin_counts at (512, 6144, 4096); sample_windows on the RGB-D path's
+     shared frame at K = 11, 5, 3 for the correspondence windows, K = 6 for the
+     measured-occlusion windows and K = 7 (the kernel's runtime-K instantiation), at
+     K = 11 on 512 distinct frames (the shared frame rolled by a per-body offset, 335
+     MB: not L2-resident) and on a 200x160 frame under the 256-pixel crop (0 beyond the
+     frame); query_eval on the calls that one occlusion-path cycle makes (B=512,
+     Q=9600), on the silhouette (Q=200) and depth modeled-occlusion (Q=7200) calls of
+     one RGB-D cycle with a cube occluder and all four scene checks, on 1600 random
+     triangles, which take four shared-memory tiles, on the calls of one kinematic cycle
+     (B=512 per-link scenes), and on the adversarial case at B=512
+     (adversarial_queries); newton_step on the first Newton step of one region cycle
+     (B=512) and on its body 0 alone; scene_coeffs on the first focused scenes of one
+     occlusion-path cycle and of one kinematic cycle, and on the kinematic cell's shape
+     (robot_scenes: 1792 scenes of 2240 triangles, its four outputs, not only what the
+     queries read); every result must equal its twin exactly (query_eval's inverse
+     depths bit for bit), but newton_step's poses within NEWTON_STEP_ATOL (its pose @
+     variation sums in another order), here and wherever a recorded call is held
+     against its twin (twin_mismatches);
   3. the flagship region cycle, bench.py's default workload: B=512 bodies, 640x512
      frames, 200 lines, scales {6,4,2,1}, 5 correspondence x 2 update iterations,
      histogram adaptation, the sphere model of phase 0m, through initialize_histograms
@@ -73,11 +70,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      depth frames, at the structure's initial poses, the child in green (bench.py renders
      the parent only, 0.13 m from where its structure starts, since its two links share
      one body); and the root starts with the ±4 mm x/y jitter of the rigid paths;
-     in phases 3-6k every kernel launch count is set to 0 just before the path runs and
-     asserted just after; poses must be finite and within 5 mm of the rendered pose (of
-     each link); in one more cycle of each RGB-D path (RGB-D, YCB, kinematic RGB-D) no
-     aten operation may read the depth frame (no depth crop: only sample_windows reads
-     the frame);
+     in phases 3-6k StartModality and PATH_CYCLES cycles run, every kernel launch count
+     set to 0 just before the path runs and asserted just after; poses must be finite
+     and within 5 mm of the rendered pose (of each link); in one more cycle of each
+     RGB-D path (RGB-D, YCB, kinematic RGB-D) no aten operation may read the depth
+     frame (no depth crop: only sample_windows reads the frame);
   7. card against CPU at B=8 (the first 8 bodies, or 4 structures): StartModality, then
      3 cycles, each started on both devices from the same state; every kernel call the
      card makes equal to its plain twin on the same inputs, and poses and histograms
@@ -99,8 +96,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      8s. the sequence scans: B=512 sequences of 6 frames of the flagship sphere moving
          1 mm along x per frame (3.0 GB of colour and 2.0 GB of depth frames), frame 0
          starting the histograms, track_sequences_scan and track_sequences_scan_rgbd
-         over the other 5, once to warm up and once per timed window (3); ms per step,
-         and every pose of every step within 5 mm of the sphere in that frame;
+         over the other 5 (each step's graph captured at its first step), every pose of
+         every step within 5 mm of the sphere in that frame, and every kernel call of
+         one RGB-D scan step held against its twin;
      8c. the multi-camera rigid RGB-D cycle with all four scene checks: phase 7's
          sphere and cube seen by the reference camera and by a camera 20 degrees to the
          side of the sphere and 5 degrees off its axis, B=512 bodies x 2 cameras (1.0 GB
@@ -110,10 +108,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
          two cameras (the second 20 degrees to the side of the structure), per-link
          scenes in each camera, through make_sharded_kinematic_cycle;
      8c and 8k run as phases 3-6k do (graphed, each cycle built once; launch counts
-     asserted, every body or link within 5 mm, peak memory); phase 2's table gains
-     sample_lines (its first ratio-mode call, kp=120) and sample_windows (its first call,
-     K=11) timed on the inputs of one 8s step and of one 8c cycle, a frame of their own
-     per batch entry;
+     asserted, every body or link within 5 mm, peak memory); every kernel call of one
+     8c cycle is held against its twin, a frame of its own per batch entry;
      8x. in phase 7's loop, card against CPU at B=8 (S=4) and C=2: one step of the RGB-D
          scan, the multi-camera rigid cycle with texture terms per camera, and the
          multi-camera articulated cycle (which may part at one named structure per
@@ -131,16 +127,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      jittered pose, all sharing phase 0m's models; the backend must be built (no
      "fused cycle unavailable" notice), the kernels launched per tracking step as the
      bare cycle launches them and none in the starting step, every body within 5 mm of
-     the sphere in the last frame; then 3 timed windows of further steps on the frames
-     replayed back and forth (1 mm per frame), and one window with the backend's parts
-     timed apart (gather, frame upload, cycle, scatter):
-     9s. the region graph at B=512, 5 steps per window, beside phase 3's bare cycle;
-     9d. 9s with a DepthModality per body (200 points, the phase 0m depth model),
-         beside phase 4's bare cycle;
-     9l. both graphs at B=1, 20 steps per window: the serve latency against the 33 ms
-         of a live camera;
-     Tracker.SetUp, the backend build and the starting step are timed, and peak memory
-     read;
+     the sphere in the last frame, and peak memory read:
+     9s. the region graph at B=512;
+     9d. 9s with a DepthModality per body (200 points, the phase 0m depth model);
+     9l. both graphs at B=1;
      9x. in phase 7's loop, both graphs at B=8 and at B=1 (9l's kernel shapes) on the
          card and on the CPU: 3 serve steps, each started on both devices from the CPU's
          state (fused_serve.read_graph_state and load_graph_state), poses and histograms
@@ -153,13 +143,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      along x per frame), the modalities' five host-path functions graphed
      (correspondences, gradient and Hessian, colour additions: one CUDA graph per
      static key; the renders stay eager, see 10o), with every kernel launch count set to 0
-     before it (the host path must launch none: the kernels line's host_path_launches),
-     the fused backend's refusal asserted (with the JAX package's reason), every tensor
-     of the graph asserted on the card and every link within 5 mm of its rendered pose;
-     then 3 timed windows of 2 steps on the frames replayed back and forth after 2
-     warm-up steps, one step more with its parts timed apart (rendering,
-     correspondences, gradient and Hessian, optimization, results; each part
-     synchronized), the graphs captured and their capture seconds, and peak memory:
+     before it (the host path must launch none), the fused backend's refusal asserted
+     (with the JAX package's reason), every tensor of the graph asserted on the card and
+     every link within 5 mm of its rendered pose in the last frame; the graphs captured
+     and peak memory read:
      10o. an occluded scene of a YCB-Video frame's size: five Body objects of the phase
          0m sphere (ids 1-5, set explicitly) at 0.45-0.6 m, two of them overlapping in
          the image, and phase 7's cube (id 6, untracked) in front of one, in one
@@ -172,10 +159,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
          Also one FullNormalRenderer image of the scene at 640x512 on the card and on the
          CPU: the share of pixels whose triangle id differs (at most 0.1 %), and the
          largest depth and normal differences where the ids agree; and the graph's ten
-         focused renderers rendering once per pass in three forms on the card: eagerly
-         with each chunk of triangles over its window (the renderers' form, also timed
-         on the CPU), eagerly over the whole image, and through the graphed rasterize
-         (whole image): the images equal, and the seconds per pass of each;
+         focused renderers rendering in three forms on the card: eagerly with each chunk
+         of triangles over its window (the renderers' form, also on the CPU), eagerly
+         over the whole image, and through the graphed rasterize (whole image): the
+         images equal;
      10k. four copies of phase 6k's structure (bench.py:285-306, the child free in all
          six directions with a Body of its own), each link with region and depth
          modalities that model link-on-link occlusions through FocusedBasicDepthRenderers,
@@ -205,8 +192,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      11r. RBOT through the entry point's configuration (modelled occlusions and region
          checking, 200 lines): 72 runs and 18 hidden partners, B = 90, fused, every
          kernel launch counted from 0: sample_lines, bin_counts, query_eval and
-         newton_step launched in every frame's cycle; tracking success, seconds per
-         body-frame, peak memory; then python -m
+         newton_step launched in every frame's cycle; tracking success, peak memory;
+         then python -m
          m3t_tpu_torch.examples.evaluate_rbot_dataset on the same files must print the
          same tracking success;
      11y, 11k, 11o. YCB-Video fused RGB-D, RTB fused kinematic with depth, OPT and Choi
@@ -225,7 +212,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      CPU only: the TextureModality, loader frames other than PNG and the viewers' display
      and saving.
   12. the other entry points of examples/ (m3t_tpu_torch/examples), on phase 11's
-     datasets and models, every Tracker step timed (synchronized) with its launches:
+     datasets and models, every Tracker step recorded with its launches:
      12r. record_camera_sequence records 12 frames at 640x480 from a stand-in for
          cv2.VideoCapture (a module named cv2 for the block, as tests/test_hardware_
          cameras.py fakes it) whose frames show phase 11's four-sphere cluster along a
@@ -233,8 +220,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
          give the device's intrinsics; run_on_recorded_sequence replays them through that
          metafile (phase 11's region model), fused, then with --host-path: exit 0, K1 6,
          K2 2 and K5 10 launches in every fused tracking step and none in the starting
-         step, none on the host path, the final pose within 5 mm of the path; the first step's
-         ms, the median of the warm steps, peak memory;
+         step, none on the host path, the final pose within 5 mm of the path; peak
+         memory;
      12r, 12g and 12p hold every kernel call of their runs against its plain twin on
          the same inputs after each run (twin_checked);
      12g. run_generated_tracker over a generator config with one link over 12r's
@@ -248,7 +235,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
          published grid's 32-bin histograms), parameter_study.py rbot over n_lines_max
          (its rows equal: the fused RBOT evaluator ignores the setter), YCB-Video over
          n_corr_iterations (rows equal: its fused path ignores the tracker grid; the
-         study's 21 BODY_NAMES bound to the dataset's three), RTB over scales, OPT over
+         study's 21 BODY_NAMES tied to the dataset's three), RTB over scales, OPT over
          learning_rate_f (phase 11's sequence laid out as the published run qu_tr_1_b,
          depth rendered from the published depth camera, so it serves on the host path)
          and Choi over n_corr_iterations: per row the printed scores, seconds, cycles and
@@ -284,17 +271,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      3 eager cycles (steps), then a graphed one from the state each eager one started
      from, the first capturing the graph, every graphed state equal to the eager one bit
      for bit; kernel launches per cycle of both forms and per replay as BENCH_LAUNCHES;
-     capture seconds, graphs and segments per graph (1 in one process); each form's peak
-     memory; ms per cycle of both forms in windows taken in turns (eager, graph, graph,
-     eager; 5 cycles at B=512, 20 at the smaller batches and in serve); and one
-     torch.profiler window of each form of the region, kinematic RGB-D and 8c cycles
-     (device busy ms, idle share);
+     graphs and segments per graph (1 in one process); each form's peak memory;
      14h. the host path of phases 10o and 10k, an eager copy (disable_graphs) and a
      graphed copy of each graph, 2 steps from equal states (detection, the starting
      step and a tracking step each, the graphed copy loaded with the eager copy's state
      before each step): every link pose, joint pose and histogram equal bit for bit,
-     no kernel launched; the graphs captured, their capture seconds and each form's
-     seconds per step;
+     no kernel launched; the graphs captured;
      14d. two gloo processes on the one card form a (1, 2) mesh (the dry run's problem,
      rigid_call and kinematic_call of m3t_tpu_torch.parallel.dryrun): on each rank 3
      eager multi-camera cycles (rigid and articulated) and a graphed one from each eager
@@ -302,19 +284,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      more than the cycle's Newton steps (the camera all_reduce runs between each two
      captured segments) and the eager launches per replay.
 Every phase runs the fused cycles graphed, the form a user gets, but where it records
-kernel calls to hold them against their twins (phase 2's recorded calls, 7, 8x, 9x,
-11x, 12r, 12g and 12p's twin checks, 12x, 13k: recorded_launches) or counts
-aten operations (phases 4-6k's depth-frame reads): a graph's replay calls no wrapper
-and dispatches no operation, so those cycles run eagerly (disable_graphs).  12r also
+kernel calls to hold them against their twins (phase 2's recorded calls, 7, 8s and
+8c's twin checks, 8x, 9x, 11x, 12r, 12g and 12p's twin checks, 12x, 13k:
+recorded_launches) or counts aten operations (phases 4-6k's depth-frame reads): a
+graph's replay calls no wrapper and dispatches no operation, so those cycles run
+eagerly (disable_graphs).  12r also
 replays its recording graphed, held by its launches.  Every path of phases 3-10 starts
 with clear_graphs, so that its peak memory holds its own graphs only.
-The last two lines are the kernels JSON and {"ok": true, "device": {...}}.  With
---profile, one window each of region, RGB-D, occlusion-path, kinematic, kinematic RGB-D,
-RGB-D scan step, multi-camera and multi-camera kinematic cycles is also traced with
-torch.profiler: the device busy share is logged and the tables of device time by
-operation are written to TABLE_FILE and to TABLE_FILE with "_rgbd", "_occlusion",
-"_kinematic", "_kinematic_rgbd", "_scan_rgbd", "_multicamera" or
-"_kinematic_multicamera" before its suffix.
+The last two lines are the phases' JSON and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -331,7 +308,6 @@ import re
 import shutil
 import signal
 import socket
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -342,38 +318,11 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: device memory rate
-FP32_OPS_PER_S = 67e12     # H100 SXM data sheet: float32 outside the tensor cores
-# Scalar operations per element, read off the kernels' source: sample_lines does
-# 2 mul, 3 add/sub, 1 floor and 4 min/max per output sample; bin_counts a mask test,
-# two range compares and one add per input sample; sample_windows 1 mul, 2 add and
-# 2 min/max per output sample (its column; a window row's K samples share its row);
-# query_eval 8 mul and 8 add for the four planes, 4 compares and 3 ands for the
-# coverage test and 1 select for its value, 1 compare and 2 selects for the chain
-# update, per (query, triangle under the scene's loop bound); newton_step per body 141
-# for the LDLT factors, 66 for the two substitutions, 6 NaN tests, 11 for so3_exp's
-# scalars (sinf, cosf and sqrtf one each), 63 for the variation's rotation and 112 for
-# pose @ variation.
-SAMPLE_LINES_OPS, BIN_COUNTS_OPS, SAMPLE_WINDOWS_OPS, QUERY_EVAL_OPS = 10, 4, 5, 27
-NEWTON_STEP_OPS = 399
-# scene_coeffs per triangle: 54 for the camera frame, 27 for the projections and inverse
-# depths, 18 for the edges, 4 for the area, 10 for the flags, sign and safe area, 18 for
-# the inverse-depth plane, 9 for the signs and 8 for the box; it reads the vertices,
-# owner, id and two flags (46 B) and writes the row, box, id and flag (69 B).
-SCENE_COEFFS_OPS = 148
-SCENE_COEFFS_BYTES = (36 + 4 + 4 + 1 + 1) + (48 + 16 + 4 + 1)
-# newton_step reads a body's gradient, Hessian and pose and writes its pose, float32.
-NEWTON_STEP_BYTES = (6 + 36 + 16 + 16) * 4
 # newton_step against its twin: every pose entry (the matmul's order parts a few ulps).
 NEWTON_STEP_ATOL = 1e-6
-# Rows of sample_lines' (B, 8, LP) params that it reads: R0, S0, STEP, UDOM and DIR.
-SAMPLE_LINES_PARAM_ROWS = 5
 WIDTH, HEIGHT, N_LINES, N_POINTS, N_BODIES = 640, 512, 200, 200, 512
 DEPTH_SCALE = 0.001
-REGION_SOURCE = "m3t_tpu_torch/csrc/region_kernels.cu"
-DEPTH_SOURCE = "m3t_tpu_torch/csrc/depth_kernels.cu"
-OCCLUSION_SOURCE = "m3t_tpu_torch/csrc/occlusion_kernels.cu"
-NEWTON_SOURCE = "m3t_tpu_torch/csrc/newton_kernels.cu"
+PATH_CYCLES = 17  # phases 3-6k, 8c and 8k: cycles after StartModality
 CUBE_HALF, CUBE_POSITION = 0.03, (-0.04, 0.0, 0.45)  # the occluder of phase 7, camera frame
 PHASE7_ATOL = 1e-4  # card against CPU, every state field
 
@@ -387,54 +336,6 @@ def card_name() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, iters: int, windows: int = 5, graph: bool = False) -> float:
-    """Median over windows of the CUDA-event time per call.
-
-    graph=False times ``iters`` eager calls, so a call that takes the device less time
-    than the host needs to issue it is timed at the host's rate.  graph=True captures
-    ``iters`` calls in one CUDA graph after the warm-up call and times its replays: the
-    device runs the launches back to back, and the host does not enter the time."""
-    fn()
-    torch.cuda.synchronize()
-    if graph:
-        captured = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(captured):
-            for _ in range(iters):
-                fn()
-        run = captured.replay
-        run()
-        torch.cuda.synchronize()
-    else:
-        def run():
-            for _ in range(iters):
-                fn()
-    times = []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
-
-
-def kernel_times(fn, iters: int = 20) -> dict:
-    """A kernel wrapper's time per call under both yardsticks: ``ms`` by graph replay
-    (the kernel's own time) and ``eager_ms`` by the eager loop (what an eager caller
-    sees, host issue included)."""
-    return dict(ms=time_ms(fn, iters, graph=True), eager_ms=time_ms(fn, iters))
-
-
-def bound(n_bytes: int, n_ops: int) -> dict:
-    """The least time the card could take: the larger of the bytes over the memory
-    rate and the operations over the float32 rate."""
-    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
-    return dict(bytes=n_bytes, ops=n_ops, bound_ms=max(by_bytes, by_ops),
-                bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
 def texture_matches(rng, n_bodies: int, pose0, intr_t, k: int = 128, radius: float = 0.06):
@@ -791,17 +692,18 @@ def kinematic_cycle(pcfg_key):
     return cycle
 
 
+def launch_counters():
+    """Each kernel wrapper by name: the function that ops/_cuda.py declares, which counts
+    its launches."""
+    from m3t_tpu_torch import pipeline  # noqa: F401  (imports every kernel's module)
+    from m3t_tpu_torch.ops import _cuda
+
+    return {fn.__name__: fn for fn in _cuda.wrappers()}
+
+
 def kernel_modules():
     """Each kernel wrapper's name and the module that holds it and its ``_plain`` twin."""
-    from m3t_tpu_torch.ops import depth_fast, newton, occlusion, region_fast
-
-    return {"sample_lines": region_fast, "bin_counts": region_fast,
-            "sample_windows": depth_fast, "query_eval": occlusion, "newton_step": newton,
-            "scene_coeffs": occlusion}
-
-
-def launch_counters():
-    return {name: getattr(module, name) for name, module in kernel_modules().items()}
+    return {name: sys.modules[fn.__module__] for name, fn in launch_counters().items()}
 
 
 @contextlib.contextmanager
@@ -820,8 +722,6 @@ def recorded_launches():
             out = kernels[name](*args, **kwargs)
             calls.append((name, args, kwargs, out))
             return out
-        # The wrapper counts its launches on the function its module's name refers to.
-        record.launches = kernels[name].launches
         return record
 
     records = {name: recorder(name) for name in modules}
@@ -833,32 +733,6 @@ def recorded_launches():
     finally:
         for name, module in modules.items():
             setattr(module, name, kernels[name])
-            kernels[name].launches = records[name].launches
-
-
-@contextlib.contextmanager
-def recorded_queries():
-    """The arguments of every query_eval call made inside the block, in order, each with
-    the (B, T, 4) triangle boxes of the focused scene whose coefficients it reads (the
-    callers look focused_scene_coeffs up in its module at each call)."""
-    from m3t_tpu_torch.ops import occlusion
-
-    scene_coeffs, scenes, queries = occlusion.focused_scene_coeffs, [], []
-
-    def record_scene(*args, **kwargs):
-        scenes.append(scene_coeffs(*args, **kwargs))
-        return scenes[-1]
-
-    occlusion.focused_scene_coeffs = record_scene
-    try:
-        with recorded_launches() as calls:
-            yield queries
-    finally:
-        occlusion.focused_scene_coeffs = scene_coeffs
-    for name, args, _, _ in calls:
-        if name == "query_eval":
-            boxes = [sc.bbox for sc in scenes if sc.coeffs is args[0]]
-            queries.append((args, boxes[-1] if boxes else None))
 
 
 def twin_mismatches(calls) -> list:
@@ -868,7 +742,7 @@ def twin_mismatches(calls) -> list:
     modules, bad = kernel_modules(), []
     for name, args, kwargs, got in calls:
         twin = getattr(modules[name], f"{name}_plain")
-        want = twin(*args, **{k: v for k, v in kwargs.items() if k != "cull"})
+        want = twin(*args, **kwargs)
         if name == "query_eval":
             same = (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
                     and torch.equal(got[1], want[1]))
@@ -931,70 +805,6 @@ def adversarial_queries(n_scenes: int, device):
             soup.bbox.expand(n_scenes, -1, -1))
 
 
-def query_work(args, bbox):
-    """What query_eval's inputs ask of it, counted on the card triangle by triangle (no
-    (B, Q, T) tensor): the loop bound per scene, the (query, valid triangle) pairs under
-    it, the share of them whose query lies in the triangle's box (bbox, (B, T, 4)), the
-    share of the kernel's (half-warp box, valid triangle) tests that survive its cull,
-    and the share of (warp, valid triangle) pairs the kernel evaluates (those where
-    either half survives)."""
-    from m3t_tpu_torch.ops import occlusion
-
-    coeffs, valid, _, u, v = args
-    b = coeffs.shape[0]
-    u = u.reshape(b, -1).to(torch.float32)
-    v = v.reshape(b, -1).to(torch.float32)
-    q = u.shape[1]
-    n_bound = occlusion.leading_valid_count(valid)
-    pad = (-q) % 32
-    halves = []
-    for x in (u, v):
-        x = torch.nn.functional.pad(x, (0, pad), value=float("nan")).reshape(b, -1, 16)
-        halves.append((torch.where(x.isnan(), torch.inf, x).amin(-1),
-                       torch.where(x.isnan(), -torch.inf, x).amax(-1)))
-    box = torch.stack([halves[0][0], halves[0][1], halves[1][0], halves[1][1]], -1)
-    has = ~(u.isnan() | v.isnan())
-    has = torch.nn.functional.pad(has, (0, pad)).reshape(b, -1, 16).any(-1)  # (B, H)
-    pairs = in_box = tests = kept = evaluated = 0
-    for t in range(int(n_bound.max())):
-        ok = valid[:, t]
-        lo_u, hi_u, lo_v, hi_v = bbox[:, t, :, None].unbind(1)
-        in_box += int(((u >= lo_u) & (u <= hi_u) & (v >= lo_v) & (v <= hi_v)
-                       & ok[:, None]).sum())
-        pairs += int(ok.sum()) * q
-        survive = ~occlusion.box_outside(coeffs[:, t, None, :], box) & has & ok[:, None]
-        tests += int(ok.sum()) * box.shape[1]
-        kept += int(survive.sum())
-        evaluated += int(survive.reshape(b, -1, 2).any(-1).sum())
-    return dict(loop_bound_rows=int(n_bound.sum()), pairs=pairs,
-                in_box_share=in_box / max(pairs, 1), in_box_pairs=in_box,
-                halfwarp_survive_share=kept / max(tests, 1),
-                warp_evaluated_share=2 * evaluated / max(tests, 1))
-
-
-def window_reads(image, u_min, v_min, stride, corner_u, corner_v, crop_size, k):
-    """What sample_windows reads, for its bound and its torch.take yardstick: ``touched``,
-    the distinct (frame, pixel) pairs inside the frames that the windows sample (a frame
-    shared by the batch as an expanded view counts once); ``outside``, the samples
-    beyond the frame (they read 0); ``padded``, a float32 copy of the frames zero-padded
-    to at least the crop; ``index``, the (B, P, K, K) flat index of every sample into
-    it."""
-    from m3t_tpu_torch.ops import depth_fast as df
-
-    b, h, w = image.shape
-    n_frames = 1 if image.stride(0) == 0 else b
-    hp, wp = max(h, crop_size), max(w, crop_size)
-    padded = torch.zeros((n_frames, hp, wp), dtype=torch.float32, device=image.device)
-    padded[:, :h, :w] = (image[:n_frames].view(torch.int16).to(torch.int32) & 0xFFFF)
-    rows, cols = df.window_positions(u_min, v_min, stride, corner_u, corner_v, crop_size, k)
-    frame = torch.arange(b, device=image.device) % n_frames
-    index = ((frame[:, None, None, None] * hp + rows[..., :, None].long()) * wp
-             + cols[..., None, :].long())
-    inside = (rows < h)[..., :, None] & (cols < w)[..., None, :]
-    return dict(touched=torch.unique(index[inside]).numel(),
-                outside=int((~inside).sum()), padded=padded, index=index)
-
-
 def rolled_frames(frames):
     """(B, H, W) uint16: the first frame rolled by a different (rows, cols) offset for
     every body, materialised (B distinct frames)."""
@@ -1042,84 +852,6 @@ def depth_frame_reads(inp, cycle, tensors) -> int:
     return count.n
 
 
-def sample_lines_row(name, params, bin_crop, table, kp, output, per_cycle):
-    """sample_lines on these inputs against its twin (exactly), timed, with its bound."""
-    from m3t_tpu_torch.ops import region_fast as rf
-
-    b, c = params.shape[0], bin_crop.shape[-1]
-    got = rf.sample_lines(params, bin_crop, table, kp, output)
-    want = rf.sample_lines_plain(params, bin_crop, table, kp, output)
-    torch.cuda.synchronize()
-    err = (got.double() - want.double()).abs().max().item()
-    if not torch.equal(got, want):
-        raise AssertionError(f"sample_lines {name}: kernel != plain (max diff {err})")
-    touched = torch.unique(rf.staircase_index(params, c, kp)).numel()
-    n_bytes = (b * SAMPLE_LINES_PARAM_ROWS * params.shape[-1] * 4 + touched * 4
-               + got.numel() * 4 + (table.numel() * 4 if output == "ratio" else 0))
-    return dict(kernel="sample_lines", case=name, per_cycle=per_cycle, max_abs_err=err,
-                **kernel_times(lambda: rf.sample_lines(params, bin_crop, table, kp, output)),
-                plain_ms=time_ms(
-                    lambda: rf.sample_lines_plain(params, bin_crop, table, kp, output), 3),
-                library_ms=None, **bound(n_bytes, SAMPLE_LINES_OPS * got.numel()))
-
-
-def sample_windows_row(name, args, per_cycle):
-    """sample_windows on args = (image, u_min, v_min, stride, corner_u, corner_v,
-    crop_size, k) against its twin (exactly), timed, with its bound and the torch.take
-    yardstick."""
-    from m3t_tpu_torch.ops import depth_fast as df
-
-    image, u_min, k = args[0], args[1], args[-1]
-    b = image.shape[0]
-    got = df.sample_windows(*args)
-    want = df.sample_windows_plain(*args)
-    torch.cuda.synchronize()
-    err = (got.double() - want.double()).abs().max().item()
-    if not torch.equal(got, want):
-        raise AssertionError(f"sample_windows {name}: kernel != plain (max diff {err})")
-    reads = window_reads(*args)
-    # The same work whatever implements it: the f32 output, the (B, P) geometry and
-    # the corners read once, 2 bytes per distinct (frame, pixel) the windows touch.
-    # The bound of the crop-based kernel this one replaced counted that kernel's own
-    # I/O instead: its padded (B, kp, LP) int32 output, its (B, 4, LP) f32 params
-    # rows and the int32 crop words.
-    n_bytes = got.numel() * 4 + 3 * u_min.numel() * 4 + 2 * b * 4 + 2 * reads["touched"]
-    return dict(kernel="sample_windows", case=f"{name} K={k} P={u_min.shape[1]}",
-                per_cycle=per_cycle, max_abs_err=err,
-                frame_bytes=image[0].numel() * 2 * (1 if image.stride(0) == 0 else b),
-                touched_pixels=reads["touched"],
-                outside_frame_samples=reads["outside"],
-                **kernel_times(lambda: df.sample_windows(*args)),
-                plain_ms=time_ms(lambda: df.sample_windows_plain(*args), 5),
-                library_ms=time_ms(lambda: torch.take(reads["padded"], reads["index"]),
-                                   20, graph=True),
-                library_timing="graph",
-                **bound(n_bytes, SAMPLE_WINDOWS_OPS * got.numel()))
-
-
-def newton_step_row(name, args, per_cycle):
-    """newton_step on args = (gradient, hessian, pose, tikhonov_rotation,
-    tikhonov_translation) against its twin (every pose entry within NEWTON_STEP_ATOL),
-    timed, with its bound; its twin also timed graphed (``plain_graph_ms``), the form in
-    which a graphed cycle ran it before the kernel."""
-    from m3t_tpu_torch.ops import newton
-
-    b = args[0].shape[0]
-    got = newton.newton_step(*args)
-    want = newton.newton_step_plain(*args)
-    torch.cuda.synchronize()
-    err = (got.double() - want.double()).abs().nan_to_num(0.0).max().item()
-    if not torch.allclose(got, want, rtol=0.0, atol=NEWTON_STEP_ATOL, equal_nan=True):
-        raise AssertionError(f"newton_step {name}: kernel != plain (max diff {err})")
-    return dict(kernel="newton_step", case=f"{name} B={b}", per_cycle=per_cycle,
-                max_abs_err=err, unequal_entries=int((got != want).sum()),
-                **kernel_times(lambda: newton.newton_step(*args)),
-                plain_ms=time_ms(lambda: newton.newton_step_plain(*args), 5),
-                plain_graph_ms=time_ms(lambda: newton.newton_step_plain(*args), 20,
-                                       graph=True),
-                library_ms=None, **bound(NEWTON_STEP_BYTES * b, NEWTON_STEP_OPS * b))
-
-
 def robot_scenes(device, n_structures: int = 256, n_links: int = 7, seed: int = 6):
     """scene_coeffs arguments at the kinematic cell's shape: n_structures chains of
     n_links 320-face icospheres (r 3.5 cm, 7 cm apart, 0.75-0.9 m from a 1280x960
@@ -1146,39 +878,22 @@ def robot_scenes(device, n_structures: int = 256, n_links: int = 7, seed: int = 
             *projection, 0.02)
 
 
-def scene_coeffs_row(name, args, per_cycle):
-    """scene_coeffs on args (its wrapper's arguments): its four outputs equal to its
-    twin's on the same inputs, times by graph replay and eagerly, the twin's both ways,
-    and the bound from SCENE_COEFFS_BYTES and SCENE_COEFFS_OPS a triangle."""
-    from m3t_tpu_torch.ops import occlusion
-
-    got = occlusion.scene_coeffs(*args)
-    want = occlusion.scene_coeffs_plain(*args)
+def check_twin(name: str, case: str, *args, **kwargs) -> str:
+    """One call of the kernel wrapper ``name`` on the card against its plain twin on the
+    same inputs (twin_mismatches); returns the case's label."""
+    kernel = launch_counters()[name]
+    out = kernel(*args, **kwargs)
     torch.cuda.synchronize()
-    unequal = [field for field, x, y in zip(("coeffs", "tri_valid", "sil_id", "bbox"), got,
-                                            want) if not torch.equal(x, y)]
-    if unequal:
-        raise AssertionError(f"scene_coeffs {name}: kernel != plain in {unequal}")
-    b, t = args[0].shape[:2]
-    return dict(kernel="scene_coeffs", case=f"{name} B={b} T={t}", per_cycle=per_cycle,
-                max_abs_err=0.0, valid_share=float(got[1].float().mean()),
-                **kernel_times(lambda: occlusion.scene_coeffs(*args)),
-                plain_ms=time_ms(lambda: occlusion.scene_coeffs_plain(*args), 3, 3),
-                plain_graph_ms=time_ms(lambda: occlusion.scene_coeffs_plain(*args), 3, 3,
-                                       graph=True),
-                library_ms=None,
-                **bound(SCENE_COEFFS_BYTES * b * t, SCENE_COEFFS_OPS * b * t))
+    if twin_mismatches([(name, args, kwargs, out)]):
+        raise AssertionError(f"{name} {case}: kernel != plain")
+    return f"{name} {case}"
 
 
 def check_kernels(inp, kin):
     """Phase 2: every kernel against its plain twin at the flagship shapes (kin: the
-    articulated paths' inputs).  Each row's ``per_cycle`` is its number of calls in one
-    flagship cycle of its path (region for sample_lines, bin_counts and newton_step,
-    RGB-D for sample_windows, occlusion for query_eval, kinematic for scene_coeffs; 0:
-    not on that path)."""
+    articulated paths' inputs); returns the cases checked."""
     from m3t_tpu_torch import pipeline
     from m3t_tpu_torch.ops import depth_fast as df
-    from m3t_tpu_torch.ops import occlusion
     from m3t_tpu_torch.ops import raster
     from m3t_tpu_torch.ops import region_fast as rf
 
@@ -1193,29 +908,24 @@ def check_kernels(inp, kin):
     c = pcfg.crop_size
     b = N_BODIES
 
-    def k1_case(name, params, table, kp, output, per_cycle):
-        return sample_lines_row(name, params, bin_crop, table, kp, output, per_cycle)
-
-    shapes = []
+    cases = []
     # One region cycle runs scales 6, 4, 2, 1, 1 in ratio mode, then one bins-mode walk;
-    # the YCB parameters add scale 7 (per_cycle 0: not on the region path).
+    # the YCB parameters add scale 7.
     configs = (pcfg, inp["rgbd_pcfg"], inp["ycb_pcfg"])
     for scale in sorted(set().union(*(p.scales for p in configs)), reverse=True):
         geo = rf.line_geometry(cfg, scale, points, N_LINES, poses, *intr, WIDTH, HEIGHT,
                                cu, cv, c, pcfg.lp)
         kp = rf.round_up(cfg.line_length_in_segments * scale, 8)
-        calls = sum(pcfg.iteration_scale(i)[0] == scale
-                    for i in range(pcfg.n_corr_iterations))
-        shapes.append(k1_case(f"ratio kp={kp} LP={pcfg.lp}", geo.params, rtab, kp,
-                              "ratio", calls))
+        cases.append(check_twin("sample_lines", f"ratio kp={kp} LP={pcfg.lp}", geo.params,
+                                bin_crop, rtab, kp, "ratio"))
         if scale in (max(pcfg.scales), min(pcfg.scales)):
-            # The same lines in bins mode (no table): what the table costs.
-            shapes.append(k1_case(f"bins kp={kp} LP={pcfg.lp}", geo.params, None, kp,
-                                  "bins", 0))
+            cases.append(check_twin("sample_lines", f"bins kp={kp} LP={pcfg.lp}",
+                                    geo.params, bin_crop, None, kp, "bins"))
     params, mask = rf.histogram_walk_geometry(cfg, points, N_LINES, poses, *intr, WIDTH,
                                               HEIGHT, cu, cv, c, 2 * pcfg.lp)
     kp2 = mask.shape[-1]
-    shapes.append(k1_case(f"bins kp={kp2} LP={2 * pcfg.lp}", params, None, kp2, "bins", 1))
+    cases.append(check_twin("sample_lines", f"bins kp={kp2} LP={2 * pcfg.lp}", params,
+                            bin_crop, None, kp2, "bins"))
 
     bins = rf.sample_lines(params, bin_crop, None, kp2, "bins").transpose(1, 2)
     half = pcfg.lp
@@ -1223,26 +933,9 @@ def check_kernels(inp, kin):
     for side, sl in (("fg", slice(None, half)), ("bg", slice(half, None))):
         k2_bins = bins[:, sl].reshape(b, -1)
         k2_mask = mask[:, sl].reshape(b, -1).contiguous()
-        got = rf.bin_counts(k2_bins, k2_mask, n_total)
-        want = rf.bin_counts_plain(k2_bins, k2_mask, n_total)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        if not torch.equal(got, want):
-            raise AssertionError(f"bin_counts {side}: kernel != plain (max diff {err})")
-        keep = k2_mask & (k2_bins >= 0) & (k2_bins < n_total)
-        offset = (torch.where(keep, k2_bins, n_total).long()
-                  + torch.arange(b, device=dev)[:, None] * (n_total + 1)).reshape(-1)
-        n_bytes = k2_bins.numel() * 4 + k2_mask.numel() + got.numel() * 4
-        shapes.append(dict(
-            kernel="bin_counts", case=f"{side} B={b} N={k2_bins.shape[1]} bins={n_total}",
-            per_cycle=1, max_abs_err=err,
-            **kernel_times(lambda: rf.bin_counts(k2_bins, k2_mask, n_total)),
-            plain_ms=time_ms(lambda: rf.bin_counts_plain(k2_bins, k2_mask, n_total), 5),
-            **bound(n_bytes, BIN_COUNTS_OPS * k2_bins.numel()),
-            # torch.bincount reads its input on the host to size its output, so it
-            # cannot be captured in a graph: its time is the eager loop's.
-            library_ms=time_ms(lambda: torch.bincount(offset, minlength=b * (n_total + 1)),
-                               20), library_timing="eager"))
+        cases.append(check_twin("bin_counts",
+                                f"{side} B={b} N={k2_bins.shape[1]} bins={n_total}",
+                                k2_bins, k2_mask, n_total))
 
     # sample_windows on the RGB-D path's frames (one frame shared by the batch as an
     # expanded view, as the cycle receives it) and selected depth views.
@@ -1251,94 +944,73 @@ def check_kernels(inp, kin):
     dcu, dcv = df.depth_corners(frames, poses, *intr, c)
     centers = pipeline._select_depth_view(bt["depth_model"], poses).center_f_body
 
-    def k3_case(name, image, u_min, v_min, stride, corner_u, corner_v, k, per_cycle):
-        return sample_windows_row(name, (image, u_min, v_min, stride, corner_u, corner_v, c,
-                                         k), per_cycle)
+    def k3_case(name, image, u_min, v_min, stride, corner_u, corner_v, k):
+        return check_twin("sample_windows", f"{name} K={k} P={u_min.shape[1]}", image,
+                          u_min, v_min, stride, corner_u, corner_v, c, k)
 
     for cd in sorted(set(rgbd.considered_distances) | set(ycb.considered_distances),
                      reverse=True):
         u_min, v_min, stride, k = df.correspondence_windows(rgbd.depth_cfg, cd, centers,
                                                            poses, *intr)
-        calls = sum(rgbd.iteration_depth(i)[0] == cd for i in range(rgbd.n_corr_iterations))
-        shapes.append(k3_case(f"correspondence cd={cd}", frames, u_min, v_min, stride, dcu,
-                              dcv, k, calls))
+        cases.append(k3_case(f"correspondence cd={cd}", frames, u_min, v_min, stride, dcu,
+                             dcv, k))
         if k == 11:
             widest = (u_min, v_min, stride)
     u_min, v_min, _, _, stride = df.occlusion_windows(
         rgbd.depth_cfg.measured_occlusion_radius, False, centers, poses, *intr, WIDTH,
         HEIGHT)
-    shapes.append(k3_case("measured occlusion", frames, u_min, v_min, stride, dcu, dcv,
-                          df.KMAX_N_OCCLUSION_STRIDES + 1, 0))
+    cases.append(k3_case("measured occlusion", frames, u_min, v_min, stride, dcu, dcv,
+                         df.KMAX_N_OCCLUSION_STRIDES + 1))
     # A K that no template instantiation takes.
     u_min, v_min, stride, k = df.correspondence_windows(rgbd.depth_cfg, 0.03, centers,
                                                        poses, *intr)
     if k in (3, 5, 6, 11):
         raise AssertionError(f"sample_windows runtime-K case has a template K ({k})")
-    shapes.append(k3_case("runtime K, correspondence cd=0.03", frames, u_min, v_min,
-                          stride, dcu, dcv, k, 0))
+    cases.append(k3_case("runtime K, correspondence cd=0.03", frames, u_min, v_min,
+                         stride, dcu, dcv, k))
     # A batch of sequences rather than many objects in one camera: a frame per body.
-    shapes.append(k3_case("distinct frames", rolled_frames(frames), *widest, dcu, dcv, 11, 0))
+    cases.append(k3_case("distinct frames", rolled_frames(frames), *widest, dcu, dcv, 11))
     # A 200x160 camera (the frame's centre) under the 256-pixel crop.
     small = frames[0, 176:336, 220:420].contiguous().expand(b, -1, -1)
     fu, fv, ppu, ppv = intr
     u_min, v_min, stride, k = df.correspondence_windows(
         rgbd.depth_cfg, 0.05, centers, poses, fu, fv, ppu - 220, ppv - 176)
-    row = k3_case("small frame 200x160", small, u_min, v_min, stride,
-                  *df.depth_corners(small, poses, fu, fv, ppu - 220, ppv - 176, c), k, 0)
-    if row["outside_frame_samples"] == 0:
+    corners = df.depth_corners(small, poses, fu, fv, ppu - 220, ppv - 176, c)
+    rows, cols = df.window_positions(u_min, v_min, stride, *corners, c, k)
+    if not ((rows >= small.shape[1]).any() or (cols >= small.shape[2]).any()):
         raise AssertionError("sample_windows small frame: no sample beyond the frame")
-    shapes.append(row)
+    cases.append(k3_case("small frame 200x160", small, u_min, v_min, stride, *corners, k))
 
-    def k4_case(name, recorded, per_cycle, plain_iters=3):
-        args, bbox = recorded
-        coeffs, valid, _, u, _ = args
-        inv, ids = occlusion.query_eval(*args)
-        want_inv, want_ids = occlusion.query_eval_plain(*args)
-        torch.cuda.synchronize()
-        err = (inv.double() - want_inv.double()).abs().max().item()
-        if not (torch.equal(inv.view(torch.int32), want_inv.view(torch.int32))
-                and torch.equal(ids, want_ids)):
-            raise AssertionError(f"query_eval {name}: kernel != plain (max diff {err}, "
-                                 f"{int((ids != want_ids).sum())} ids differ)")
-        inv, ids = occlusion.query_eval(*args, cull=False)
-        torch.cuda.synchronize()
-        if not (torch.equal(inv.view(torch.int32), want_inv.view(torch.int32))
-                and torch.equal(ids, want_ids)):
-            raise AssertionError(f"query_eval {name}: kernel without cull != plain")
-        work = query_work(args, bbox)
-        # Each query's (u, v) read and (inv, id) written; each scene's validity flags, and
-        # its coefficient rows and ids up to its loop bound.  The data-dependent work is
-        # 27 operations per pair whose query lies in the triangle's box.
-        n_bytes = 16 * u.numel() + valid.numel() + 52 * work["loop_bound_rows"]
-        return dict(kernel="query_eval",
-                    case=f"{name} B={u.shape[0]} Q={u[0].numel()} T={coeffs.shape[1]}",
-                    per_cycle=per_cycle, max_abs_err=err, **work,
-                    **kernel_times(lambda: occlusion.query_eval(*args)),
-                    no_cull_ms=time_ms(lambda: occlusion.query_eval(*args, cull=False), 20,
-                                       graph=True),
-                    plain_ms=time_ms(lambda: occlusion.query_eval_plain(*args), plain_iters),
-                    library_ms=None,
-                    **bound(n_bytes, QUERY_EVAL_OPS * work["in_box_pairs"]))
+    def k4_case(name, args):
+        coeffs, _, _, u, _ = args
+        return check_twin("query_eval",
+                          f"{name} B={u.shape[0]} Q={u[0].numel()} T={coeffs.shape[1]}",
+                          *args)
+
+    def recorded(kernel, path_inp, cycle, path_state=None):
+        """The arguments of every call of kernel in one cycle of the path at B=512."""
+        path_bt = path_inp["kind"].batch(path_inp, b, dev)
+        if path_state is None:
+            path_state = path_inp["kind"].start(path_inp, path_bt)
+        with recorded_launches() as calls:
+            cycle(path_inp, path_bt, path_state)
+        return [args for name, args, _, _ in calls if name == kernel]
 
     # query_eval on the calls of one flagship occlusion-path cycle (the first of its five
     # correspondence iterations) and of one RGB-D cycle with the cube and all four scene
     # checks (its first iteration's silhouette and depth modeled-occlusion calls).
     occ = occlusion_path(inp)
-    with recorded_queries() as calls:
-        region_cycle(occ, occ["kind"].batch(occ, b, dev), state)
-    shapes.append(k4_case("occlusion path", calls[0], len(calls)))
+    cases.append(k4_case("occlusion path", recorded("query_eval", occ, region_cycle,
+                                                    state)[0]))
     scene = occluded(inp)
     bt_scene = scene["kind"].batch(scene, b, dev)
     scene_state = pipeline.initialize_histograms(scene["pcfg"], intr, bt_scene["images"],
                                                  bt_scene["model"], poses)
-    with recorded_queries() as calls:
-        rgbd_cycle("rgbd_pcfg")(scene, bt_scene, scene_state)
-    shapes.append(k4_case("rgbd silhouette", calls[1], 0))
-    shapes.append(k4_case("rgbd modeled occlusion", calls[2], 0))
-    bt_kin = kin["kind"].batch(kin, b, dev)
-    with recorded_queries() as calls:
-        kinematic_cycle("pcfg")(kin, bt_kin, kin["kind"].start(kin, bt_kin))
-    shapes.append(k4_case("kinematic path", calls[0], 0))
+    calls = recorded("query_eval", scene, rgbd_cycle("rgbd_pcfg"), scene_state)
+    cases.append(k4_case("rgbd silhouette", calls[1]))
+    cases.append(k4_case("rgbd modeled occlusion", calls[2]))
+    cases.append(k4_case("kinematic path", recorded("query_eval", kin,
+                                                    kinematic_cycle("pcfg"))[0]))
     # Random triangles (about 20 % invalid, not compacted) in four shared-memory tiles.
     rng = np.random.default_rng(4)
     n_scenes, n_tri = 64, 1600
@@ -1352,53 +1024,36 @@ def check_kernels(inp, kin):
     keep = torch.as_tensor(rng.random((n_scenes, n_tri)) > 0.2, device=dev)
     pixels = torch.as_tensor(rng.integers(-8, 136, (2, n_scenes, 4096)), dtype=torch.int32,
                              device=dev)
-    shapes.append(k4_case("random triangles", ((soup.coeffs, soup.valid & keep, soup.ids,
-                                                pixels[0], pixels[1]), soup.bbox), 0,
-                          plain_iters=1))
-    shapes.append(k4_case("adversarial", adversarial_queries(b, dev), 0))
+    cases.append(k4_case("random triangles", (soup.coeffs, soup.valid & keep, soup.ids,
+                                              pixels[0], pixels[1])))
+    cases.append(k4_case("adversarial", adversarial_queries(b, dev)[0]))
     # newton_step on the first of the Newton steps of one flagship region cycle, and on
     # its first body alone (the latency batch's shape).
-    with recorded_launches() as calls:
-        region_cycle(inp, bt, state)
-    steps = [args for name, args, _, _ in calls if name == "newton_step"]
-    shapes.append(newton_step_row("region path", steps[0], len(steps)))
-    shapes.append(newton_step_row("region path, body 0", tuple(
-        a[:1].contiguous() if torch.is_tensor(a) else a for a in steps[0]), 0))
+    step = recorded("newton_step", inp, region_cycle, state)[0]
+    cases.append(check_twin("newton_step", f"region path B={b}", *step))
+    cases.append(check_twin("newton_step", "region path, body 0 B=1", *(
+        a[:1].contiguous() if torch.is_tensor(a) else a for a in step)))
     # scene_coeffs on the first focused scenes of one occlusion-path cycle and of one
     # kinematic cycle, and at the kinematic cell's shape.
-    for label, path_inp, cycle, path_state, counted in (
-            ("occlusion path", occ, region_cycle, state, False),
-            ("kinematic path", kin, kinematic_cycle("pcfg"), None, True)):
-        path_bt = path_inp["kind"].batch(path_inp, b, dev)
-        with recorded_launches() as calls:
-            cycle(path_inp, path_bt, path_state if path_state is not None
-                  else path_inp["kind"].start(path_inp, path_bt))
-        scenes = [args for name, args, _, _ in calls if name == "scene_coeffs"]
-        shapes.append(scene_coeffs_row(label, scenes[0], len(scenes) if counted else 0))
-    shapes.append(scene_coeffs_row("robot scenes", robot_scenes(dev), 0))
-    for s in shapes:
-        library = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f}"
-        log(f"{s['kernel']:<14} {s['case']:<44} x{s['per_cycle']} ms {s['ms']:.4f}"
-            f"  eager {s['eager_ms']:.4f}  plain {s['plain_ms']:.4f}"
-            f"  bound {s['bound_ms']:.4g}  library {library}  max_abs_err {s['max_abs_err']}")
-        if s["kernel"] == "query_eval":
-            log(f"{'':<14} {'':<44} without cull ms {s['no_cull_ms']:.4f}  in-box pairs "
-                f"{s['in_box_share']:.4f}  half-warp tests surviving "
-                f"{s['halfwarp_survive_share']:.4f}  (warp, triangle) pairs evaluated "
-                f"{s['warp_evaluated_share']:.4f}")
-        if s["kernel"] == "newton_step":
-            log(f"{'':<14} {'':<44} plain graphed ms {s['plain_graph_ms']:.4f}  unequal "
-                f"entries {s['unequal_entries']}")
-        if s["kernel"] == "scene_coeffs":
-            log(f"{'':<14} {'':<44} plain graphed ms {s['plain_graph_ms']:.4f}  valid "
-                f"share {s['valid_share']:.4f}")
-    return shapes
+    for label, path_inp, cycle, path_state in (
+            ("occlusion path", occ, region_cycle, state),
+            ("kinematic path", kin, kinematic_cycle("pcfg"), None)):
+        args = recorded("scene_coeffs", path_inp, cycle, path_state)[0]
+        cases.append(check_twin("scene_coeffs",
+                                f"{label} B={args[0].shape[0]} T={args[0].shape[1]}",
+                                *args))
+    args = robot_scenes(dev)
+    cases.append(check_twin("scene_coeffs",
+                            f"robot scenes B={args[0].shape[0]} T={args[0].shape[1]}",
+                            *args))
+    log(f"phase 2: {len(cases)} kernel calls equal to their twins: {json.dumps(cases)}")
+    return cases
 
 
-def run_path(label, inp, cycle, want_per_cycle, want_at_init, n_windows=3,
-             cycles_per_window=5, n_warmup=2):
-    """Phases 3-6k, 8c and 8k: StartModality and the path's cycles at B=512, with every
-    kernel launch counted from 0, and the steady cycles timed."""
+def run_path(label, inp, cycle, want_per_cycle, want_at_init):
+    """Phases 3-6k, 8c and 8k: StartModality and PATH_CYCLES cycles of the path at
+    B=512 (the first captures its graph), every kernel launch counted from 0, every body
+    (link) within 5 mm of its rendered pose."""
     from m3t_tpu_torch import graphs
 
     graphs.clear_graphs()  # the path's peak memory holds its own graph only
@@ -1410,19 +1065,11 @@ def run_path(label, inp, cycle, want_per_cycle, want_at_init, n_windows=3,
     for fn in counters.values():
         fn.launches = 0
     state = inp["kind"].start(inp, bt)
-    for _ in range(n_warmup):
+    for _ in range(PATH_CYCLES):
         state = cycle(inp, bt, state)
     torch.cuda.synchronize()
-    window_s = []
-    for _ in range(n_windows):
-        begin = time.perf_counter()
-        for _ in range(cycles_per_window):
-            state = cycle(inp, bt, state)
-        torch.cuda.synchronize()
-        window_s.append(time.perf_counter() - begin)
     launches = {name: fn.launches for name, fn in counters.items()}
-    n_cycles = n_warmup + n_windows * cycles_per_window
-    want = {name: want_at_init.get(name, 0) + want_per_cycle.get(name, 0) * n_cycles
+    want = {name: want_at_init.get(name, 0) + want_per_cycle.get(name, 0) * PATH_CYCLES
             for name in counters}
     if launches != want:
         raise AssertionError(f"{label}: kernel launches {launches}, expected {want}")
@@ -1433,72 +1080,12 @@ def run_path(label, inp, cycle, want_per_cycle, want_at_init, n_windows=3,
     err = np.linalg.norm(pose[:, :3, 3] - bt["targets"], axis=1)
     if not np.all(err < 0.005):
         raise AssertionError(f"{label}: translation error up to {err.max()} m (limit 5 mm)")
-    ms_cycle = statistics.median(window_s) / cycles_per_window * 1e3
     result = dict(path=label, bodies=N_BODIES,
                   cameras=bt["cam2ref"].shape[0] if "cam2ref" in bt else 1,
-                  cycles=n_cycles, ms_per_cycle=ms_cycle,
-                  body_frames_per_s=N_BODIES / ms_cycle * 1e3,
-                  window_ms_per_cycle=[w / cycles_per_window * 1e3 for w in window_s],
-                  max_translation_error_m=float(err.max()), launches=launches,
-                  peak_memory_bytes=torch.cuda.max_memory_allocated())
+                  cycles=PATH_CYCLES, max_translation_error_m=float(err.max()),
+                  launches=launches, peak_memory_bytes=torch.cuda.max_memory_allocated())
     log(f"{label} cycle: {json.dumps(result)}")
     return result, (bt, state)
-
-
-def traced(step, state, n_steps: int, eager: bool = False):
-    """torch.profiler over n_steps of step(state) -> state (eager: inside
-    disable_graphs): the events' key averages and the traced wall seconds."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from m3t_tpu_torch import graphs
-
-    torch.cuda.synchronize()
-    with graphs.disable_graphs() if eager else contextlib.nullcontext(), \
-            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        begin = time.perf_counter()
-        for _ in range(n_steps):
-            state = step(state)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - begin
-    return prof.key_averages(), wall_s
-
-
-def device_us(event) -> float:
-    return getattr(event, "self_device_time_total", getattr(event, "self_cuda_time_total", 0))
-
-
-def kernel_rows(events) -> list:
-    """The kernels' own rows: device time counted once, not again on the aten:: rows that
-    launched them."""
-    return [e for e in events if str(e.device_type).endswith("CUDA")]
-
-
-def profile_file(table_file: Path, suffix: str) -> Path:
-    """--profile's TABLE_FILE with a path's suffix before its own."""
-    return table_file.with_name(f"{table_file.stem}{suffix}{table_file.suffix}")
-
-
-def profile_cycles(label, inp, cycle, tensors, table_file: Path, ms_per_cycle: float,
-                   n_cycles: int = 3):
-    """--profile: device busy time and kernel time by name over a traced window.  The
-    idle share is given against the traced wall time and against ms_per_cycle, the
-    untraced time (tracing slows the host, which this cycle waits on)."""
-    bt, state = tensors
-    events, wall_s = traced(lambda state: cycle(inp, bt, state), state, n_cycles)
-    kernels = kernel_rows(events)
-    busy_us = sum(device_us(e) for e in kernels)
-    top = sorted(kernels, key=device_us, reverse=True)[:15]
-    sort_key = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
-                else "self_cuda_time_total")
-    table_file.parent.mkdir(parents=True, exist_ok=True)
-    table_file.write_text(events.table(sort_by=sort_key, row_limit=40))
-    summary = dict(path=label, cycles=n_cycles, wall_ms_per_cycle=wall_s / n_cycles * 1e3,
-                   device_busy_ms_per_cycle=busy_us / n_cycles / 1e3,
-                   device_idle_share=1.0 - busy_us / 1e6 / wall_s,
-                   device_idle_share_untraced=1.0 - busy_us / 1e3 / n_cycles / ms_per_cycle,
-                   top_device_ms_per_cycle={e.key[:60]: device_us(e) / n_cycles / 1e3
-                                            for e in top})
-    log(f"profile: {json.dumps(summary)}")
 
 
 def check_masks_drop(label, inp, device="cuda", n_bodies: int = 8):
@@ -1868,11 +1455,10 @@ MULTICAMERA_ARTICULATED = PathKind(kinematic_multicamera_batch, kinematic_multic
                                    articulated_body_poses)
 
 
-def run_scan(label, inp, rgbd: bool, want_per_step, want_at_init, n_windows: int = 3):
+def run_scan(label, inp, rgbd: bool, want_per_step, want_at_init):
     """Phase 8s: StartModality on frame 0, then track_sequences_scan (or _rgbd) over
-    the other frames of N_BODIES sequences, once to warm up and once per timed window,
-    every kernel launch counted from 0; every pose of every step within 5 mm of the
-    sphere in that frame."""
+    the other frames of N_BODIES sequences, every kernel launch counted from 0; every
+    pose of every step within 5 mm of the sphere in that frame."""
     from m3t_tpu_torch import graphs, parallel
 
     graphs.clear_graphs()
@@ -1883,25 +1469,16 @@ def run_scan(label, inp, rgbd: bool, want_per_step, want_at_init, n_windows: int
     for fn in counters.values():
         fn.launches = 0
     start = sequences_start(inp, bt)
-
-    def scan():
-        if rgbd:
-            return parallel.track_sequences_scan_rgbd(
-                inp["rgbd_pcfg"], inp["intr"], inp["intr"], DEPTH_SCALE, bt["frames"][1:],
-                bt["depth_frames"][1:], bt["model"], bt["depth_model"], start)
-        return parallel.track_sequences_scan(inp["pcfg"], inp["intr"], bt["frames"][1:],
-                                             bt["model"], start)
-
-    scan()
+    if rgbd:
+        final, poses = parallel.track_sequences_scan_rgbd(
+            inp["rgbd_pcfg"], inp["intr"], inp["intr"], DEPTH_SCALE, bt["frames"][1:],
+            bt["depth_frames"][1:], bt["model"], bt["depth_model"], start)
+    else:
+        final, poses = parallel.track_sequences_scan(inp["pcfg"], inp["intr"],
+                                                     bt["frames"][1:], bt["model"], start)
     torch.cuda.synchronize()
-    window_s = []
-    for _ in range(n_windows):
-        begin = time.perf_counter()
-        final, poses = scan()
-        torch.cuda.synchronize()
-        window_s.append(time.perf_counter() - begin)
     launches = {name: fn.launches for name, fn in counters.items()}
-    n_steps = (SCAN_FRAMES - 1) * (1 + n_windows)
+    n_steps = SCAN_FRAMES - 1
     want = {name: want_at_init.get(name, 0) + want_per_step.get(name, 0) * n_steps
             for name in counters}
     if launches != want:
@@ -1913,11 +1490,7 @@ def run_scan(label, inp, rgbd: bool, want_per_step, want_at_init, n_windows: int
     if not np.all(err < 0.005):
         raise AssertionError(f"{label}: translation error up to {err.max()} m (limit 5 mm) "
                              f"at steps {sorted(set(np.nonzero(err >= 0.005)[0] + 1))}")
-    ms_step = statistics.median(window_s) / (SCAN_FRAMES - 1) * 1e3
-    result = dict(path=label, sequences=N_BODIES, steps=SCAN_FRAMES - 1,
-                  steps_run=n_steps, ms_per_step=ms_step,
-                  body_frames_per_s=N_BODIES / ms_step * 1e3,
-                  window_ms_per_step=[w / (SCAN_FRAMES - 1) * 1e3 for w in window_s],
+    result = dict(path=label, sequences=N_BODIES, steps=n_steps,
                   max_translation_error_m=float(err.max()),
                   max_translation_error_m_by_step=[float(e) for e in err.max(1)],
                   launches=launches, frame_bytes=bt["frames"].numel()
@@ -1925,23 +1498,6 @@ def run_scan(label, inp, rgbd: bool, want_per_step, want_at_init, n_windows: int
                   peak_memory_bytes=torch.cuda.max_memory_allocated())
     log(f"{label}: {json.dumps(result)}")
     return result, (bt, start)
-
-
-def distinct_frame_rows(label, call):
-    """Timed rows (per_cycle 0) of sample_lines and sample_windows on the inputs that one
-    call of a phase 8 path gives them, a frame of its own per batch entry: its first
-    ratio-mode sample_lines call (scale 6) and its first sample_windows call (K=11)."""
-    with recorded_launches() as calls:
-        call()
-    torch.cuda.synchronize()
-    k1 = next(args for name, args, kwargs, _ in calls
-              if name == "sample_lines" and len(args) == 4 and "output" not in kwargs)
-    k3 = next(args for name, args, _, _ in calls if name == "sample_windows")
-    del calls
-    params, bin_crop, table, kp = k1
-    return [sample_lines_row(f"{label} ratio kp={kp} LP={params.shape[-1]} "
-                             f"B={params.shape[0]}", params, bin_crop, table, kp, "ratio", 0),
-            sample_windows_row(f"{label} B={k3[0].shape[0]}", k3, 0)]
 
 
 def run_dryrun(timeout: float = 420.0) -> dict:
@@ -2036,79 +1592,34 @@ def serve_histograms(srv):
             for s in "fb"]
 
 
-@contextlib.contextmanager
-def timed_calls(owner, names, totals: dict):
-    """Add the synchronized wall seconds of every call of owner.<name> to totals[name];
-    owner's own attributes are put back as they were after the block."""
-    own = {name: vars(owner).get(name) for name in names}
-    originals = {name: getattr(owner, name) for name in names}
-
-    def wrap(name, fn):
-        def run(*args, **kwargs):
-            torch.cuda.synchronize()
-            begin = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            totals[name] = totals.get(name, 0.0) + time.perf_counter() - begin
-            return out
-        return run
-
-    for name, fn in originals.items():
-        setattr(owner, name, wrap(name, fn))
-    try:
-        yield totals
-    finally:
-        for name, attribute in own.items():
-            if attribute is None:
-                delattr(owner, name)
-            else:
-                setattr(owner, name, attribute)
-
-
-def serve_steps(srv, first: int, n: int):
+def serve_steps(srv, first: int, n: int) -> None:
     """n more iterations of RunTrackerProcess's loop for a tracker that tracks every body
-    (cameras, consistent poses, the tracking step; no sleep): their wall seconds, and
-    those of the ExecuteTrackingStep calls among them (each ends in a synchronizing read
-    of the poses)."""
-    begin = time.perf_counter()
-    tracking = 0.0
+    (cameras, consistent poses, the tracking step; no sleep)."""
     for i in range(first, first + n):
-        if not (srv.UpdateCameras(i) and srv.CalculateConsistentPoses()):
+        if not (srv.UpdateCameras(i) and srv.CalculateConsistentPoses()
+                and srv.ExecuteTrackingStep(i)):
             raise AssertionError(f"serve step {i} failed")
-        step_begin = time.perf_counter()
-        if not srv.ExecuteTrackingStep(i):
-            raise AssertionError(f"serve step {i} failed")
-        tracking += time.perf_counter() - step_begin
-    torch.cuda.synchronize()
-    return time.perf_counter() - begin, tracking
 
 
 def run_serve(label, inp, seq, models, n_bodies: int, rgbd: bool, want_per_step: dict,
-              steps_per_window: int, n_windows: int = 3, breakdown: bool = True,
               device="cuda"):
     """Phase 9s, 9d and 9l: the serve graph driven through RunTrackerProcess over the 6
     frames of phase 8s (detection and the starting step at frame 0, a tracking step per
     frame), the fused backend asserted built and every kernel launch counted (none in
-    the starting step), every body within 5 mm of the sphere in the last frame; then the
-    timed windows of further steps on the replayed frames, and (breakdown) one window
-    more with the backend's parts timed apart."""
-    from m3t_tpu_torch import fused_serve, graphs, pipeline
+    the starting step), every body within 5 mm of the sphere in the last frame."""
+    from m3t_tpu_torch import graphs
 
     graphs.clear_graphs()
     n_frames = len(seq["scan_colour"])
     counters = launch_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    begin = time.perf_counter()
     srv = serve_graph(inp, seq, models, n_bodies, rgbd, device)
-    graph_s = time.perf_counter() - begin
-    begin = time.perf_counter()
     if not srv.SetUp():
         raise AssertionError(f"{label}: Tracker.SetUp failed")
-    setup_s = time.perf_counter() - begin
     for fn in counters.values():
         fn.launches = 0
-    seconds, start_launches, printed = {}, {}, io.StringIO()
+    start_launches, printed = {}, io.StringIO()
 
     def launches():
         return {name: fn.launches for name, fn in counters.items()}
@@ -2123,14 +1634,10 @@ def run_serve(label, inp, seq, models, n_bodies: int, rgbd: bool, want_per_step:
         return ok
 
     srv.ExecuteStartingStep = counted_start
-    with timed_calls(srv, ["ExecuteStartingStep"], seconds), \
-            timed_calls(fused_serve.FusedServeBackend, ["try_build"], seconds), \
-            contextlib.redirect_stdout(printed):
-        begin = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
         ok = srv.RunTrackerProcess(execute_detection=True, start_tracking=True,
                                    max_iterations=n_frames)
         torch.cuda.synchronize()
-        run_s = time.perf_counter() - begin
     del srv.ExecuteStartingStep
     sys.stdout.write(printed.getvalue())
     if not ok:
@@ -2151,38 +1658,10 @@ def run_serve(label, inp, seq, models, n_bodies: int, rgbd: bool, want_per_step:
         raise AssertionError(f"{label}: non-finite tracking state")
     if not np.all(err < 0.005):
         raise AssertionError(f"{label}: translation error up to {err.max()} m (limit 5 mm)")
-
-    step = n_frames
-    window_s, tracking_s = [], []
-    for _ in range(n_windows):
-        total, tracking = serve_steps(srv, step, steps_per_window)
-        window_s.append(total)
-        tracking_s.append(tracking)
-        step += steps_per_window
-    parts = {}
-    if breakdown:
-        cycle = "tracking_cycle_rgbd" if rgbd else "tracking_cycle"
-        backend = srv._fused_backend
-        with timed_calls(backend, ["_gather_state", "_frames", "_scatter_state"], parts), \
-                timed_calls(pipeline, [cycle], parts), \
-                timed_calls(srv, ["UpdateCameras", "CalculateConsistentPoses"], parts):
-            total, _ = serve_steps(srv, step, steps_per_window)
-        parts = {name: s / steps_per_window * 1e3 for name, s in parts.items()}
-        parts["rest"] = total / steps_per_window * 1e3 - sum(parts.values())
-    ms_step = statistics.median(window_s) / steps_per_window * 1e3
-    result = dict(
-        path=label, bodies=n_bodies, frames=n_frames, launches=got,
-        starting_step_launches=start_launches, ms_per_step=ms_step,
-        ms_per_tracking_step=statistics.median(tracking_s) / steps_per_window * 1e3,
-        body_frames_per_s=n_bodies / ms_step * 1e3,
-        window_ms_per_step=[w / steps_per_window * 1e3 for w in window_s],
-        window_ms_per_tracking_step=[w / steps_per_window * 1e3 for w in tracking_s],
-        steps_per_window=steps_per_window, step_parts_ms=parts,
-        graph_build_s=graph_s, setup_s=setup_s,
-        starting_step_s=seconds["ExecuteStartingStep"],
-        backend_build_s=seconds["try_build"], run_tracker_process_s=run_s,
-        max_translation_error_m=float(err.max()),
-        peak_memory_bytes=torch.cuda.max_memory_allocated())
+    result = dict(path=label, bodies=n_bodies, frames=n_frames, launches=got,
+                  starting_step_launches=start_launches,
+                  max_translation_error_m=float(err.max()),
+                  peak_memory_bytes=torch.cuda.max_memory_allocated())
     log(f"{label}: {json.dumps(result)}")
     return result
 
@@ -2256,11 +1735,6 @@ HOST_CUBE_COLOUR = (60, 170, 60)
 STRUCTURE_ROOTS = ((-0.22, -0.12, 0.60), (0.05, -0.12, 0.60), (-0.22, 0.12, 0.62),
                    (0.05, 0.12, 0.58))
 CHILD_ARM = 0.13
-# The parts of a host-path step, by the methods timed for them (rendering: every
-# renderer; correspondences and results: every modality's).
-HOST_PARTS = {"StartRendering": "rendering", "CalculateCorrespondences": "correspondences",
-              "CalculateGradientAndHessian": "gradient_and_hessian",
-              "CalculateOptimization": "optimization", "CalculateResults": "results"}
 HOST_PARTED_BOUNDS = {"pose": 1e-2, "histogram_f": 1e-3, "histogram_b": 1e-3}
 # Phase 10x's witness: the relative move of every link pose of the second CPU graph.
 WITNESS_NUDGE = 1e-7
@@ -2508,74 +1982,29 @@ def graph_tensors(srv):
     return found
 
 
-def host_steps(srv, first: int, n: int) -> float:
-    """n more iterations of RunTrackerProcess's loop (cameras, consistent poses, the
-    tracking step) from iteration ``first``, ending in a host read of the poses: their
-    wall seconds."""
-    begin = time.perf_counter()
-    for i in range(first, first + n):
-        if not (srv.UpdateCameras(i) and srv.CalculateConsistentPoses()
-                and srv.ExecuteTrackingStep(i)):
-            raise AssertionError(f"host step {i} failed")
-    graph_poses(srv)
-    torch.cuda.synchronize()
-    return time.perf_counter() - begin
-
-
-def run_host_path(label, graph, inp, models, refusal: str, n_windows: int = 3,
-                  steps_per_window: int = 2, n_warmup: int = 2, breakdown: bool = True):
+def run_host_path(label, graph, inp, models, refusal: str):
     """Phases 10o and 10k: the graph on the card through RunTrackerProcess over the
     HOST_FRAMES frames (detection and the starting step at frame 0, a tracking step per
     frame), its six host-path functions graphed, with the kernel launch counts set to 0
     before it (the host path must launch none), the fused backend's refusal asserted,
     every tensor of the graph asserted on the card and every link within 5 mm of its
-    rendered pose in the last frame; then n_windows timed windows of steps_per_window
-    steps on the frames replayed back and forth after n_warmup steps, and one step more
-    with its parts timed apart (each part synchronized); the graphs captured and their
-    capture seconds."""
-    from m3t_tpu_torch import (depth_modality, fused_serve, graphs, region_modality,
-                               renderer, tracker)
+    rendered pose in the last frame; the graphs captured."""
+    from m3t_tpu_torch import fused_serve, graphs
 
     graphs.clear_graphs()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    begin = time.perf_counter()
     srv, truth, _ = graph(inp, models, "cuda")
-    graph_s = time.perf_counter() - begin
-    begin = time.perf_counter()
     if not srv.SetUp():
         raise AssertionError(f"{label}: Tracker.SetUp failed")
-    setup_s = time.perf_counter() - begin
     printed = io.StringIO()
     counters = launch_counters()
     for counter in counters.values():
         counter.launches = 0
     with contextlib.redirect_stdout(printed):
-        begin = time.perf_counter()
         ok = srv.RunTrackerProcess(execute_detection=True, start_tracking=True,
                                    max_iterations=HOST_FRAMES)
         torch.cuda.synchronize()
-        run_s = time.perf_counter() - begin
-        host_steps(srv, HOST_FRAMES, n_warmup)
-        window_s = []
-        step = HOST_FRAMES + n_warmup
-        for _ in range(n_windows):
-            window_s.append(host_steps(srv, step, steps_per_window))
-            step += steps_per_window
-        parts = {}
-        if breakdown:
-            mixins = (renderer._DepthRenderMixin, renderer._SilhouetteRenderMixin)
-            with contextlib.ExitStack() as stack:
-                for mixin in mixins:
-                    stack.enter_context(timed_calls(mixin, ["StartRendering"], parts))
-                for cls in (region_modality.RegionModality, depth_modality.DepthModality):
-                    stack.enter_context(timed_calls(cls, ["CalculateCorrespondences",
-                                                          "CalculateResults"], parts))
-                stack.enter_context(timed_calls(tracker.Tracker, [
-                    "CalculateGradientAndHessian", "CalculateOptimization"], parts))
-                total = host_steps(srv, step, 1)
-            parts = {HOST_PARTS[name]: s * 1e3 for name, s in parts.items()}
-            parts["rest"] = total * 1e3 - sum(parts.values())
     launches = {name: counter.launches for name, counter in counters.items()}
     captured = graphs.captured()
     notice = printed.getvalue()
@@ -2595,29 +2024,20 @@ def run_host_path(label, graph, inp, models, refusal: str, n_windows: int = 3,
     if off_card:
         raise AssertionError(f"{label}: tensors off the card: {off_card[:10]}")
     poses = graph_poses(srv)
-    # After RunTrackerProcess and the replays, the last step tracked frame pingpong(step).
-    frame = pingpong(step if breakdown else step - 1, HOST_FRAMES)
-    err = np.linalg.norm(poses[:, :3, 3] - truth[frame][:, :3, 3], axis=1)
+    err = np.linalg.norm(poses[:, :3, 3] - truth[HOST_FRAMES - 1][:, :3, 3], axis=1)
     if not np.all(np.isfinite(poses)) or not np.all(err < 0.005):
         raise AssertionError(f"{label}: translation errors {err.tolist()} m (limit 5 mm)")
-    ms_step = statistics.median(window_s) / steps_per_window * 1e3
     by_name = {}
     for info in captured:
         by_name[info.name] = by_name.get(info.name, 0) + 1
     result = dict(
         path=label, links=len(poses), frames=HOST_FRAMES, refusal=reason,
-        kernel_launches=sum(launches.values()), ms_per_step=ms_step,
-        graphs=len(captured), graphs_by_function=by_name,
-        capture_s=sum(i.capture_s for i in captured),
-        warmup_s=sum(i.warmup_s for i in captured),
-        replays=sum(i.replays for i in captured),
-        window_ms_per_step=[w / steps_per_window * 1e3 for w in window_s],
-        steps_per_window=steps_per_window, step_parts_ms=parts,
-        graph_build_s=graph_s, setup_s=setup_s, run_tracker_process_s=run_s,
+        kernel_launches=sum(launches.values()), graphs=len(captured),
+        graphs_by_function=by_name, replays=sum(i.replays for i in captured),
         translation_error_mm=[round(float(e) * 1e3, 4) for e in err],
         peak_memory_bytes=torch.cuda.max_memory_allocated(),
         tensors_on_card=len(graph_tensors(srv)))
-    log(f"{label} ({card_name()}): {json.dumps(result)}")
+    log(f"{label}: {json.dumps(result)}")
     graphs.clear_graphs()
     return result
 
@@ -2639,21 +2059,16 @@ def check_normal_image(inp, models):
                                            device=dev)
         if not full.SetUp():
             raise AssertionError(f"normal image: renderer set-up failed on {dev}")
-        begin = time.perf_counter()
         depth, ids, normals = full._render(renderer.IDType.BODY, with_normals=True)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        seconds = time.perf_counter() - begin
-        images[dev] = [t.cpu().numpy() for t in (depth, ids, normals)] + [seconds]
-    (cd, ci, cn, cs), (pd, pi, pn, ps) = images["cuda"], images["cpu"]
+        images[dev] = [t.cpu().numpy() for t in (depth, ids, normals)]
+    (cd, ci, cn), (pd, pi, pn) = images["cuda"], images["cpu"]
     same = ci == pi
     both = same & np.isfinite(cd) & np.isfinite(pd)
     result = dict(
         pixels=int(ci.size), differing_id_share=float(1.0 - same.mean()),
         covered_share=float((pi > 0).mean()), ids=sorted(int(v) for v in np.unique(pi)),
         max_depth_diff_m=float(np.abs(cd[both] - pd[both]).max()),
-        max_normal_diff=float(np.abs(cn[both] - pn[both]).max()),
-        card_render_s=cs, cpu_render_s=ps)
+        max_normal_diff=float(np.abs(cn[both] - pn[both]).max()))
     log(f"normal image 640x512, card vs CPU: {json.dumps(result)}")
     if result["differing_id_share"] > 1e-3:
         raise AssertionError(f"normal image: {result['differing_id_share']:.4%} of the "
@@ -2696,22 +2111,18 @@ def whole_image_render(soup, width, height, windows, chunk=64, with_normals=Fals
     return raster.rasterize(soup, width, height, chunk=chunk, with_normals=with_normals)
 
 
-# Form -> (what replaces ops/raster.rasterize_windows, whether graphed), as
-# check_render_windows times them.
+# Form -> (what replaces ops/raster.rasterize_windows, whether graphed).
 RENDER_FORMS = {"windows": (None, False),
                 "whole_image": (whole_image_render, False),
                 "graphed": (whole_image_render, True)}
 
 
-def check_render_windows(inp, models, n_passes: int = 3):
-    """Phase 10o's ten focused renderers over its scene at frame 0, each rendering once
-    per pass, in the three forms of RENDER_FORMS on the card (eager with each chunk over
-    its window, the renderers' own form; eager over the whole image; the graphed
-    whole-image rasterize), the images of every form equal,
-    and in the windowed form on the CPU.  Seconds per pass, after one untimed pass of
-    each form (the graphed one captures there): the median of n_passes synchronized
-    passes on the card, one pass on the CPU (a tracking step renders six passes: five
-    correspondence iterations and the results)."""
+def check_render_windows(inp, models):
+    """Phase 10o's ten focused renderers over its scene at frame 0 in the three forms of
+    RENDER_FORMS on the card (eager with each chunk over its window, the renderers' own
+    form; eager over the whole image; the graphed whole-image rasterize, whose first
+    pass captures and whose second replays), and in the windowed form on the CPU: the
+    images of every form equal."""
     from unittest import mock
 
     from m3t_tpu_torch import graphs
@@ -2733,17 +2144,9 @@ def check_render_windows(inp, models, n_passes: int = 3):
             with (mock.patch.object(raster, "rasterize_windows", render) if render
                   else contextlib.nullcontext()), \
                     (contextlib.nullcontext() if graphed else graphs.disable_graphs()):
-                if not all(r.StartRendering() for r in renderers):     # warm-up, untimed
-                    raise AssertionError(f"render windows: a render failed on {dev}")
-                seconds = []
-                for _ in range(n_passes if dev == "cuda" else 1):
-                    torch.cuda.synchronize()
-                    begin = time.perf_counter()
+                for _ in range(2 if graphed else 1):
                     if not all(r.StartRendering() for r in renderers):
                         raise AssertionError(f"render windows: a render failed on {dev}")
-                    torch.cuda.synchronize()
-                    seconds.append(time.perf_counter() - begin)
-            result[f"{dev}_{mode}_s_per_pass"] = statistics.median(seconds)
             images[mode] = [t.cpu() for r in renderers
                             for t in (r.depth_image, getattr(r, "silhouette_image", None))
                             if t is not None]
@@ -2753,11 +2156,9 @@ def check_render_windows(inp, models, n_passes: int = 3):
                                      f"windowed ones")
         if dev == "cuda":
             result["graphs"] = len(graphs.captured())
-            result["capture_s"] = sum(i.capture_s for i in graphs.captured())
     graphs.clear_graphs()
     result["renderers"] = len(renderers)
-    log(f"focused renders, s per pass of the ten renderers ({card_name()}): "
-        f"{json.dumps(result)}")
+    log(f"focused renders in {len(RENDER_FORMS)} forms equal: {json.dumps(result)}")
     return result
 
 
@@ -2787,16 +2188,12 @@ def check_host_card_against_cpu(label, graph, inp, models, n_steps: int = 2,
     per_entry = len(graph_poses(cpu)) // len(names)
     worst = {n: 0.0 for n in HOST_PARTED_BOUNDS}
     parted, beyond, witnessed, unexplained = {}, [], {}, []
-    cpu_s = 0.0
     for i in range(n_steps):
         for dev, srv in trackers.items():
-            begin = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
                 ok = (srv.UpdateCameras(i) and srv.CalculateConsistentPoses()
                       and srv.ExecuteDetectingStep(i) and srv.ExecuteStartingStep(i)
                       and srv.ExecuteTrackingStep(i))
-            if dev == "cpu":
-                cpu_s += time.perf_counter() - begin
             if not ok:
                 raise AssertionError(f"{label}: step {i} failed on {dev}")
         diffs = entry_diffs(card, cpu, len(names))
@@ -2822,11 +2219,10 @@ def check_host_card_against_cpu(label, graph, inp, models, n_steps: int = 2,
     log(f"{label}: card vs CPU, {len(names)} entries of {per_entry} link(s), {n_steps} "
         f"steps from equal states: max abs diff {worst}; parted {parted} (allowed "
         f"{parted_allowed}, bounds {bounds}); the CPU nudged by a relative "
-        f"{WITNESS_NUDGE} parts from the CPU at {witnessed}; unexplained {unexplained}; "
-        f"CPU steps {cpu_s:.1f} s")
+        f"{WITNESS_NUDGE} parts from the CPU at {witnessed}; unexplained {unexplained}")
     return dict(max_abs_diff=worst, parted=parted, parted_allowed=parted_allowed,
                 beyond_bounds=beyond, witness_parted=witnessed, unexplained=unexplained,
-                cpu_steps_s=cpu_s, twin_mismatches=[])
+                twin_mismatches=[])
 
 
 # ----------------------------------------------------------------------------------------
@@ -2899,7 +2295,7 @@ class FrameWriter:
 
     def __init__(self, seed: int):
         self.rng = np.random.default_rng(seed)
-        self.files, self.read_s, self.read_frames = 0, 0.0, 0
+        self.files = 0
 
     def render(self, intr, items, noise: int = 6, gain: float = 1.0, depth_scale=None):
         """render_frame of ``items`` (vertices, triangles, camera-frame pose, colour)."""
@@ -2911,11 +2307,7 @@ class FrameWriter:
 
         path.parent.mkdir(parents=True, exist_ok=True)
         png.write_png(path, image)
-        begin = time.perf_counter()
         back = png.read_png(path)
-        if image.shape == (512, 640, 3):
-            self.read_s += time.perf_counter() - begin
-            self.read_frames += 1
         if back.dtype != image.dtype or not np.array_equal(back, image):
             raise AssertionError(f"11w: {path} reads back different from the frame written")
         self.files += 1
@@ -3247,10 +2639,8 @@ def write_eval_datasets(root: Path, rbot_names) -> dict:
                                   ds["choi_ext"] / f"kinect_box_{model}_model.npz"]
     models_s = prepare_eval_models(specs, targets)
     result = dict(files=writer.files, write_and_check_s=written_s, models_s=models_s,
-                  distinct_models=len(specs),
-                  reader_ms_per_640x512_bgr=writer.read_s / max(writer.read_frames, 1) * 1e3)
-    log(f"11w: {writer.files} PNG frames written and read back equal in {written_s:.1f} s "
-        f"(the reader {result['reader_ms_per_640x512_bgr']:.2f} ms per 640x512 BGR frame), "
+                  distinct_models=len(specs))
+    log(f"11w: {writer.files} PNG frames written and read back equal in {written_s:.1f} s, "
         f"{len(specs)} models generated in parallel in {models_s:.1f} s")
     return ds, result
 
@@ -3432,18 +2822,13 @@ class ScoredPoses:
 
 @contextlib.contextmanager
 def launches_per_call(owner, name):
-    """The kernel launches of each call of owner.<name> made inside the block, and its
-    milliseconds (``ms``: from the call to the end of its device work; the evaluators
-    read the poses right after it anyway)."""
+    """The kernel launches of each call of owner.<name> made inside the block."""
     counters, real, per_call = launch_counters(), getattr(owner, name), []
 
     def counted(*args, **kwargs):
         before = {n: fn.launches for n, fn in counters.items()}
-        begin = time.perf_counter()
         out = real(*args, **kwargs)
-        torch.cuda.synchronize()
-        call = {n: fn.launches - before[n] for n, fn in counters.items()}
-        per_call.append(dict(call, ms=(time.perf_counter() - begin) * 1e3))
+        per_call.append({n: fn.launches - before[n] for n, fn in counters.items()})
         return out
 
     setattr(owner, name, counted)
@@ -3558,7 +2943,7 @@ def compare_runs(label, run) -> dict:
     than STATE_PARTED_BOUNDS in each field, and only in a cycle where the CPU, run again
     from its own state nudged by a relative WITNESS_NUDGE, parts from itself at that
     entry (a rounding-boundary event that the CPU meets alone); once an entry parted,
-    the scored poses may differ by STATE_PARTED_BOUNDS' pose bound and the scores by
+    the scored poses may differ by STATE_PARTED_BOUNDS' pose limit and the scores by
     PARTED_SCORE_ATOL.  Returns the comparison, with ``failed`` set where it does not
     hold (the caller fails after every case)."""
     from m3t_tpu_torch import pipeline
@@ -3588,7 +2973,8 @@ def compare_runs(label, run) -> dict:
         fields = field_diffs(got, want)
         for entry in events:
             parted.setdefault(entry, []).append(k)
-            within = all(d <= bound for d, bound in zip(fields[:, entry], STATE_PARTED_BOUNDS))
+            within = all(d <= limit
+                         for d, limit in zip(fields[:, entry], STATE_PARTED_BOUNDS))
             if within and moved[entry] > PHASE7_ATOL:
                 witnessed.setdefault(entry, []).append(k)
             else:
@@ -3639,11 +3025,10 @@ def card_eval(label, make, cycle_owner, cycle_name, want_every_call=()) -> dict:
     launches = {n: fn.launches for n, fn in counters.items()}
     missing = [(k, name) for k, call in enumerate(per_call) for name in want_every_call
                if call[name] <= 0]
-    call_ms = [call.pop("ms") for call in per_call]
     if not per_call or missing:
         raise AssertionError(f"{label}: {len(per_call)} calls of {cycle_name}; calls "
                              f"without a kernel that each must launch: {missing}")
-    run.update(launches=launches, calls=len(per_call), call_ms=call_ms,
+    run.update(launches=launches, calls=len(per_call),
                launches_per_call={n: [c[n] for c in per_call] for n in launches},
                peak_memory_bytes=torch.cuda.max_memory_allocated())
     return run
@@ -3671,15 +3056,11 @@ def run_phase11(root: Path):
     res = run["results"]
     n_runs = len(res["per_run"])
     rbot = dict(batch=n_runs + len(names), runs=n_runs, frames=EVAL_RBOT_FRAMES,
-                tracking_success=res["tracking_success"],
-                mean_cycle_time_s=res["mean_cycle_time_s"],
-                ms_per_frame=res["mean_cycle_time_s"] * n_runs * 1e3,
-                launches=run["launches"],
+                tracking_success=res["tracking_success"], launches=run["launches"],
                 launches_per_frame={n: v / EVAL_RBOT_FRAMES
                                     for n, v in run["launches"].items()},
                 cycle_launches_per_frame={n: sorted(set(v)) for n, v in
                                           run["launches_per_call"].items()},
-                cycle_ms=run["call_ms"],
                 peak_memory_bytes=run["peak_memory_bytes"], seconds=run["seconds"])
     if n_runs != len(names) * len(EVAL_RBOT_SEQUENCES) or res["tracking_success"] < 0.9:
         raise AssertionError(f"11r: {n_runs} runs, tracking success "
@@ -3717,14 +3098,11 @@ def run_phase11(root: Path):
     for label, (make, owner, name, want, score, floor) in fused.items():
         run = card_eval(f"11 {label}", make, owner, name, want)
         res = run["results"]
-        record = dict(launches=run["launches"], calls=run["calls"], call_ms=run["call_ms"],
-                      seconds=run["seconds"], peak_memory_bytes=run["peak_memory_bytes"],
-                      scores=score_leaves(res))
+        record = dict(launches=run["launches"], calls=run["calls"], seconds=run["seconds"],
+                      peak_memory_bytes=run["peak_memory_bytes"], scores=score_leaves(res))
         if label in ("opt", "choi"):
             per = res["per_run"] if label == "opt" else res["per_body"]
-            times = next(iter(per.values()))["execution_times"]
-            record["fused_steps"] = times["fused"]
-            record["mean_step_s"] = times["complete_cycle"]
+            record["fused_steps"] = next(iter(per.values()))["execution_times"]["fused"]
             if not record["fused_steps"]:
                 raise AssertionError(f"11o {label}: the steps did not serve fused")
         if label == "choi":
@@ -3852,7 +3230,7 @@ def twin_checked(label):
 @contextlib.contextmanager
 def step_records():
     """Every Tracker.ExecuteStartingStep and ExecuteTrackingStep call inside the block:
-    its milliseconds (synchronized) and the kernel launches it made, by method."""
+    the kernel launches it made, by method."""
     from m3t_tpu_torch import tracker
 
     counters = launch_counters()
@@ -3862,13 +3240,8 @@ def step_records():
     def wrap(name):
         def step(self, iteration):
             before = {n: fn.launches for n, fn in counters.items()}
-            torch.cuda.synchronize()
-            begin = time.perf_counter()
             ok = real[name](self, iteration)
-            torch.cuda.synchronize()
-            records[name].append(dict({n: fn.launches - before[n] for n, fn in
-                                       counters.items()},
-                                      ms=(time.perf_counter() - begin) * 1e3))
+            records[name].append({n: fn.launches - before[n] for n, fn in counters.items()})
             return ok
         return step
 
@@ -3973,15 +3346,12 @@ def replay(directory: Path, files: dict, host_path: bool, device="cuda") -> dict
 
 
 def step_summary(steps: dict) -> dict:
-    """ms of the first tracking step, median ms of the others, and the launches per
-    step of every kernel (the distinct values over the steps)."""
+    """The tracking steps and the launches per step of every kernel (the distinct
+    values over the steps)."""
     tracking = steps["ExecuteTrackingStep"]
-    ms = [s["ms"] for s in tracking]
     names = kernel_modules()
-    return dict(steps=len(tracking), first_step_ms=ms[0] if ms else None,
+    return dict(steps=len(tracking),
                 launches={n: sum(s[n] for s in tracking) for n in names},
-                warm_step_ms=statistics.median(ms[1:]) if len(ms) > 1 else None,
-                warm_step_ms_all=ms[1:],
                 launches_per_step={n: sorted({s[n] for s in tracking}) for n in names},
                 starting_step_launches={n: sum(s[n] for s in steps["ExecuteStartingStep"])
                                         for n in names})
@@ -4191,7 +3561,7 @@ def opt_published_layout(ds, writer: FrameWriter) -> None:
 def study_cases(ds, names) -> dict:
     """12p's six studies: label -> (entry point, arguments without --device, swept
     grid entry and its two values (parameter_study.py: its --param), the evaluator's
-    module and class, the attributes bound to it, the module attributes set (the YCB
+    module and class, the attributes set on it, the module attributes set (the YCB
     study's BODY_NAMES), the fused call counted per cycle (owner, name), and whether
     every cycle must launch each of K1, K2 (and K3, and K5 on a rigid cycle))."""
     from m3t_tpu_torch import pipeline
@@ -4512,35 +3882,6 @@ def run_phase13(card: str) -> dict:
 # Phase 14: the fused cycles graphed (m3t_tpu_torch.graphs, the port's jax.jit) against
 # their eager twins.
 GRAPH_CYCLES = 3  # 14: eager cycles, and as many graphed ones from their states
-GRAPH_FORMS = ("eager", "graph", "graph", "eager")  # 14: the timed windows, in turns
-
-
-def graph_windows(step, state, steps_per_window: int):
-    """14: ms per step of both forms in windows taken in turns (GRAPH_FORMS), each of
-    steps_per_window steps from state and ended by a synchronize."""
-    from m3t_tpu_torch import graphs
-
-    ms = {"eager": [], "graph": []}
-    for form in GRAPH_FORMS:
-        current = state
-        torch.cuda.synchronize()
-        begin = time.perf_counter()
-        with graphs.disable_graphs() if form == "eager" else contextlib.nullcontext():
-            for _ in range(steps_per_window):
-                current = step(current)
-        torch.cuda.synchronize()
-        ms[form].append((time.perf_counter() - begin) / steps_per_window * 1e3)
-    return ms
-
-
-def device_share(step, state, n_steps: int = 3, eager: bool = False) -> dict:
-    """14: a traced window of n_steps steps of one form: wall and device-busy ms per
-    step (the kernels' own rows) and the idle share."""
-    events, wall_s = traced(step, state, n_steps, eager)
-    busy_us = sum(device_us(e) for e in kernel_rows(events))
-    return dict(wall_ms_per_step=wall_s / n_steps * 1e3,
-                device_busy_ms_per_step=busy_us / n_steps / 1e3,
-                device_idle_share=1.0 - busy_us / 1e6 / wall_s)
 
 
 def unequal_fields(got, want) -> dict:
@@ -4552,15 +3893,12 @@ def unequal_fields(got, want) -> dict:
 
 
 def eager_and_graphed(label, card, step, state, want_per_step: dict,
-                      steps_per_window: int, fields=tuple, windows=None,
-                      profiled: bool = False) -> dict:
+                      fields=tuple) -> dict:
     """14: GRAPH_CYCLES eager steps from state, then a graphed step from the state each
     eager step started from (the first captures the graph, the others replay it), every
     graphed state equal to the eager one bit for bit (fields(state): its tensors); the
     kernel launches of both forms per step (want_per_step), the graphs captured and
-    their seconds, each form's peak memory, ms per step of both forms in turns
-    (graph_windows, or windows()), and (profiled) each form's device busy time and idle
-    share."""
+    each form's peak memory."""
     from m3t_tpu_torch import graphs
 
     counters = launch_counters()
@@ -4600,32 +3938,20 @@ def eager_and_graphed(label, card, step, state, want_per_step: dict,
                              f"{unequal}; launches eager {eager_launches}, graphed "
                              f"{graph_launches}, per replay {per_replay}, expected {want}; "
                              f"segments per graph {segments} (one process: 1)")
-    ms = windows() if windows else graph_windows(step, eager[-1], steps_per_window)
-    eager_ms, graph_ms = statistics.mean(ms["eager"]), statistics.mean(ms["graph"])
     out = dict(path=label, card=card, equal_steps=GRAPH_CYCLES, launches_per_step=per_replay,
                graphs=len(infos), segments_per_graph=segments,
-               capture_s=sum(i.capture_s for i in infos),
-               warmup_s=sum(i.warmup_s for i in infos),
-               peak_memory_bytes={"eager": eager_peak, "graph": graph_peak},
-               ms_per_step={"eager": eager_ms, "graph": graph_ms},
-               window_ms_per_step=ms, steps_per_window=steps_per_window,
-               eager_over_graph=eager_ms / graph_ms)
-    if profiled:
-        out["profile"] = {form: device_share(step, eager[-1], eager=form == "eager")
-                          for form in ("eager", "graph")}
+               peak_memory_bytes={"eager": eager_peak, "graph": graph_peak})
     log(f"14 {label} ({card}): {json.dumps(out)}")
     graphs.clear_graphs()
     return out
 
 
-def serve_graphed(label, card, inp, seq, models, rgbd: bool, steps_per_window: int = 20):
+def serve_graphed(label, card, inp, seq, models, rgbd: bool):
     """14: phase 9l's serve graph (one body), twice: one copy steps eagerly and the
     other graphed, in lockstep, each step from the same graph state (fused_serve.
     read_graph_state and load_graph_state: the link's pose and the histograms; the
     cameras, which read their next frame at every step, advance alike in the two
-    copies), held as eager_and_graphed holds a cycle; then ms per loop iteration of the
-    graphed copy (cameras, consistent poses, the tracking step, as phase 9 times it) in
-    turns, the frames replayed on."""
+    copies), held as eager_and_graphed holds a cycle."""
     from m3t_tpu_torch import fused_serve, graphs
 
     n_frames = len(seq["scan_colour"])
@@ -4650,19 +3976,10 @@ def serve_graphed(label, card, inp, seq, models, rgbd: bool, steps_per_window: i
                                         graph_state["histograms"].values())
         return tuple(torch.as_tensor(np.asarray(a)) for a in (link[2], hist_f, hist_b))
 
-    def windows():
-        ms, srv = {"eager": [], "graph": []}, copies["graph"]
-        for form in GRAPH_FORMS:
-            with graphs.disable_graphs() if form == "eager" else contextlib.nullcontext():
-                total, _ = serve_steps(srv, frame["graph"], steps_per_window)
-            ms[form].append(total / steps_per_window * 1e3)
-            frame["graph"] += steps_per_window
-        return ms
-
     want = dict(STEP_LAUNCHES, sample_windows=5 if rgbd else 0)
     return eager_and_graphed(label, card, step,
                              fused_serve.read_graph_state(copies["eager"]), want,
-                             steps_per_window, fields=fields, windows=windows)
+                             fields=fields)
 
 
 def unequal_graph_states(got: dict, want: dict) -> dict:
@@ -4683,9 +4000,8 @@ def host_path_graphed(label, card, graph, inp, models, n_steps: int = 2) -> dict
     graphed, n_steps steps (detection, the starting step and a tracking step), the
     graphed copy loaded with the eager copy's state before each step (fused_serve.
     read_graph_state and load_graph_state): every link pose, joint pose and histogram
-    equal bit for bit after every step, no kernel launched; the graphs captured, their
-    capture seconds and each form's seconds per step (the graphed copy's first step
-    captures)."""
+    equal bit for bit after every step, no kernel launched; the graphs captured (the
+    graphed copy's first step captures)."""
     from m3t_tpu_torch import fused_serve, graphs
 
     graphs.clear_graphs()
@@ -4699,21 +4015,17 @@ def host_path_graphed(label, card, graph, inp, models, n_steps: int = 2) -> dict
     counters = launch_counters()
     for counter in counters.values():
         counter.launches = 0
-    unequal, seconds = {}, {form: [] for form in copies}
+    unequal = {}
     for i in range(n_steps):
         fused_serve.load_graph_state(copies["graph"],
                                      fused_serve.read_graph_state(copies["eager"]))
         states = {}
         for form, srv in copies.items():
-            torch.cuda.synchronize()
-            begin = time.perf_counter()
             with (graphs.disable_graphs() if form == "eager" else contextlib.nullcontext()), \
                     contextlib.redirect_stdout(io.StringIO()):
                 ok = (srv.UpdateCameras(i) and srv.CalculateConsistentPoses()
                       and srv.ExecuteDetectingStep(i) and srv.ExecuteStartingStep(i)
                       and srv.ExecuteTrackingStep(i))
-            torch.cuda.synchronize()
-            seconds[form].append(time.perf_counter() - begin)
             if not ok:
                 raise AssertionError(f"14h {label}: step {i} failed ({form})")
             states[form] = fused_serve.read_graph_state(srv)
@@ -4724,9 +4036,7 @@ def host_path_graphed(label, card, graph, inp, models, n_steps: int = 2) -> dict
     captured = graphs.captured()
     out = dict(path=label, card=card, steps=n_steps, equal_steps=n_steps - len(unequal),
                unequal=unequal, kernel_launches=launches, graphs=len(captured),
-               capture_s=sum(i.capture_s for i in captured),
-               warmup_s=sum(i.warmup_s for i in captured),
-               replays=sum(i.replays for i in captured), s_per_step=seconds)
+               replays=sum(i.replays for i in captured))
     log(f"14h {label} ({card}): {json.dumps(out)}")
     graphs.clear_graphs()
     if unequal or any(launches.values()):
@@ -4738,9 +4048,8 @@ def host_path_graphed(label, card, graph, inp, models, n_steps: int = 2) -> dict
 def run_phase14(card: str, inp, seq, models, mc, kmc) -> dict:
     """Phase 14: every bench mode's workload at B=512 (S=256), the RGB-D scan step of
     phase 8s, the multi-camera cycles of phases 8c and 8k, --latency at B=1, 8 and 64
-    and the serve graphs of phase 9l, each through eager_and_graphed (region, kinematic
-    RGB-D and 8c profiled); 14h, the host path of phases 10o and 10k
-    (host_path_graphed)."""
+    and the serve graphs of phase 9l, each through eager_and_graphed; 14h, the host path
+    of phases 10o and 10k (host_path_graphed)."""
     from m3t_tpu_torch import bench
 
     begin = time.perf_counter()
@@ -4748,13 +4057,12 @@ def run_phase14(card: str, inp, seq, models, mc, kmc) -> dict:
     for mode in ("region", "rgbd", "ycb", "occlusion", "kinematic", "kinematic_rgbd"):
         (work,) = bench.build_workload(mode, N_BODIES, "cuda")
         out[mode] = eager_and_graphed(mode, card, work.cycle, work.state,
-                                      BENCH_LAUNCHES[mode], 5,
-                                      profiled=mode in ("region", "kinematic_rgbd"))
+                                      BENCH_LAUNCHES[mode])
         del work
     bt = sequences_batch(seq, N_BODIES, torch.device("cuda"))
     out["scan_rgbd_step"] = eager_and_graphed(
         "scan_rgbd_step", card, lambda state: scan_step_cycle(seq, bt, state),
-        sequences_start(seq, bt), dict(BENCH_LAUNCHES["rgbd"]), 5)
+        sequences_start(seq, bt), dict(BENCH_LAUNCHES["rgbd"]))
     for label, path_inp, cycle, launches in (
             ("multicamera", mc, multicamera_cycle(mc, "rgbd_pcfg"), MULTICAMERA_LAUNCHES),
             ("kinematic_multicamera", kmc, kinematic_multicamera_cycle(kmc, "rgbd_pcfg"),
@@ -4762,21 +4070,18 @@ def run_phase14(card: str, inp, seq, models, mc, kmc) -> dict:
         bt = path_inp["kind"].batch(path_inp, N_BODIES, torch.device("cuda"))
         out[label] = eager_and_graphed(
             label, card, lambda state: cycle(path_inp, bt, state),
-            path_inp["kind"].start(path_inp, bt), launches, 5,
-            profiled=label == "multicamera")
+            path_inp["kind"].start(path_inp, bt), launches)
     del bt
     for work in bench.build_workload("latency", N_BODIES, "cuda"):
         out[f"latency_B{work.body_frames}"] = eager_and_graphed(
             f"latency B={work.body_frames}", card, work.cycle, work.state,
-            BENCH_LAUNCHES["latency"], 20)
+            BENCH_LAUNCHES["latency"])
     for rgbd in (False, True):
         label = "serve_latency_rgbd" if rgbd else "serve_latency"
         out[label] = serve_graphed(label, card, inp, seq, models, rgbd)
-    host_begin = time.perf_counter()
     for label, graph in (("host_occluded", occluded_scene_graph),
                          ("host_structures", structure_graph)):
         out[label] = host_path_graphed(label, card, graph, inp, models)
-    out["phase14h_s"] = time.perf_counter() - host_begin
     out["phase14_s"] = time.perf_counter() - begin
     log(f"phase 14 took {out['phase14_s']:.1f} s ({card})")
     return out
@@ -4828,8 +4133,7 @@ def segments_rank(rank: int, world: int, init_method: str) -> None:
                         segments=info.segments, newton_steps=n_steps,
                         replays=info.replays, launches_per_replay=info.launches,
                         eager_launches=launches[0],
-                        graphed_launches=[n for _, n in graphed],
-                        capture_s=info.capture_s)
+                        graphed_launches=[n for _, n in graphed])
             per_replay = {n: info.launches.get(n, 0) for n in counters}
             if unequal or info.segments != n_steps + 1 or info.replays != GRAPH_CYCLES - 1 \
                     or any(n != launches[0] for n in launches + case["graphed_launches"]) \
@@ -4886,66 +4190,8 @@ def run_segments(card: str, world: int = 2, timeout: float = 300.0) -> dict:
     return result
 
 
-def kernel_line(shapes, paths, evaluation, phase12, phase13):
-    """The kernels JSON entries: times and bounds per flagship cycle of the kernel's
-    path (the sum over the cycle's calls), launches from that path's counted run, the
-    launches of phase 10's host path (``host_path_launches``: it launches none), of
-    each fused evaluation of phase 11 (``eval_launches``), of each entry point's run
-    in phase 12 (``phase12_launches``: the replay fused and on the host path, the
-    generated tracker, and each study's two rows) and of each bench mode's workload in
-    phase 13 (``bench_launches``: StartModality and BENCH_CYCLES cycles)."""
-    kernels = []
-    for name, source, replaces, path in (
-            ("sample_lines", REGION_SOURCE, "m3t_tpu/ops/region_fast.py:232", "region"),
-            ("bin_counts", REGION_SOURCE, "m3t_tpu/ops/region_fast.py:723", "region"),
-            ("sample_windows", DEPTH_SOURCE, "m3t_tpu/ops/depth_fast.py:98", "rgbd"),
-            ("query_eval", OCCLUSION_SOURCE, "m3t_tpu/ops/occlusion.py:347", "occlusion"),
-            ("newton_step", NEWTON_SOURCE,
-             "m3t_tpu/pipeline.py:345 (no Pallas kernel: XLA fuses the step)", "region"),
-            ("scene_coeffs", OCCLUSION_SOURCE,
-             "m3t_tpu/ops/occlusion.py:232 focused_scene_coeffs (no Pallas kernel: XLA "
-             "fuses it)", "kinematic")):
-        rows = [s for s in shapes if s["kernel"] == name]
-
-        def per_cycle(key, rows=rows):
-            return sum(s[key] * s["per_cycle"] for s in rows)
-
-        library = [s["library_ms"] for s in rows]
-        kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=paths[path]["launches"][name],
-            max_abs_err=max(s["max_abs_err"] for s in rows),
-            ms=per_cycle("ms"), eager_ms=per_cycle("eager_ms"), plain_ms=per_cycle("plain_ms"),
-            bound_ms=per_cycle("bound_ms"),
-            bound_by=max(("bytes", "operations"), key=lambda by, rows=rows: sum(
-                s["bound_ms"] * s["per_cycle"] for s in rows if s["bound_by"] == by)),
-            library_ms=None if None in library else per_cycle("library_ms"),
-            **({"plain_graph_ms": per_cycle("plain_graph_ms")}
-               if all("plain_graph_ms" in s for s in rows) else {}),
-            host_path_launches=sum(paths[p]["kernel_launches"]
-                                   for p in ("host_occluded", "host_structures")),
-            eval_launches={label: evaluation[label]["launches"][name]
-                           for label in ("rbot", "ycb", "rtb", "opt", "choi")},
-            phase12_launches={
-                "12r fused": phase12["recorded"]["fused"]["launches"][name],
-                "12r host_path": phase12["recorded"]["host_path"]["launches"][name],
-                "12g run_generated_tracker":
-                    phase12["generated"]["run_generated_tracker"]["launches"][name],
-                **{f"12p {label}": study["launches"][name]
-                   for label, study in phase12["studies"].items()}},
-            bench_launches={mode: work["launches"][name]
-                            for mode, work in phase13["workloads"].items()}))
-    return kernels
-
-
 def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--profile", type=Path, metavar="TABLE_FILE",
-                        help="also trace a window of each path's cycles with "
-                             "torch.profiler and write their tables to TABLE_FILE and "
-                             "TABLE_FILE with the path's suffix before its own (see the "
-                             "module's docstring)")
-    args = parser.parse_args()
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -4977,7 +4223,7 @@ def main() -> int:
     inp = flagship_inputs("cuda", N_BODIES, models)
     kin = kinematic(inp)
     took("phases 1, 0m and the kernels' build")
-    shapes = check_kernels(inp, kin)
+    kernel_cases = check_kernels(inp, kin)
     took("phase 2")
     # Every rigid cycle launches newton_step once per Newton step (5 x 2; YCB 4 x 2), the
     # articulated cycles never; StartModality takes no step.
@@ -4997,7 +4243,7 @@ def main() -> int:
         "ycb", inp, rgbd_cycle("ycb_pcfg"),
         {"sample_lines": 5, "bin_counts": 2, "sample_windows": 12, "query_eval": 0,
          "newton_step": 8},
-        at_init, n_windows=1)
+        at_init)
     # bench.py --occlusion: one combined scene evaluation per correspondence iteration.
     paths["occlusion"], tensors["occlusion"] = run_path(
         "occlusion", occlusion_path(inp), region_cycle,
@@ -5021,15 +4267,6 @@ def main() -> int:
                              f"sample_windows: {reads}")
     for label, n in reads.items():
         paths[label]["depth_frame_reads_per_cycle"] = n
-    if args.profile:
-        for label, path_inp, cycle, suffix in (
-                ("region", inp, region_cycle, ""),
-                ("rgbd", inp, rgbd_cycle("rgbd_pcfg"), "_rgbd"),
-                ("occlusion", occlusion_path(inp), region_cycle, "_occlusion"),
-                ("kinematic", kin, kinematic_cycle("pcfg"), "_kinematic"),
-                ("kinematic_rgbd", kin, kinematic_cycle("rgbd_pcfg"), "_kinematic_rgbd")):
-            profile_cycles(label, path_inp, cycle, tensors[label],
-                           profile_file(args.profile, suffix), paths[label]["ms_per_cycle"])
     del tensors
     took("phases 3-6k")
     # Phase 8: the scale-out paths, a frame of its own per (sequence, step) and per
@@ -5039,11 +4276,9 @@ def main() -> int:
     paths["scan"] = run_scan("scan", seq, False, region_launches, at_init)[0]
     paths["scan_rgbd"], phase8 = run_scan(
         "scan_rgbd", seq, True, dict(region_launches, sample_windows=5), at_init)
-    shapes += distinct_frame_rows("scan step", lambda: scan_step_cycle(seq, *phase8))
-    if args.profile:
-        profile_cycles("scan_rgbd", seq, scan_step_cycle, phase8,
-                       profile_file(args.profile, "_scan_rgbd"),
-                       paths["scan_rgbd"]["ms_per_step"])
+    with twin_checked("8s scan step") as checked:
+        scan_step_cycle(seq, *phase8)
+    paths["scan_rgbd"]["twin_checked_calls"] = checked["kernel_calls"]
     del phase8
     # 8c: two cameras over B bodies, all four scene checks: three scene evaluations per
     # correspondence iteration (region checks and modeled occlusions, depth modeled
@@ -5051,43 +4286,24 @@ def main() -> int:
     mc_cycle = multicamera_cycle(mc, "rgbd_pcfg")
     paths["multicamera"], phase8 = run_path("multicamera", mc, mc_cycle,
                                             MULTICAMERA_LAUNCHES, at_init)
-    shapes += distinct_frame_rows("multicamera cycle", lambda: mc_cycle(mc, *phase8))
-    if args.profile:
-        profile_cycles("multicamera", mc, mc_cycle, phase8,
-                       profile_file(args.profile, "_multicamera"),
-                       paths["multicamera"]["ms_per_cycle"])
+    with twin_checked("8c multicamera cycle") as checked:
+        mc_cycle(mc, *phase8)
+    paths["multicamera"]["twin_checked_calls"] = checked["kernel_calls"]
     del phase8
     # 8k: two cameras over S structures, per-link scenes in each camera.
     kmc_cycle = kinematic_multicamera_cycle(kmc, "rgbd_pcfg")
-    paths["kinematic_multicamera"], phase8 = run_path(
-        "kinematic_multicamera", kmc, kmc_cycle, BENCH_LAUNCHES["kinematic_rgbd"], at_init)
-    if args.profile:
-        profile_cycles("kinematic_multicamera", kmc, kmc_cycle, phase8,
-                       profile_file(args.profile, "_kinematic_multicamera"),
-                       paths["kinematic_multicamera"]["ms_per_cycle"])
-    del phase8
+    paths["kinematic_multicamera"] = run_path(
+        "kinematic_multicamera", kmc, kmc_cycle, BENCH_LAUNCHES["kinematic_rgbd"],
+        at_init)[0]
     took("phase 8 but 8x and 8d")
     # Phase 9: the reference-shaped serve path, Tracker.RunTrackerProcess through the
     # fused serve backend: the region and RGB-D graphs at B=512 (9s, 9d) and at B=1
-    # (9l), each step beside the bare cycle of the same path (phases 3 and 4).
-    serve_launches = {"sample_lines": 6, "bin_counts": 2, "sample_windows": 0,
-                      "query_eval": 0, "newton_step": 10}
-    for label, bodies, rgbd, steps, bare in (
-            ("serve", N_BODIES, False, 5, "region"),
-            ("serve_rgbd", N_BODIES, True, 5, "rgbd"),
-            ("serve_latency", 1, False, 20, None),
-            ("serve_latency_rgbd", 1, True, 20, None)):
-        paths[label] = run_serve(
-            label, inp, seq, models, bodies, rgbd,
-            dict(serve_launches, sample_windows=5 if rgbd else 0), steps)
-        if bare:
-            paths[label]["bare_cycle_ms"] = paths[bare]["ms_per_cycle"]
-        else:
-            paths[label]["live_camera_budget_ms"] = 33.0
-        log(f"{label}: {paths[label]['ms_per_tracking_step']:.3f} ms per "
-            f"ExecuteTrackingStep, {paths[label]['ms_per_step']:.3f} ms per loop iteration "
-            f"at B={bodies}" + (f", bare cycle {paths[bare]['ms_per_cycle']:.3f} ms"
-                                if bare else " (live-camera budget 33 ms)"))
+    # (9l), launching per step what the bare cycle of the same path launches.
+    for label, bodies, rgbd in (("serve", N_BODIES, False), ("serve_rgbd", N_BODIES, True),
+                                ("serve_latency", 1, False),
+                                ("serve_latency_rgbd", 1, True)):
+        paths[label] = run_serve(label, inp, seq, models, bodies, rgbd,
+                                 dict(region_launches, sample_windows=5 if rgbd else 0))
     took("phase 9 but 9x")
     card_vs_cpu = {"region": check_card_against_cpu("region", inp, region_cycle)}
     # 9x: the serve graphs at B=8, and at B=1, the batch at which 9l launches the kernels.
@@ -5138,7 +4354,7 @@ def main() -> int:
     # The occluded graph's witnessed parting at host_optimizer2, step 0, moves histogram_b
     # by 2.6374e-3 on the card and 2.6374e-3 on the nudged CPU (NVIDIA H100 80GB HBM3,
     # 700 W), since the divisions that reach a trunc or a comparison round as jitted
-    # JAX's do: its histogram_b bound is 3e-3.
+    # JAX's do: its histogram_b limit is 3e-3.
     for label, graph, bounds in (
             ("host occluded", occluded_scene_graph,
              dict(HOST_PARTED_BOUNDS, histogram_b=3e-3)),
@@ -5188,14 +4404,11 @@ def main() -> int:
     dryrun = run_dryrun()
     took("phase 8d")
 
-    print(json.dumps({"kernel_shapes": shapes}))
-    print(json.dumps({"paths": paths, "card_vs_cpu": card_vs_cpu, "dryrun": dryrun,
-                      "card": card, "model_generation_s": generation_s,
+    print(json.dumps({"kernel_cases": kernel_cases, "paths": paths,
+                      "card_vs_cpu": card_vs_cpu, "dryrun": dryrun, "card": card,
+                      "model_generation_s": generation_s,
                       "phase10_s": phase10_s, "eval": evaluation, "phase12": phase12,
                       "phase13": phase13, "phase14": phase14, "seconds": seconds}))
-    print(card)
-    print(json.dumps({"kernels": kernel_line(shapes, paths, evaluation, phase12,
-                                             phase13)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -43,9 +43,6 @@
 //   - K is a template parameter for the sizes the pipeline uses (3, 5, 11 for the
 //     correspondence windows, 6 for the measured-occlusion windows), so the index
 //     decomposition divides by constants; any other K takes the runtime instantiation.
-//   kernel_variants.py times the alternatives as edits of this source: other counts of
-//   outputs per thread, plain stores, the body's crop staged in shared memory, and lanes
-//   on consecutive outputs (PERF.md).
 // ---------------------------------------------------------------------------------------
 
 #include <cuda_runtime.h>

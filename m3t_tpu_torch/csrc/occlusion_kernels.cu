@@ -56,8 +56,6 @@
 //     test is a strict > and the best is never below 0), so skipping the pair changes
 //     no result.  A NaN at the corner (an infinite query or coefficient) is not < 0 and
 //     keeps the triangle.
-//   - Without the cull the warp evaluates every staged triangle: the comparison for
-//     the cull's gain.
 //   Numerics: every plane is __fadd_rn(__fadd_rn(__fmul_rn(a, u), __fmul_rn(b, v)), c),
 //   so nvcc cannot contract it into FMAs, which would move an edge value across 0 and
 //   flip coverage and ids.  The coverage test is e0 >= 0 && e1 >= 0 && e2 >= 0, which
@@ -549,18 +547,17 @@ void launch_scene_coeffs(const void* triangles, const void* owner, const void* s
 
 extern "C" {
 
-// u, v: (B, n_query) float32, or int32 when int_queries is nonzero.  cull = 0 evaluates
-// every (query, triangle) pair.
+// u, v: (B, n_query) float32, or int32 when int_queries is nonzero.
 int m3t_query_eval(const void* coeffs, const void* tri_valid, const void* sil_id,
                    const void* u, const void* v, void* inv_out, void* id_out, int b,
-                   int n_tri, int n_query, int int_queries, int cull, void* stream) {
+                   int n_tri, int n_query, int int_queries, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (int_queries) {
-    (cull ? launch<int32_t, true> : launch<int32_t, false>)(
-        coeffs, tri_valid, sil_id, u, v, inv_out, id_out, b, n_tri, n_query, s);
+    launch<int32_t, true>(coeffs, tri_valid, sil_id, u, v, inv_out, id_out, b, n_tri,
+                          n_query, s);
   } else {
-    (cull ? launch<float, true> : launch<float, false>)(
-        coeffs, tri_valid, sil_id, u, v, inv_out, id_out, b, n_tri, n_query, s);
+    launch<float, true>(coeffs, tri_valid, sil_id, u, v, inv_out, id_out, b, n_tri,
+                        n_query, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

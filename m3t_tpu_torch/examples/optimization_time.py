@@ -7,9 +7,10 @@ is the Optimizer's host numpy Newton step in both packages, so this script times
 time whatever ``--device`` says; ``--device`` is checked as in every entry point of the
 port (without a card, ``cuda`` raises).  Two things of the JAX script are kept as they
 are (ROADMAP Queue C): its docstring promises a batched on-device solve that its code
-does not run (the articulated paths of ``chip_smoke.py`` time the batched KKT solve on
-the card), and the step recomputes each link's terms from its modalities, of which the
-chain has none, so the added terms are dropped and every timed solve is a zero step.
+does not run (the benchmark's kinematic cell times the batched KKT solve on the card:
+``kin_stage_ms.kkt_solve``), and the step recomputes each link's terms from its
+modalities, of which the chain has none, so the added terms are dropped and every timed
+solve is a zero step.
 
 Usage: python -m m3t_tpu_torch.examples.optimization_time [--max-chain 20] [--n-runs 200]
        [--device cuda]

@@ -70,13 +70,11 @@ two graphs share as intermediates is dead in both between their replays.  Static
 buffers, the outputs' clones and the warm-up's results come from the ordinary
 allocator.  Graphs must therefore not be replayed concurrently on two streams.
 
-Launch counters.  Each kernel wrapper counts its launches (``sample_lines.launches`` and
-``bin_counts.launches`` in ``ops/region_fast.py``, ``sample_windows.launches`` in
-``ops/depth_fast.py``, ``query_eval.launches`` and ``scene_coeffs.launches`` in
-``ops/occlusion.py``, ``newton_step.launches`` in ``ops/newton.py``).  A capture notes
-how many launches of each kernel it records (and takes them off again: a capture
-launches nothing), and each replay adds them to the wrappers' counts.  So a graphed call
-counts what its eager twin counts, the first call included.
+Launch counters.  Each kernel wrapper counts its launches (``sample_lines.launches``
+and the like; ``ops/_cuda.py`` declares the wrappers and counts their launches).  A
+capture notes how many launches of each kernel it records (and takes them off again: a
+capture launches nothing), and each replay adds them to the wrappers' counts.  So a
+graphed call counts what its eager twin counts, the first call included.
 
 A decorated function called during another one's warm-up or capture runs inline, as a
 jitted function called inside a jit is traced into it.
@@ -136,6 +134,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from m3t_tpu_torch.ops import _cuda
 from m3t_tpu_torch.utils import timing
 
 _TORCH = str(Path(torch.__file__).resolve().parent)
@@ -329,24 +328,6 @@ def _where(err: BaseException) -> str:
     return "an operation of PyTorch's"
 
 
-def _kernel_counters():
-    """(module, wrapper name) of every counted kernel."""
-    from m3t_tpu_torch.ops import depth_fast, newton, occlusion, region_fast
-
-    return ((region_fast, "sample_lines"), (region_fast, "bin_counts"),
-            (depth_fast, "sample_windows"), (occlusion, "query_eval"),
-            (newton, "newton_step"), (occlusion, "scene_coeffs"))
-
-
-def _launch_counts() -> list:
-    return [getattr(module, name).launches for module, name in _kernel_counters()]
-
-
-def _set_launch_counts(counts) -> None:
-    for (module, name), n in zip(_kernel_counters(), counts):
-        getattr(module, name).launches = n
-
-
 def _version(t: torch.Tensor):
     try:
         return t._version
@@ -376,7 +357,7 @@ class _Graph:
         self.collectives = []  # (fn, tensor) after each segment but the last
         self.pool = self.outputs = None
         self.held = []
-        self.launches = []  # ((module, name), launches per replay) with launches > 0
+        self.launches = []  # (kernel wrapper, launches per replay) with launches > 0
         self.warmup_s = self.capture_s = 0.0
         self.replays = 0
         self.marks = []  # the captured stage marks, [(name, external event)]
@@ -385,7 +366,7 @@ class _Graph:
 
     def info(self) -> GraphInfo:
         return GraphInfo(self.name, self.warmup_s, self.capture_s, self.replays,
-                         {name: n for (_, name), n in self.launches}, len(self.segments))
+                         {fn.__name__: n for fn, n in self.launches}, len(self.segments))
 
     def begin_segment(self) -> None:
         self.segments.append(torch.cuda.CUDAGraph())
@@ -426,8 +407,8 @@ class _Graph:
                 if i < len(self.collectives):
                     fn, tensor = self.collectives[i]
                     fn(tensor)
-        for (module, name), n in self.launches:
-            getattr(module, name).launches += n
+        for fn, n in self.launches:
+            fn.launches += n
         for name, n in self.counts:
             timing.count(name, n)
         self.replays += 1
@@ -484,7 +465,7 @@ def _capture(fn, bound: inspect.BoundArguments, static: frozenset, leaves: list,
         entry.warmup_s = time.perf_counter() - begin
 
         torch.cuda.empty_cache()
-        counts = _launch_counts()
+        counts = {fn: fn.launches for fn in _cuda.wrappers()}
         entry.pool = _POOLS[device]
         begin = time.perf_counter()
         try:
@@ -506,12 +487,13 @@ def _capture(fn, bound: inspect.BoundArguments, static: frozenset, leaves: list,
                 f"graphed {entry.name}: capturing its CUDA graph failed at {_where(err)} "
                 f"for the static key ({_describe(bound, static)}): {err}") from err
         finally:
-            launched = _launch_counts()
-            _set_launch_counts(counts)
+            launched = {fn: fn.launches for fn in _cuda.wrappers()}
+            for fn in launched:  # as before the capture; 0 if declared during it
+                fn.launches = counts.get(fn, 0)
         entry.capture_s = time.perf_counter() - begin
     entry.outputs = outputs
-    entry.launches = [(counter, after - before) for counter, before, after
-                      in zip(_kernel_counters(), counts, launched) if after > before]
+    entry.launches = [(fn, n - counts.get(fn, 0)) for fn, n in launched.items()
+                      if n > counts.get(fn, 0)]
     return entry, result
 
 

@@ -5,6 +5,13 @@ takes seconds), one process per source, all started together, and links the obje
 into one shared library in ``m3t_tpu_torch/_build/``, keyed by a hash of all sources.
 The library is loaded with ctypes.  Nothing here runs at import time: the CPU path
 never needs ``nvcc`` or a card.
+
+Every kernel is declared once, by :func:`kernel` on its wrapper: the C entry point's
+symbol and its argument types, the stream (the last argument of every entry point)
+left out.  :func:`launch` calls a declared entry point on the current stream of a
+device and counts the launch on the wrapper (``sample_lines.launches``, ...), whatever
+name the wrapper's module holds at the time; :func:`wrappers` lists the declared
+wrappers, whose counts graphs.py takes into and out of its captures.
 """
 
 from __future__ import annotations
@@ -78,37 +85,53 @@ def build() -> Path:
     return so
 
 
+# Argument types of the entry points: device pointers, int, long long and float.
+PTR, INT, INT64, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+_WRAPPERS: dict = {}  # C symbol -> its wrapper, in declaration order
+
+
+def kernel(symbol: str, argtypes):
+    """Declare the wrapper's kernel: its C entry point ``symbol`` in ``csrc/*.cu``, which
+    returns a cudaError_t as int, and its argument types before the stream.  Returns the
+    wrapper itself, its launch count at 0."""
+    def declare(wrapper):
+        wrapper.symbol, wrapper.argtypes, wrapper.launches = symbol, tuple(argtypes), 0
+        _WRAPPERS[symbol] = wrapper
+        return wrapper
+    return declare
+
+
+def wrappers() -> tuple:
+    """The declared kernel wrappers (of the modules imported so far)."""
+    return tuple(_WRAPPERS.values())
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.m3t_sample_lines.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
-    lib.m3t_sample_lines.restype = i32
-    lib.m3t_bin_counts.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
-    lib.m3t_bin_counts.restype = i32
-    lib.m3t_sample_windows.argtypes = ([ptr, ctypes.c_longlong, i32, i32] + [ptr] * 6
-                                       + [i32] * 4 + [ptr])
-    lib.m3t_sample_windows.restype = i32
-    lib.m3t_query_eval.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
-    lib.m3t_query_eval.restype = i32
-    lib.m3t_scene_coeffs.argtypes = ([ptr] * 5 + [ctypes.c_longlong] * 5 + [ptr] * 9
-                                     + [i32] * 3 + [ctypes.c_float, i32, ptr])
-    lib.m3t_scene_coeffs.restype = i32
-    lib.m3t_newton_step.argtypes = [ptr] * 4 + [i32, ctypes.c_float, ctypes.c_float, ptr]
-    lib.m3t_newton_step.restype = i32
-    return lib
+    return ctypes.CDLL(str(build()))
+
+
+@functools.cache
+def _entry(symbol: str):
+    """The library's entry point ``symbol`` with its declared argument types."""
+    entry = getattr(library(), symbol)
+    entry.argtypes = [*_WRAPPERS[symbol].argtypes, PTR]
+    entry.restype = INT
+    return entry
+
+
+def launch(symbol: str, device: torch.device, *args) -> None:
+    """Call the declared entry point ``symbol`` with args and the current stream of
+    device, raise on a launch error, and count the launch on its wrapper."""
+    with torch.cuda.device(device):
+        err = _entry(symbol)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {symbol} failed to launch: cudaError {err}")
+    _WRAPPERS[symbol].launches += 1
 
 
 def require(cond: bool, msg: str) -> None:
     """Argument check of the kernel wrappers: raises ValueError(msg) unless cond."""
     if not cond:
         raise ValueError(msg)
-
-
-def stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def check(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")

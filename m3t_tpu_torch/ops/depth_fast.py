@@ -77,6 +77,8 @@ def sample_windows_plain(image, u_min, v_min, stride, corner_u, corner_v, crop_s
     return torch.where(inside, d, 0).to(torch.float32)
 
 
+@_cuda.kernel("m3t_sample_windows", [_cuda.PTR, _cuda.INT64, _cuda.INT, _cuda.INT]
+              + [_cuda.PTR] * 6 + [_cuda.INT] * 4)
 def sample_windows(image, u_min, v_min, stride, corner_u, corner_v, crop_size: int,
                    k: int):
     """(B, P, K, K) float32 strided windows of the (B, H, W) uint16 frames:
@@ -102,17 +104,11 @@ def sample_windows(image, u_min, v_min, stride, corner_u, corner_v, crop_size: i
     _require(all(x.is_contiguous() for x in (u_min, v_min, stride, corner_u, corner_v)),
              "sample_windows: the window geometry must be contiguous")
     out = torch.empty((b, p, k, k), dtype=torch.float32, device=image.device)
-    with torch.cuda.device(image.device):
-        err = _cuda.library().m3t_sample_windows(
-            image.data_ptr(), image.stride(0), h, w, u_min.data_ptr(), v_min.data_ptr(),
-            stride.data_ptr(), corner_u.data_ptr(), corner_v.data_ptr(), out.data_ptr(),
-            b, p, k, crop_size, _cuda.stream_handle(image.device))
-    _cuda.check(err, "sample_windows")
-    sample_windows.launches += 1
+    _cuda.launch("m3t_sample_windows", image.device, image.data_ptr(), image.stride(0), h,
+                 w, u_min.data_ptr(), v_min.data_ptr(), stride.data_ptr(),
+                 corner_u.data_ptr(), corner_v.data_ptr(), out.data_ptr(), b, p, k,
+                 crop_size)
     return out
-
-
-sample_windows.launches = 0
 
 
 # ----------------------------------------------------------------------------------------

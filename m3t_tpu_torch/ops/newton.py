@@ -11,8 +11,6 @@ kernels over the batch, which the kernel does in registers in the same order.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from m3t_tpu_torch.common import pose_variation
@@ -84,6 +82,8 @@ def newton_step_plain(gradient, hessian, pose, tikhonov_rotation: float,
     return pose @ pose_variation(theta)
 
 
+@_cuda.kernel("m3t_newton_step",
+              [_cuda.PTR] * 4 + [_cuda.INT, _cuda.FLOAT, _cuda.FLOAT])
 def newton_step(gradient, hessian, pose, tikhonov_rotation: float,
                 tikhonov_translation: float):
     """Batched Tikhonov-regularized Newton step (optimizer.cpp:144-167, single link).
@@ -101,14 +101,7 @@ def newton_step(gradient, hessian, pose, tikhonov_rotation: float,
     out = torch.empty((b, 4, 4), dtype=torch.float32, device=pose.device)
     if b == 0:
         return out
-    with torch.cuda.device(pose.device):
-        err = _cuda.library().m3t_newton_step(
-            gradient.data_ptr(), hessian.data_ptr(), pose.data_ptr(), out.data_ptr(), b,
-            ctypes.c_float(tikhonov_rotation), ctypes.c_float(tikhonov_translation),
-            _cuda.stream_handle(pose.device))
-    _cuda.check(err, "newton_step")
-    newton_step.launches += 1
+    _cuda.launch("m3t_newton_step", pose.device, gradient.data_ptr(), hessian.data_ptr(),
+                 pose.data_ptr(), out.data_ptr(), b, tikhonov_rotation,
+                 tikhonov_translation)
     return out
-
-
-newton_step.launches = 0

@@ -25,7 +25,6 @@ the scene batch is a leading dimension.  Host inputs are :class:`SceneBody` reco
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -355,6 +354,8 @@ def _block_width(n_tri: int) -> int:
     return next((w for w in (32, 64, 128) if n_tri <= w), 256)
 
 
+@_cuda.kernel("m3t_scene_coeffs", [_cuda.PTR] * 5 + [_cuda.INT64] * 5 + [_cuda.PTR] * 9
+              + [_cuda.INT] * 3 + [_cuda.FLOAT, _cuda.INT])
 def scene_coeffs(triangles, owner, sil_id, tri_valid, cull, scene_poses, fu, fv, pu, pv,
                  z_min: float):
     """Focused-space triangle coefficients of B scenes, valid triangles first.
@@ -387,18 +388,12 @@ def scene_coeffs(triangles, owner, sil_id, tri_valid, cull, scene_poses, fu, fv,
     rows = [_scene_rows(x) for x in (triangles, owner, sil_id, tri_valid, cull)]
     poses = scene_poses.contiguous()
     projection = [p.contiguous() for p in projection]
-    with torch.cuda.device(dev):
-        err = _cuda.library().m3t_scene_coeffs(
-            *(x.data_ptr() for x, _ in rows), *(stride for _, stride in rows),
-            poses.data_ptr(), *(p.data_ptr() for p in projection), coeffs.data_ptr(),
-            valid.data_ptr(), ids.data_ptr(), bbox.data_ptr(), b, t, poses.shape[1],
-            ctypes.c_float(z_min), _block_width(t), _cuda.stream_handle(dev))
-    _cuda.check(err, "scene_coeffs")
-    scene_coeffs.launches += 1
+    _cuda.launch("m3t_scene_coeffs", dev, *(x.data_ptr() for x, _ in rows),
+                 *(stride for _, stride in rows), poses.data_ptr(),
+                 *(p.data_ptr() for p in projection), coeffs.data_ptr(), valid.data_ptr(),
+                 ids.data_ptr(), bbox.data_ptr(), b, t, poses.shape[1], z_min,
+                 _block_width(t))
     return coeffs, valid, ids, bbox
-
-
-scene_coeffs.launches = 0
 
 
 def _focused_scene_coeffs(evaluate, geom: SceneGeometry, scene_poses, intr, width: int,
@@ -520,7 +515,8 @@ def query_eval_plain(coeffs, tri_valid, sil_id, u, v):
             torch.where(sel, best_id[1], best_id[0]).reshape(shape))
 
 
-def query_eval(coeffs, tri_valid, sil_id, u, v, cull: bool = True):
+@_cuda.kernel("m3t_query_eval", [_cuda.PTR] * 7 + [_cuda.INT] * 4)
+def query_eval(coeffs, tri_valid, sil_id, u, v):
     """Max inverse depth over covering triangles and the silhouette id of that triangle
     at focused pixels (u, v), for B scenes (m3t_tpu/ops/occlusion.py:322-357).
 
@@ -530,9 +526,8 @@ def query_eval(coeffs, tri_valid, sil_id, u, v, cull: bool = True):
     covers the pixel.  Ties: triangles run on two chains (even t, odd t), a triangle
     replaces a chain's best only if strictly greater, and chain 0 wins ties at the merge.
     The kernel skips the triangles that :func:`box_outside` rules out for the boxes of
-    a warp's queries (two boxes of 16 consecutive queries); ``cull=False`` makes it
-    evaluate every (query, triangle) pair instead.  Both give the plain twin's result,
-    bit for bit (the twin has no cull).
+    a warp's queries (two boxes of 16 consecutive queries), and gives the plain twin's
+    result bit for bit (the twin has no cull).
     """
     if coeffs.device.type == "cpu":
         return query_eval_plain(coeffs, tri_valid, sil_id, u, v)
@@ -550,17 +545,10 @@ def query_eval(coeffs, tri_valid, sil_id, u, v, cull: bool = True):
     ids = torch.empty(uq.shape, dtype=torch.int32, device=uq.device)
     if uq.shape[1] == 0:
         return inv.reshape(shape), ids.reshape(shape)
-    with torch.cuda.device(coeffs.device):
-        err = _cuda.library().m3t_query_eval(
-            coeffs.data_ptr(), tri_valid.data_ptr(), sil_id.data_ptr(), uq.data_ptr(),
-            vq.data_ptr(), inv.data_ptr(), ids.data_ptr(), b, n_tri, uq.shape[1],
-            int(int_queries), int(cull), _cuda.stream_handle(coeffs.device))
-    _cuda.check(err, "query_eval")
-    query_eval.launches += 1
+    _cuda.launch("m3t_query_eval", coeffs.device, coeffs.data_ptr(), tri_valid.data_ptr(),
+                 sil_id.data_ptr(), uq.data_ptr(), vq.data_ptr(), inv.data_ptr(),
+                 ids.data_ptr(), b, n_tri, uq.shape[1], int(int_queries))
     return inv.reshape(shape), ids.reshape(shape)
-
-
-query_eval.launches = 0
 
 
 def query_inv_depth(coeffs, tri_valid, u, v):

@@ -141,6 +141,7 @@ def sample_lines_plain(params, bin_crop, table, kp: int, output: str = "ratio"):
     return torch.gather(table, 1, bins.reshape(b, -1).to(torch.int64)).reshape(b, kp, lp)
 
 
+@_cuda.kernel("m3t_sample_lines", [_cuda.PTR] * 4 + [_cuda.INT] * 6)
 def sample_lines(params, bin_crop, table, kp: int, output: str = "ratio"):
     """Batched staircase line sampling.
 
@@ -166,17 +167,10 @@ def sample_lines(params, bin_crop, table, kp: int, output: str = "ratio"):
              "ratio table rows must be 16-byte aligned multiples of 4 floats")
     out = torch.empty((b, kp, lp), dtype=torch.float32 if ratio else torch.int32,
                       device=params.device)
-    with torch.cuda.device(params.device):
-        err = _cuda.library().m3t_sample_lines(
-            params.data_ptr(), bin_crop.data_ptr(), table.data_ptr() if ratio else None,
-            out.data_ptr(), b, lp, kp, c, n_table, int(ratio),
-            _cuda.stream_handle(params.device))
-    _cuda.check(err, "sample_lines")
-    sample_lines.launches += 1
+    _cuda.launch("m3t_sample_lines", params.device, params.data_ptr(), bin_crop.data_ptr(),
+                 table.data_ptr() if ratio else None, out.data_ptr(), b, lp, kp, c,
+                 n_table, int(ratio))
     return out
-
-
-sample_lines.launches = 0
 
 
 # ----------------------------------------------------------------------------------------
@@ -204,6 +198,7 @@ def bin_counts_plain(bins, mask, n_bins_total: int = 4096):
     return counts[:, :n_bins_total].contiguous()
 
 
+@_cuda.kernel("m3t_bin_counts", [_cuda.PTR] * 3 + [_cuda.INT] * 3)
 def bin_counts(bins, mask, n_bins_total: int = 4096):
     """Masked histogram counts: bins (B, N) int32, mask (B, N) bool ->
     (B, n_bins_total) f32, counts[b, j] = #{n : mask[b, n] and bins[b, n] == j}."""
@@ -218,16 +213,9 @@ def bin_counts(bins, mask, n_bins_total: int = 4096):
     out = torch.empty((b, n_bins_total), dtype=torch.float32, device=bins.device)
     if b == 0:
         return out
-    with torch.cuda.device(bins.device):
-        err = _cuda.library().m3t_bin_counts(
-            bins.data_ptr(), mask.data_ptr(), out.data_ptr(), b, n, n_bins_total,
-            _cuda.stream_handle(bins.device))
-    _cuda.check(err, "bin_counts")
-    bin_counts.launches += 1
+    _cuda.launch("m3t_bin_counts", bins.device, bins.data_ptr(), mask.data_ptr(),
+                 out.data_ptr(), b, n, n_bins_total)
     return out
-
-
-bin_counts.launches = 0
 
 
 # ----------------------------------------------------------------------------------------

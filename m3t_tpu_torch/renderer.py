@@ -101,7 +101,7 @@ class Renderer:
         bodies outside its crop; the batch dimension dropped.  The graphed whole-image
         ``raster.rasterize`` gives the same images, but on the card it renders a focused
         scene more slowly, since its graph evaluates every chunk over the whole crop
-        (``chip_smoke.py`` phase 10 times both)."""
+        (``chip_smoke.py`` phase 10 holds the two forms' images equal)."""
         tri_cam, ids, culls = self._gather_triangles(id_type)
         soup = raster.triangle_coefficients(tri_cam[None], ids[None], fu, fv, ppu, ppv,
                                             cull_backfaces=culls[None], z_min=self.z_min)

@@ -208,10 +208,10 @@ def test_adversarial_case_exercises_ties_and_edges():
 
 
 def test_query_eval_cpu_ignores_cull_and_reads_int_pixels_as_float():
-    """On the CPU query_eval is the twin whatever ``cull`` says, and int32 pixels give
-    the results of the same pixels as float32."""
+    """On the CPU query_eval is the twin, which has no cull (it walks every triangle
+    under the loop bound), and int32 pixels give the results of the same pixels as
+    float32."""
     coeffs, valid, sil, u, v = _random_scene(3, n_scenes=2, n_query=200)
     want = oc.query_eval_plain(coeffs, valid, sil, u.float(), v.float())
-    for cull in (True, False):
-        got = oc.query_eval(coeffs, valid, sil, u, v, cull=cull)
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    got = oc.query_eval(coeffs, valid, sil, u, v)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

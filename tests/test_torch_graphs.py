@@ -21,6 +21,7 @@ collective.  The machine with the card has no JAX, so run them there as
 """
 
 import contextlib
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -28,7 +29,7 @@ import pytest
 import torch
 
 from m3t_tpu_torch import graphs, parallel, pipeline
-from m3t_tpu_torch.ops import depth_fast, newton, occlusion, region_fast
+from m3t_tpu_torch.ops import _cuda, depth_fast, newton, occlusion, region_fast
 from m3t_tpu_torch.ops.texture_fn import TexturePoints
 from m3t_tpu_torch.parallel import dryrun
 
@@ -390,9 +391,13 @@ KERNEL_COUNTERS = (region_fast.sample_lines, region_fast.bin_counts,
 
 
 def test_kernel_counters_are_every_wrapper():
-    """A graph adds the launches of exactly the six kernel wrappers to their counts."""
-    counted = tuple(getattr(module, name) for module, name in graphs._kernel_counters())
-    assert counted == KERNEL_COUNTERS
+    """A graph adds the launches of exactly the six kernel wrappers to their counts: the
+    wrappers that ops/_cuda.py declares, each under its module's name."""
+    counted = _cuda.wrappers()
+    assert len(counted) == len(KERNEL_COUNTERS) and set(counted) == set(KERNEL_COUNTERS)
+    for fn in counted:
+        assert getattr(sys.modules[fn.__module__], fn.__name__) is fn
+        assert fn.symbol == f"m3t_{fn.__name__}"
 
 
 # ---------------------------------------------------------------------------------------

@@ -8,6 +8,7 @@ has no JAX, so run them there without the JAX test configuration:
 The unmarked tests check the CPU twins and the wrappers' argument checks.
 """
 
+import re
 from pathlib import Path
 
 import numpy as np
@@ -16,8 +17,9 @@ import torch
 
 from m3t_tpu_torch import graphs, pipeline
 from m3t_tpu_torch.common import Intrinsics
+from m3t_tpu_torch.ops import _cuda
 from m3t_tpu_torch.ops import depth_fast as df
-from m3t_tpu_torch.ops import kinematics
+from m3t_tpu_torch.ops import kinematics, newton
 from m3t_tpu_torch.ops import occlusion as oc
 from m3t_tpu_torch.ops import raster
 from m3t_tpu_torch.ops import region_fast as rf
@@ -355,6 +357,21 @@ def test_wrappers_reject_bad_inputs():
         "the CPU twins must not count as kernel launches"
 
 
+def test_declared_kernels_are_the_sources_entry_points():
+    """The entry points in the ``extern "C"`` blocks of csrc/*.cu and the kernels that
+    ops/_cuda.py declares are the same symbols with the same argument counts (the
+    declarations leave out the stream, every entry point's last argument)."""
+    in_sources = {}
+    for source in _cuda.SOURCES:
+        for block in re.findall(r'extern "C" \{(.*?)\}  // extern "C"', source.read_text(),
+                                re.S):
+            for symbol, params in re.findall(r"\bint\s+(m3t_\w+)\s*\(([^)]*)\)", block):
+                in_sources[symbol] = params.count(",") + 1
+    declared = {fn.symbol: len(fn.argtypes) + 1 for fn in _cuda.wrappers()}
+    assert newton.newton_step in _cuda.wrappers() and len(declared) == 6
+    assert declared == in_sources
+
+
 # ---------------------------------------------------------------------------------------
 # On the card (marker "cuda")
 # ---------------------------------------------------------------------------------------
@@ -562,19 +579,16 @@ def test_rgbd_cycle_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cull", [True, False])
 @pytest.mark.parametrize("pixels", [torch.int32, torch.float32])
 @pytest.mark.parametrize("n_tri,n_bodies,n_query", [(None, 512, 9600), (1600, 16, 4096)])
-def test_query_eval_kernel_matches_plain(cuda_device, n_tri, n_bodies, n_query, pixels,
-                                         cull):
+def test_query_eval_kernel_matches_plain(cuda_device, n_tri, n_bodies, n_query, pixels):
     """The occluded scene's coefficients at B=512, Q=9600 (the flagship occlusion
-    path's shape), and 1600 random triangles (four shared-memory tiles), with and
-    without the cull, with int32 and float32 pixels: inverse depths bit for bit, ids
-    exactly."""
+    path's shape), and 1600 random triangles (four shared-memory tiles), with int32 and
+    float32 pixels: inverse depths bit for bit, ids exactly."""
     coeffs, valid, sil, u, v = _query_inputs(cuda_device, n_tri, n_bodies, n_query)
     u, v = u.to(pixels), v.to(pixels)
     launches = oc.query_eval.launches
-    inv, ids = oc.query_eval(coeffs, valid, sil, u, v, cull=cull)
+    inv, ids = oc.query_eval(coeffs, valid, sil, u, v)
     torch.cuda.synchronize()
     assert oc.query_eval.launches == launches + 1
     want_inv, want_ids = oc.query_eval_plain(coeffs, valid, sil, u, v)
@@ -584,8 +598,7 @@ def test_query_eval_kernel_matches_plain(cuda_device, n_tri, n_bodies, n_query, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cull", [True, False])
-def test_query_eval_kernel_adversarial(cuda_device, cull):
+def test_query_eval_kernel_adversarial(cuda_device):
     """chip_smoke's adversarial case at B=512: ties at t=0 and t=2 with t=1 culled and
     across the chains, an invalid and a valid row of NaN coefficients, a triangle whose
     edge is the edge of a half-warp's query box, one a float step beyond it, and NaN,
@@ -593,7 +606,7 @@ def test_query_eval_kernel_adversarial(cuda_device, cull):
     import chip_smoke
 
     args, _ = chip_smoke.adversarial_queries(512, cuda_device)
-    inv, ids = oc.query_eval(*args, cull=cull)
+    inv, ids = oc.query_eval(*args)
     want_inv, want_ids = oc.query_eval_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(inv.view(torch.int32), want_inv.view(torch.int32))
@@ -933,7 +946,6 @@ def test_serve_on_card_matches_cpu(cuda_device, rgbd, tmp_path, monkeypatch):
             if out.is_cuda:
                 calls.append(torch.equal(out, twin(*args, **kwargs)))
             return out
-        record.launches = 0  # the wrapper counts on whatever its module's name holds
         monkeypatch.setattr(module, name, record)
 
     def state(srv):
