@@ -28,34 +28,61 @@
 //   spread over a 128x128 crop, so only ~2.5 % of the pairs lie in a triangle's box.
 //
 //   Design: one thread per query; a block takes one scene and kTilesPerBlock tiles of
-//   256 queries, one after the other.
-//   - The block finds its scene's loop bound n_b from tri_valid itself, and stages the
-//     first n_b coefficient rows and ids in shared memory in tiles of kTileTriangles
-//     (512 x 52 B = 26 KB of static shared memory); when one tile holds them all, the
-//     block's query tiles share it.  An invalid row is staged as the edge plane
-//     (0, 0, -1), which no query covers: s = 0, as for the zero row that the plain twin
-//     gives it, and the cull below drops it.
-//   - Cull (kCull): each half-warp (kBoxLanes queries) reduces its non-NaN queries to one
-//     box [u_lo, u_hi] x [v_lo, v_hi] (a NaN query never covers).  Lane j of the warp
-//     then tests triangle j of the next 32 against both boxes: triangle t cannot cover
-//     any query of a box if one of its edge planes, evaluated at the box corner where
-//     that plane is largest (u_hi where a >= 0, else u_lo; v likewise), is < 0.  A
-//     ballot gives the warp the triangles that survive for either half, and the warp
-//     evaluates only those, in increasing t, so both chains see their triangles in
-//     order.  The branch is warp-uniform.  The test costs one lane per (warp, triangle);
-//     on the occlusion path 15 % of the (half-warp, triangle) tests and 22 % of the
-//     (warp, triangle) pairs survive.
+//   256 queries.  The block finds its scene's loop bound n_b from tri_valid itself, and
+//   its tiles evaluate a list of rows in shared memory (kTileTriangles = 512 rows of 12
+//   coefficients, an id and a parity: 27 KB of static shared memory).  The list takes one
+//   of two layouts, chosen from the scenes' row count T (n_tri), which bounds every n_b:
+//   - Whole (T <= kTileTriangles): the block stages its scene's first n_b rows once, as
+//     they stand, and its tiles share them; a row's place in the list is its t.  An
+//     invalid row is staged as the edge plane (0, 0, -1), which no query covers: s = 0,
+//     as for the zero row that the plain twin gives it.  6 blocks an SM.  Such scenes
+//     are small enough that most of their rows reach the block's queries (the occlusion
+//     path's sphere of at most 256 triangles: every row), so a block cull would cost
+//     its box and its list and drop nothing (13 % slower there; PERF.md section 6).
+//   - Block cull (T > kTileTriangles).  The block reads every query of its tiles up
+//     front and reduces the non-NaN ones to one box over the block (warp reductions, then
+//     shared memory; int32 queries converted first, which is monotone and so commutes
+//     with min and max).  It then walks the scene's first n_b rows, one row a thread, 256
+//     rows a pass, and keeps a row only if it is valid and the corner test below does not
+//     rule it out for the block's box.  The kept rows go to the list in increasing t,
+//     each with its 12 coefficients, its id and the parity of its t (the chain it runs on
+//     is t & 1 of the scene's order, not of the list), placed by a ballot and popcount
+//     within the warp and an exclusive scan of the warps' counts.  When the list holds
+//     every kept row it is built once and shared by the block's query tiles.  Otherwise
+//     it ends at the first kept row that does not fit, and each tile walks the kept rows
+//     in rounds: evaluate the list, build the next one from that row on, and so on, its
+//     chains carried from round to round.  A block with no non-NaN query keeps no row.
+//     4 blocks an SM.  At the kinematic cell's scenes (n_b about 1,080 of T = 2240) the
+//     blocks keep 26 % of the rows they scan, about 290 a block, so one list of five
+//     passes replaces the restaging of every row for every tile, and each warp tests
+//     about 9 chunks of rows in place of 34.
+//   - Warp level (the list): each half-warp (kBoxLanes queries) reduces its non-NaN
+//     queries to one box [u_lo, u_hi] x [v_lo, v_hi] (a NaN query never covers).  Lane j
+//     of the warp then tests row j of the next 32 of the list against both boxes: a
+//     triangle cannot cover any query of a box if one of its edge planes, evaluated at
+//     the box corner where that plane is largest (u_hi where a >= 0, else u_lo; v
+//     likewise), is < 0.  A ballot gives the warp the rows that survive for either half,
+//     and the warp evaluates only those, in list order, so both chains see their
+//     triangles in increasing t.  The branch is warp-uniform.
 //   - A surviving triangle's inverse-depth plane is evaluated only when one lane of the
 //     warp is covered (every s is 0 otherwise).
 //   - Why the cull is exact, with no margin: a plane is evaluated in float as
 //     fadd(fadd(fmul(a, u), fmul(b, v)), c), and each of these correctly rounded
 //     operations is monotone in each argument (non-decreasing, or non-increasing for a
-//     negative factor), so the computed e_k over the box is largest at that corner.  If
+//     negative factor), so the computed e_k over a box is largest at that corner.  If
 //     the corner value is < 0, every query of the box gets e_k < 0 or NaN, fails the
 //     coverage test, and has s = 0 in the twin; s = 0 never replaces a chain's best (the
 //     test is a strict > and the best is never below 0), so skipping the pair changes
 //     no result.  A NaN at the corner (an infinite query or coefficient) is not < 0 and
-//     keeps the triangle.
+//     keeps the triangle.  The block's box holds every query of its half-warps' boxes,
+//     so a row it rules out gives s = 0 at every query of the block, and dropping the
+//     row from the list changes no result either; an invalid row gives s = 0 in the twin
+//     (its zero row covers nothing), so it is dropped too.  The list keeps the rows in
+//     increasing t and each row's parity, so every chain sees its triangles in the
+//     twin's order, whatever the rounds.
+//   - Engagement (tally, null unless the wrapper asks for it): each block adds n_b to
+//     tally[0] and the rows of its lists, over every round, to tally[1] (n_b where it
+//     stages the scene whole).
 //   Numerics: every plane is __fadd_rn(__fadd_rn(__fmul_rn(a, u), __fmul_rn(b, v)), c),
 //   so nvcc cannot contract it into FMAs, which would move an edge value across 0 and
 //   flip coverage and ids.  The coverage test is e0 >= 0 && e1 >= 0 && e2 >= 0, which
@@ -124,11 +151,15 @@
 namespace {
 
 constexpr int kQueriesPerTile = 256;  // one thread per query of a tile
-constexpr int kTilesPerBlock = 4;     // query tiles per block, sharing its staged triangles
-constexpr int kMinBlocksPerSM = 6;
-constexpr int kTileTriangles = 512;  // even, so a tile's local parity is the global one
+constexpr int kTilesPerBlock = 4;     // query tiles per block, sharing its list of rows
+constexpr int kTileTriangles = 512;   // rows of the block's list
+// Blocks an SM: 64 registers where the block culls (faster than 5, 6 or 8 blocks), 40
+// where it stages its scene's rows whole (PERF.md section 6).
+constexpr int kMinBlocksPerSMCull = 4;
+constexpr int kMinBlocksPerSMWhole = 6;
 constexpr int kNCoeff = 12;
 constexpr int kWarp = 32;
+constexpr int kWarps = kQueriesPerTile / kWarp;
 constexpr int kBoxLanes = 16;  // queries per cull box: two boxes per warp
 constexpr int kBoxes = kWarp / kBoxLanes;
 constexpr unsigned kFull = 0xffffffffu;
@@ -157,6 +188,11 @@ __device__ __forceinline__ bool outside(const float4& p0, const float4& p1, cons
   const float e2 = plane(p1.z, p1.w, p2.x, p1.z >= 0.0f ? box.u_hi : box.u_lo,
                          p1.w >= 0.0f ? box.v_hi : box.v_lo);
   return (e0 < 0.0f) | (e1 < 0.0f) | (e2 < 0.0f);
+}
+
+__device__ __forceinline__ Box box_union(const Box& a, const Box& b) {
+  return {fminf(a.u_lo, b.u_lo), fmaxf(a.u_hi, b.u_hi), fminf(a.v_lo, b.v_lo),
+          fmaxf(a.v_hi, b.v_hi)};
 }
 
 // Min and max over the kBoxLanes lanes of a query group (every lane gets the result).
@@ -192,35 +228,116 @@ __device__ __forceinline__ Box group_box(int32_t u, int32_t v, bool counted, int
           __int2float_rn(__reduce_max_sync(kFull, in_group ? v : INT_MIN))};
 }
 
-// Rows [base, base + count) of the scene into shared memory: valid rows as they are,
-// invalid rows as the edge plane (0, 0, -1), which covers nothing.
-__device__ __forceinline__ void stage_tile(float* s_coeff, int32_t* s_sil,
-                                           const float* scene_coeffs, const bool* scene_valid,
-                                           const int32_t* scene_sil, int base, int count) {
-  for (int i = threadIdx.x; i < count * kNCoeff; i += kQueriesPerTile) {
-    const int t = i / kNCoeff;
-    const int k = i - t * kNCoeff;
-    s_coeff[i] = scene_valid[base + t] ? scene_coeffs[static_cast<size_t>(base) * kNCoeff + i]
-                                       : (k == 2 ? -1.0f : 0.0f);
+// The union of a box over the warp's lanes (every lane gets the result).
+__device__ __forceinline__ Box warp_box(Box box) {
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1) {
+    box = box_union(box, {__shfl_xor_sync(kFull, box.u_lo, off),
+                          __shfl_xor_sync(kFull, box.u_hi, off),
+                          __shfl_xor_sync(kFull, box.v_lo, off),
+                          __shfl_xor_sync(kFull, box.v_hi, off)});
   }
-  for (int t = threadIdx.x; t < count; t += kQueriesPerTile) s_sil[t] = scene_sil[base + t];
+  return box;
 }
 
+// The scene's first rows rows (at most kTileTriangles) into the list as they stand:
+// valid rows as they are, invalid rows as the edge plane (0, 0, -1), which covers nothing.
+__device__ __forceinline__ void stage_whole(float* s_coeff, int32_t* s_sil,
+                                            const float* scene_coeffs, const bool* scene_valid,
+                                            const int32_t* scene_sil, int rows) {
+  for (int i = threadIdx.x; i < rows * kNCoeff; i += kQueriesPerTile) {
+    const int t = i / kNCoeff;
+    const int k = i - t * kNCoeff;
+    s_coeff[i] = scene_valid[t] ? scene_coeffs[i] : (k == 2 ? -1.0f : 0.0f);
+  }
+  for (int t = threadIdx.x; t < rows; t += kQueriesPerTile) s_sil[t] = scene_sil[t];
+}
+
+// Block level, one round: from scene row cursor on, the rows that can reach the block's
+// box go to the list in increasing t, until the list is full or the rows run out.
+// Advances cursor past the last row tested (or to the first kept row that did not fit);
+// returns the rows listed.  Every thread of the block calls it with the same arguments.
+__device__ __forceinline__ int build_list(const float* __restrict__ scene_coeffs,
+                                          const bool* __restrict__ scene_valid,
+                                          const int32_t* __restrict__ scene_sil, int rows,
+                                          const Box& block_box, int& cursor, float* s_coeff,
+                                          int32_t* s_sil, uint8_t* s_odd, int* s_warp_count,
+                                          int* s_cut) {
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  int count = 0;
+  while (cursor < rows && count < kTileTriangles) {
+    const int t = cursor + threadIdx.x;
+    bool keep = false;
+    float4 p0, p1, p2;
+    if (t < rows && scene_valid[t]) {
+      const float4* c4 =
+          reinterpret_cast<const float4*>(scene_coeffs + static_cast<size_t>(t) * kNCoeff);
+      p0 = c4[0];
+      p1 = c4[1];
+      p2 = c4[2];
+      keep = !outside(p0, p1, p2, block_box);
+    }
+    // The last pass read its counts before its last barrier.
+    const unsigned ballot = __ballot_sync(kFull, keep);
+    if (lane == 0) s_warp_count[warp] = __popc(ballot);
+    __syncthreads();  // the counts are in, and the last list is consumed
+    int slot = count + __popc(ballot & ((1u << lane) - 1u));
+    int pass_kept = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = s_warp_count[w];
+      slot += w < warp ? c : 0;
+      pass_kept += c;
+    }
+    if (keep && slot < kTileTriangles) {
+      float4* row = reinterpret_cast<float4*>(s_coeff + slot * kNCoeff);
+      row[0] = p0;
+      row[1] = p1;
+      row[2] = p2;
+      s_sil[slot] = scene_sil[t];
+      s_odd[slot] = static_cast<uint8_t>(t & 1);
+    }
+    if (keep && slot == kTileTriangles) *s_cut = t;  // the first row that does not fit
+    __syncthreads();
+    if (count + pass_kept > kTileTriangles) {
+      cursor = *s_cut;
+      count = kTileTriangles;
+    } else {
+      cursor += kQueriesPerTile;
+      count += pass_kept;
+    }
+  }
+  return count;
+}
+
+// kCull: the scenes hold more rows than one list (n_tri > kTileTriangles), and each block
+// lists the rows that can reach its queries; otherwise each block stages its scene's
+// first n rows whole, once, for all of its tiles.
 template <typename Query, bool kCull>
-__global__ void __launch_bounds__(kQueriesPerTile, kMinBlocksPerSM)
+__global__ void __launch_bounds__(kQueriesPerTile,
+                                  kCull ? kMinBlocksPerSMCull : kMinBlocksPerSMWhole)
 query_points_kernel(const float* __restrict__ coeffs, const bool* __restrict__ tri_valid,
                     const int32_t* __restrict__ sil_id, const Query* __restrict__ u_in,
                     const Query* __restrict__ v_in, float* __restrict__ inv_out,
-                    int32_t* __restrict__ id_out, int n_tri, int n_query, int b0) {
-  __shared__ __align__(16) float s_coeff[kTileTriangles * kNCoeff];
+                    int32_t* __restrict__ id_out, unsigned long long* __restrict__ tally,
+                    int n_tri, int n_query, int b0) {
+  __shared__ __align__(16) float s_coeff[kTileTriangles * kNCoeff];  // the list's rows
   __shared__ int32_t s_sil[kTileTriangles];
-  __shared__ int s_warp_bound[kQueriesPerTile / kWarp];
+  __shared__ uint8_t s_odd[kTileTriangles];  // t & 1 of a listed row's place in the scene
+  __shared__ Box s_warp_box[kWarps];
+  __shared__ int s_warp_bound[kWarps];
+  __shared__ int s_warp_count[kWarps];
+  __shared__ int s_cut;
 
   const int b = b0 + blockIdx.y;
   const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
   const float* scene_coeffs = coeffs + static_cast<size_t>(b) * n_tri * kNCoeff;
   const bool* scene_valid = tri_valid + static_cast<size_t>(b) * n_tri;
   const int32_t* scene_sil = sil_id + static_cast<size_t>(b) * n_tri;
+  const size_t scene_queries = static_cast<size_t>(b) * n_query;
+  const int q_block = blockIdx.x * kTilesPerBlock * kQueriesPerTile;
 
   // The scene's loop bound: index of its last valid triangle + 1 (0 if none).
   int last = 0;
@@ -228,109 +345,148 @@ query_points_kernel(const float* __restrict__ coeffs, const bool* __restrict__ t
     if (scene_valid[t]) last = t + 1;
   }
   last = __reduce_max_sync(kFull, last);
-  if (lane == 0) s_warp_bound[threadIdx.x / kWarp] = last;
-  __syncthreads();
-  int n = 0;
-#pragma unroll
-  for (int w = 0; w < kQueriesPerTile / kWarp; ++w) n = max(n, s_warp_bound[w]);
+  if (lane == 0) s_warp_bound[warp] = last;
 
-  // The block's query tiles share its staged triangles when one tile holds them all.
-  bool staged = false;
+  int count = 0;       // rows in the list
+  int cursor = 0;      // the next scene row to test
+  bool whole = false;  // the list holds every row the block keeps: the tiles share it
+  int kept = 0;        // rows the block kept
+  int n = 0;           // the scene's loop bound
+  int rows = 0;        // the rows the block scans: n, or 0 where it keeps none
+  Box block_box = {};
+  if constexpr (kCull) {
+    // The block's box: every non-NaN query of its tiles.
+    Box mine = {INFINITY, -INFINITY, INFINITY, -INFINITY};
+#pragma unroll
+    for (int tile = 0; tile < kTilesPerBlock; ++tile) {
+      const int q = q_block + tile * kQueriesPerTile + threadIdx.x;
+      if (q < n_query) {
+        const float u = as_float(u_in[scene_queries + q]);
+        const float v = as_float(v_in[scene_queries + q]);
+        if (!(isnan(u) || isnan(v))) mine = box_union(mine, {u, u, v, v});
+      }
+    }
+    mine = warp_box(mine);
+    if (lane == 0) s_warp_box[warp] = mine;
+    const bool any_counted = __syncthreads_or(mine.u_lo <= mine.u_hi);
+    block_box = s_warp_box[0];
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      n = max(n, s_warp_bound[w]);
+      block_box = box_union(block_box, s_warp_box[w]);
+    }
+    rows = any_counted ? n : 0;  // a block with no non-NaN query keeps no row
+  } else {
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) n = max(n, s_warp_bound[w]);
+    rows = n;
+    stage_whole(s_coeff, s_sil, scene_coeffs, scene_valid, scene_sil, rows);
+    __syncthreads();
+    count = kept = rows;
+    whole = true;
+  }
+
   for (int tile = 0; tile < kTilesPerBlock; ++tile) {
-    const int q0 = (blockIdx.x * kTilesPerBlock + tile) * kQueriesPerTile;
+    const int q0 = q_block + tile * kQueriesPerTile;
     if (q0 >= n_query) break;
     const int q = q0 + threadIdx.x;
     const bool active = q < n_query;
-    const size_t query_index = static_cast<size_t>(b) * n_query + q;
-    const Query raw_u = active ? u_in[query_index] : Query(0);
-    const Query raw_v = active ? v_in[query_index] : Query(0);
+    const Query raw_u = active ? u_in[scene_queries + q] : Query(0);
+    const Query raw_v = active ? v_in[scene_queries + q] : Query(0);
     const float u = active ? as_float(raw_u) : __int_as_float(0x7fc00000);
     const float v = active ? as_float(raw_v) : __int_as_float(0x7fc00000);
 
-    // The warp's kBoxes query boxes; a NaN query never covers a triangle.
+    // Warp level: the warp's kBoxes query boxes; a NaN query never covers a triangle.
+    const bool counted = !(isnan(u) || isnan(v));
+    const unsigned counted_mask = __ballot_sync(kFull, counted);
     Box box[kBoxes];
     bool has[kBoxes];
-    if (kCull) {
-      const bool counted = !(isnan(u) || isnan(v));
-      const unsigned counted_mask = __ballot_sync(kFull, counted);
 #pragma unroll
-      for (int g = 0; g < kBoxes; ++g) {
-        box[g] = group_box(raw_u, raw_v, counted, g);
-        has[g] = ((counted_mask >> (g * kBoxLanes)) & (kFull >> (kWarp - kBoxLanes))) != 0;
-      }
+    for (int g = 0; g < kBoxes; ++g) {
+      box[g] = group_box(raw_u, raw_v, counted, g);
+      has[g] = ((counted_mask >> (g * kBoxLanes)) & (kFull >> (kWarp - kBoxLanes))) != 0;
     }
 
     float best0 = 0.0f, best1 = 0.0f;
     int32_t id0 = 0, id1 = 0;
-    for (int base = 0; base < n; base += kTileTriangles) {
-      const int count = min(kTileTriangles, n - base);
-      if (!staged || n > kTileTriangles) {
-        __syncthreads();  // the previous tile is consumed
-        stage_tile(s_coeff, s_sil, scene_coeffs, scene_valid, scene_sil, base, count);
-        __syncthreads();
-        staged = true;
-      }
-      for (int chunk = 0; chunk < count; chunk += kWarp) {
-        // todo: the triangles of this chunk that the warp evaluates.
-        const int t_lane = chunk + lane;
-        bool keep = t_lane < count;
-        if (kCull) {
-          const float4* c4 =
-              reinterpret_cast<const float4*>(s_coeff + min(t_lane, count - 1) * kNCoeff);
-          const float4 p0 = c4[0], p1 = c4[1], p2 = c4[2];
-          bool any = false;
-#pragma unroll
-          for (int g = 0; g < kBoxes; ++g) any |= has[g] & !outside(p0, p1, p2, box[g]);
-          keep &= any;
+    if (!whole) cursor = 0;
+    do {
+      if constexpr (kCull) {
+        if (!whole) {  // a round: the list from cursor on
+          const bool first = cursor == 0;
+          count = build_list(scene_coeffs, scene_valid, scene_sil, rows, block_box, cursor,
+                             s_coeff, s_sil, s_odd, s_warp_count, &s_cut);
+          if (tile == 0) kept += count;
+          whole = first && cursor >= rows;
         }
-        unsigned todo = __ballot_sync(kFull, keep);
+      }
+      if (counted_mask == 0) continue;  // no query of the warp can be covered
+      for (int chunk = 0; chunk < count; chunk += kWarp) {
+        // todo: the rows of this chunk that the warp evaluates.
+        const int j_lane = chunk + lane;
+        const float4* c4 =
+            reinterpret_cast<const float4*>(s_coeff + min(j_lane, count - 1) * kNCoeff);
+        const float4 p0 = c4[0], p1 = c4[1], p2 = c4[2];
+        bool any = false;
+#pragma unroll
+        for (int g = 0; g < kBoxes; ++g) any |= has[g] & !outside(p0, p1, p2, box[g]);
+        unsigned todo = __ballot_sync(kFull, j_lane < count && any);
         while (todo != 0) {
-          const int t = chunk + __ffs(todo) - 1;
+          const int j = chunk + __ffs(todo) - 1;
           todo &= todo - 1;
-          const float4* c4 = reinterpret_cast<const float4*>(s_coeff + t * kNCoeff);
-          const float4 p0 = c4[0], p1 = c4[1], p2 = c4[2];
-          const float e0 = plane(p0.x, p0.y, p0.z, u, v);
-          const float e1 = plane(p0.w, p1.x, p1.y, u, v);
-          const float e2 = plane(p1.z, p1.w, p2.x, u, v);
+          const float4* r4 = reinterpret_cast<const float4*>(s_coeff + j * kNCoeff);
+          const float4 r0 = r4[0], r1 = r4[1], r2 = r4[2];
+          const float e0 = plane(r0.x, r0.y, r0.z, u, v);
+          const float e1 = plane(r0.w, r1.x, r1.y, u, v);
+          const float e2 = plane(r1.z, r1.w, r2.x, u, v);
           const bool covered = (e0 >= 0.0f) & (e1 >= 0.0f) & (e2 >= 0.0f);
           // Where no lane is covered every s is 0, which changes no chain.
           if (!__any_sync(kFull, covered)) continue;
-          const float inv = plane(p2.y, p2.z, p2.w, u, v);
+          const float inv = plane(r2.y, r2.z, r2.w, u, v);
           const float s = (covered && inv > 1e-12f) ? inv : 0.0f;
-          if (t & 1) {
+          if (kCull ? s_odd[j] != 0 : (j & 1) != 0) {  // the row's chain: t & 1
             if (s > best1) {
               best1 = s;
-              id1 = s_sil[t];
+              id1 = s_sil[j];
             }
           } else if (s > best0) {
             best0 = s;
-            id0 = s_sil[t];
+            id0 = s_sil[j];
           }
         }
       }
-    }
+    } while (!whole && cursor < rows);
     if (active) {
       const bool sel = best1 > best0;
-      inv_out[query_index] = sel ? best1 : best0;
-      id_out[query_index] = sel ? id1 : id0;
+      inv_out[scene_queries + q] = sel ? best1 : best0;
+      id_out[scene_queries + q] = sel ? id1 : id0;
     }
+  }
+  if (tally != nullptr && threadIdx.x == 0) {
+    atomicAdd(tally, static_cast<unsigned long long>(n));
+    atomicAdd(tally + 1, static_cast<unsigned long long>(kept));
   }
 }
 
-template <typename Query, bool kCull>
+template <typename Query>
 void launch(const void* coeffs, const void* tri_valid, const void* sil_id, const void* u,
-            const void* v, void* inv_out, void* id_out, int b, int n_tri, int n_query,
-            cudaStream_t stream) {
+            const void* v, void* inv_out, void* id_out, void* tally, int b, int n_tri,
+            int n_query, cudaStream_t stream) {
   const int per_block = kQueriesPerTile * kTilesPerBlock;
+  // The layout by the scenes' rows: a scene that one list holds is staged whole.
+  const auto kernel = n_tri > kTileTriangles ? query_points_kernel<Query, true>
+                                             : query_points_kernel<Query, false>;
   // The batch is grid y, which holds at most kMaxGridY scenes: one launch per slice.
   for (int b0 = 0; b0 < b; b0 += kMaxGridY) {
     const dim3 grid((n_query + per_block - 1) / per_block,
                     b - b0 < kMaxGridY ? b - b0 : kMaxGridY);
-    query_points_kernel<Query, kCull><<<grid, kQueriesPerTile, 0, stream>>>(
+    kernel<<<grid, kQueriesPerTile, 0, stream>>>(
         static_cast<const float*>(coeffs), static_cast<const bool*>(tri_valid),
         static_cast<const int32_t*>(sil_id), static_cast<const Query*>(u),
         static_cast<const Query*>(v), static_cast<float*>(inv_out),
-        static_cast<int32_t*>(id_out), n_tri, n_query, b0);
+        static_cast<int32_t*>(id_out), static_cast<unsigned long long*>(tally), n_tri,
+        n_query, b0);
   }
 }
 
@@ -547,17 +703,18 @@ void launch_scene_coeffs(const void* triangles, const void* owner, const void* s
 
 extern "C" {
 
-// u, v: (B, n_query) float32, or int32 when int_queries is nonzero.
+// u, v: (B, n_query) float32, or int32 when int_queries is nonzero.  tally: null, or
+// two uint64 on the card to which the blocks add their loop bounds and kept rows.
 int m3t_query_eval(const void* coeffs, const void* tri_valid, const void* sil_id,
                    const void* u, const void* v, void* inv_out, void* id_out, int b,
-                   int n_tri, int n_query, int int_queries, void* stream) {
+                   int n_tri, int n_query, int int_queries, void* tally, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (int_queries) {
-    launch<int32_t, true>(coeffs, tri_valid, sil_id, u, v, inv_out, id_out, b, n_tri,
-                          n_query, s);
+    launch<int32_t>(coeffs, tri_valid, sil_id, u, v, inv_out, id_out, tally, b, n_tri,
+                    n_query, s);
   } else {
-    launch<float, true>(coeffs, tri_valid, sil_id, u, v, inv_out, id_out, b, n_tri,
-                        n_query, s);
+    launch<float>(coeffs, tri_valid, sil_id, u, v, inv_out, id_out, tally, b, n_tri,
+                  n_query, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -515,7 +515,10 @@ def query_eval_plain(coeffs, tri_valid, sil_id, u, v):
             torch.where(sel, best_id[1], best_id[0]).reshape(shape))
 
 
-@_cuda.kernel("m3t_query_eval", [_cuda.PTR] * 7 + [_cuda.INT] * 4)
+QUERY_ROW_COUNTERS = ("occlusion.query_rows_scanned", "occlusion.query_rows_kept")
+
+
+@_cuda.kernel("m3t_query_eval", [_cuda.PTR] * 7 + [_cuda.INT] * 4 + [_cuda.PTR])
 def query_eval(coeffs, tri_valid, sil_id, u, v):
     """Max inverse depth over covering triangles and the silhouette id of that triangle
     at focused pixels (u, v), for B scenes (m3t_tpu/ops/occlusion.py:322-357).
@@ -525,9 +528,15 @@ def query_eval(coeffs, tri_valid, sil_id, u, v):
     they are).  Returns (inv (B, ...) f32, id (B, ...) int32), 0 and 0 where no triangle
     covers the pixel.  Ties: triangles run on two chains (even t, odd t), a triangle
     replaces a chain's best only if strictly greater, and chain 0 wins ties at the merge.
-    The kernel skips the triangles that :func:`box_outside` rules out for the boxes of
-    a warp's queries (two boxes of 16 consecutive queries), and gives the plain twin's
-    result bit for bit (the twin has no cull).
+    The kernel culls with :func:`box_outside`'s test: where the scenes hold more than
+    512 triangles each block first keeps, in order, the valid rows that can reach the box
+    of its 1024 queries (smaller scenes are staged whole), and each warp then skips the
+    rows ruled out for the boxes of its queries (two boxes of 16 consecutive queries); it
+    gives the plain twin's result bit for bit (the twin has no cull).  In an eager call
+    on the card with the tracer on it counts ``occlusion.query_rows_scanned`` (the blocks'
+    loop bounds, summed) and ``occlusion.query_rows_kept`` (the rows their lists held) in
+    a tally on the card that the tracer's report reads; a captured call, and so a graphed
+    replay, counts nothing, and the CPU twin counts nothing.
     """
     if coeffs.device.type == "cpu":
         return query_eval_plain(coeffs, tri_valid, sil_id, u, v)
@@ -541,13 +550,17 @@ def query_eval(coeffs, tri_valid, sil_id, u, v):
     uq = u.reshape(b, -1).to(qtype).contiguous()
     vq = v.reshape(b, -1).to(qtype).contiguous()
     coeffs, tri_valid, sil_id = (x.contiguous() for x in (coeffs, tri_valid, sil_id))
+    # The kernel reads a scene's rows from device memory as 16-byte words.
+    _require(coeffs.data_ptr() % 16 == 0, "coeffs must be 16-byte aligned")
     inv = torch.empty(uq.shape, dtype=torch.float32, device=uq.device)
     ids = torch.empty(uq.shape, dtype=torch.int32, device=uq.device)
     if uq.shape[1] == 0:
         return inv.reshape(shape), ids.reshape(shape)
+    tally = timing.device_tally(QUERY_ROW_COUNTERS, uq.device)
     _cuda.launch("m3t_query_eval", coeffs.device, coeffs.data_ptr(), tri_valid.data_ptr(),
                  sil_id.data_ptr(), uq.data_ptr(), vq.data_ptr(), inv.data_ptr(),
-                 ids.data_ptr(), b, n_tri, uq.shape[1], int(int_queries))
+                 ids.data_ptr(), b, n_tri, uq.shape[1], int(int_queries),
+                 None if tally is None else tally.data_ptr())
     return inv.reshape(shape), ids.reshape(shape)
 
 

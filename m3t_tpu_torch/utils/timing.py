@@ -16,7 +16,9 @@ synchronizing read.
 
 Counters (:func:`count`) add while the tracer is on.  A count made inside a graphed
 function is taken into its graph at the capture, and each replay adds it again, so a
-graphed call counts what its eager twin counts.
+graphed call counts what its eager twin counts.  Counts that a kernel makes on the card
+go to a :func:`device_tally`, which the report reads; work captured into a graph gets no
+tally, so its replays add nothing there.
 
 Device marks (:func:`stage`).  A graphed call (``graphs.graphed``) opens a call record,
 and ``stage(name)`` marks where, on the device's stream, the call's work passes to the
@@ -158,6 +160,7 @@ class Tracer:
         self.stages = defaultdict(lambda: defaultdict(lambda: [0.0, 0]))
         self.calls = defaultdict(int)
         self.pending = []               # call records whose CUDA events are unread
+        self.tallies = {}               # (names, device, stream) -> unread counts
         self.seen = 0                   # spans and calls ever kept
 
     # -- turning on ----------------------------------------------------------------------
@@ -227,6 +230,12 @@ class Tracer:
     def settle(self) -> None:
         for call in list(self.pending):
             self.collect(call)
+        for (names, device, _), tally in self.tallies.items():
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)  # whichever stream added to it
+            for name, n in zip(names, tally.tolist()):
+                self.counters[name] += n
+        self.tallies.clear()
 
     # -- the report ----------------------------------------------------------------------
 
@@ -331,6 +340,24 @@ def count(name: str, n: int = 1) -> None:
         counts.append((name, n))
     elif TRACER.depth > 0 or _profiler._is_profiler_enabled:
         TRACER.counters[name] += n
+
+
+def device_tally(names: tuple, device) -> torch.Tensor | None:
+    """Counters ``names`` for a kernel to add to on the card: None unless the tracer is
+    on and no capture runs; else a zeroed int64 tensor of len(names) on ``device``, the
+    same one for every call on the current stream until the report reads it into the
+    counters.  Only the report waits for the card; the calls do not."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    if TRACER.local.counts is not None or not enabled() or (
+            cuda and torch.cuda.is_current_stream_capturing()):
+        return None
+    key = (tuple(names), device, torch.cuda.current_stream(device) if cuda else None)
+    tally = TRACER.tallies.get(key)
+    if tally is None:
+        tally = TRACER.tallies[key] = torch.zeros(len(names), dtype=torch.int64,
+                                                  device=device)
+    return tally
 
 
 class _Span:

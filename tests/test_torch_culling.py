@@ -1,8 +1,10 @@
 """The query_eval kernel's cull on the CPU: its test (ops/occlusion.box_outside) never
 drops a (query, triangle) pair that the plain twin covers, and a CPU emulation of the
-kernel's algorithm (half-warp boxes, warp-wide skips, invalid rows staged as an edge
-that covers nothing) equals the twin bit for bit.  The kernel itself is held against the
-twin on the card by tests/test_torch_kernels.py and chip_smoke.py.
+kernel's algorithm (a block's list of the valid rows that can reach its queries' box, in
+order and in rounds, each on the chain of its t; half-warp boxes and warp-wide skips over
+the list) equals the twin bit for bit and counts the kernel's tally.  The kernel itself
+is held against the twin, and its tally against the emulation's, on the card by
+tests/test_torch_kernels.py and chip_smoke.py.
 
 Inputs are made from seeds with numpy.  Triangles come in four families: random,
 slivers (nearly collinear vertices), far (vertices up to 1e6 pixels away) and tiny (sub-
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 import chip_smoke
+import torch_query_scenes as qs  # tests/torch_query_scenes.py: pytest puts tests/ on sys.path
 from m3t_tpu_torch.ops import occlusion as oc
 from m3t_tpu_torch.ops import raster
 
@@ -112,48 +115,6 @@ def test_box_outside_never_drops_a_covered_pixel(family, seed):
     assert out.any() and (~out & _covered(coeffs, box[:, 0], box[:, 2])).any()
 
 
-def culled_query_eval(coeffs, tri_valid, sil_id, u, v):
-    """A CPU emulation of the query_eval kernel: invalid rows staged as the edge plane
-    (0, 0, -1); per warp of 32 queries two half-warp boxes of the non-NaN queries; the
-    warp evaluates, in increasing t on the two chains, only the triangles that
-    box_outside does not rule out for both boxes.  Equals query_eval_plain wherever
-    the cull drops only pairs that cover nothing."""
-    b = coeffs.shape[0]
-    uf = u.reshape(b, -1).to(torch.float32)
-    vf = v.reshape(b, -1).to(torch.float32)
-    q = uf.shape[1]
-    pad = (-q) % 32
-    qu, qv = (torch.nn.functional.pad(x, (0, pad), value=float("nan")).reshape(b, -1, 32)
-              for x in (uf, vf))
-    halves = [(torch.where(x.isnan(), torch.inf, x).reshape(b, -1, 2, 16).amin(-1),
-               torch.where(x.isnan(), -torch.inf, x).reshape(b, -1, 2, 16).amax(-1))
-              for x in (qu, qv)]
-    box = torch.stack([halves[0][0], halves[0][1], halves[1][0], halves[1][1]], -1)
-    has = (~(qu.isnan() | qv.isnan())).reshape(b, -1, 2, 16).any(-1)
-    empty_row = torch.zeros(12)
-    empty_row[2] = -1.0
-    staged = torch.where(tri_valid[..., None], coeffs, empty_row)
-    bound = oc.leading_valid_count(tri_valid)
-    zero = torch.zeros_like(qu)
-    best, best_id = [zero, zero], [torch.zeros_like(qu, dtype=torch.int32)] * 2
-    for t in range(int(bound.max()) if b else 0):
-        c = staged[:, t]
-        keep = (~oc.box_outside(c[:, None, None, :], box) & has).any(-1)
-        keep = (keep & (t < bound)[:, None])[..., None]
-        cc = c[:, None, None, :]
-        e0, e1, e2, inv = ((cc[..., 3 * k] * qu + cc[..., 3 * k + 1] * qv)
-                           + cc[..., 3 * k + 2] for k in range(4))
-        s = torch.where((e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (inv > 1e-12), inv, zero)
-        s = torch.where(keep, s, zero)
-        sel = s > best[t % 2]
-        best[t % 2] = torch.where(sel, s, best[t % 2])
-        best_id[t % 2] = torch.where(sel, sil_id[:, t, None, None], best_id[t % 2])
-    sel = best[1] > best[0]
-    inv = torch.where(sel, best[1], best[0]).reshape(b, -1)[:, :q]
-    ids = torch.where(sel, best_id[1], best_id[0]).reshape(b, -1)[:, :q]
-    return inv.reshape(u.shape), ids.reshape(u.shape)
-
-
 def _random_scene(seed: int, n_scenes: int = 6, n_tri: int = 300, n_query: int = 700):
     """Camera-frame random triangles (about 20 % invalid) and integer queries in and
     around a 128-pixel crop, with some queries grouped in 6x6 windows as the scene
@@ -175,20 +136,69 @@ def _random_scene(seed: int, n_scenes: int = 6, n_tri: int = 300, n_query: int =
             torch.as_tensor(pixels[..., 1]))
 
 
-@pytest.mark.parametrize("case", ["adversarial", "random 0", "random 1"])
+def _nan_block_scene():
+    """The random scene, with more rows than one list (so the kernel culls each
+    block's rows), with float queries in three blocks a scene (the last ragged): scene
+    0's second block and scene 1's last block all NaN, and scattered NaN, -1e9 and
+    infinite queries elsewhere."""
+    coeffs, valid, sil, u, v = _random_scene(4, n_scenes=3, n_tri=600, n_query=2200)
+    u, v = u.float(), v.float()
+    u[0, 1024:2048] = float("nan")
+    v[1, 2048:] = float("nan")
+    u[2, 3::97], v[2, 5::89] = float("nan"), float("inf")
+    u[2, 7::101] = -1e9
+    return coeffs, valid, sil, u, v
+
+
+@pytest.mark.parametrize("case", ["adversarial", "random 0", "random 1", "robots",
+                                  "rounds", "nan blocks", "trap"])
 def test_kernel_cull_emulation_equals_twin(case):
     """The kernel's algorithm, emulated on the CPU, against the plain twin: inverse
     depths bit for bit, ids exactly, including the adversarial ties, the edge column of
-    a half-warp box, NaN rows and NaN, -1e9 and infinite queries."""
+    a half-warp box, NaN rows and NaN, -1e9 and infinite queries, scenes of at most
+    512 rows staged whole (every row under the loop bound listed); the kinematic cell's
+    robot scenes (each scene's last block ragged); 1500 random triangles of which a
+    block keeps more than one list holds (rounds); and blocks whose queries are all NaN,
+    which keep no row; and trap_scene, where a row's chain must come from its t and the
+    block's box from all of its tiles."""
     if case == "adversarial":
         args, _ = chip_smoke.adversarial_queries(3, "cpu")
+    elif case == "robots":
+        args = qs.robot_queries("cpu", 1, 2)
+    elif case == "rounds":
+        args = _random_scene(5, n_scenes=2, n_tri=1500, n_query=1500)
+    elif case == "nan blocks":
+        args = _nan_block_scene()
+    elif case == "trap":
+        args = qs.trap_scene(2, "cpu")
     else:
         args = _random_scene(int(case.split()[1]))
     want_inv, want_ids = oc.query_eval_plain(*args)
-    inv, ids = culled_query_eval(*args)
+    inv, ids, tally = qs.culled_query_eval(*args)
     assert torch.equal(inv.view(torch.int32), want_inv.view(torch.int32))
     assert torch.equal(ids, want_ids)
     assert (ids != 0).any() and (ids == 0).any()
+    bound = oc.leading_valid_count(args[1])
+    assert tally.scanned == int(bound.sum()) * tally.kept.shape[1]
+    assert (tally.kept <= bound[:, None]).all()
+    if args[0].shape[1] <= qs.LIST_ROWS:
+        assert case in ("adversarial", "random 0", "random 1")
+        assert (tally.kept == bound[:, None]).all()
+    if case == "robots":
+        # Q = 7200: seven full blocks and one of 32 queries a scene; the block cull
+        # keeps about a third of each scene's rows (PERF.md section 6).
+        assert tally.kept.shape[1] == 8 and 1000 < int(bound.min())
+        share = tally.kept[:, :7].sum() / (bound.sum() * 7)
+        assert 0.2 < share < 0.5 and (tally.kept[:, 7] < tally.kept[:, :7].amin(1)).all()
+    if case == "rounds":
+        assert int(tally.kept.max()) > qs.LIST_ROWS
+    if case == "trap":
+        assert (tally.kept == 5).all()
+        assert set(ids[:, :768].unique().tolist()) == {0, 22}
+        assert set(ids[:, 768:].unique().tolist()) == {0, 26}
+    if case == "nan blocks":
+        assert tally.kept[0, 1] == 0 and tally.kept[1, 2] == 0
+        assert (tally.kept[0, [0, 2]] > 0).all() and (tally.kept[1, :2] > 0).all()
 
 
 def test_adversarial_case_exercises_ties_and_edges():
@@ -215,3 +225,19 @@ def test_query_eval_cpu_ignores_cull_and_reads_int_pixels_as_float():
     want = oc.query_eval_plain(coeffs, valid, sil, u.float(), v.float())
     got = oc.query_eval(coeffs, valid, sil, u, v)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_query_eval_cpu_counts_no_rows():
+    """The block cull's counters belong to the kernel: on the CPU query_eval is the
+    twin, which has no cull and counts nothing with the tracer on."""
+    from m3t_tpu_torch.utils import timing
+
+    args = qs.trap_scene(2, "cpu")
+    timing.reset()
+    try:
+        with timing.tracing():
+            got = oc.query_eval(*args)
+            assert timing.report().counters == {}
+    finally:
+        timing.reset()
+    assert all(torch.equal(g, w) for g, w in zip(got, oc.query_eval_plain(*args)))

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_query_scenes as qs  # tests/torch_query_scenes.py: pytest puts tests/ on sys.path
 from m3t_tpu_torch import graphs, pipeline
 from m3t_tpu_torch.common import Intrinsics
 from m3t_tpu_torch.ops import _cuda
@@ -580,12 +581,26 @@ def test_rgbd_cycle_on_card_matches_cpu(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pixels", [torch.int32, torch.float32])
-@pytest.mark.parametrize("n_tri,n_bodies,n_query", [(None, 512, 9600), (1600, 16, 4096)])
+@pytest.mark.parametrize("n_tri,n_bodies,n_query", [(None, 512, 9600), (1600, 16, 4096),
+                                                    ("robots", 4, 7200), (2500, 8, 1100),
+                                                    ("trap", 64, 1024)])
 def test_query_eval_kernel_matches_plain(cuda_device, n_tri, n_bodies, n_query, pixels):
     """The occluded scene's coefficients at B=512, Q=9600 (the flagship occlusion
-    path's shape), and 1600 random triangles (four shared-memory tiles), with int32 and
-    float32 pixels: inverse depths bit for bit, ids exactly."""
-    coeffs, valid, sil, u, v = _query_inputs(cuda_device, n_tri, n_bodies, n_query)
+    path's shape; at most 512 rows, staged whole), 1600 random triangles, the kinematic
+    cell's robot scenes at S = 4 (28 scenes of 2240 triangles, 7200 windowed queries
+    each: a ragged last block), and 2500 random triangles over the queries' span, of
+    which each block keeps more than its list of 512 holds (rounds), and
+    tests/torch_query_scenes.py's trap_scene (the chain of a row from its t, the block's
+    box from all of its tiles), with int32 and float32 pixels: inverse depths bit for
+    bit, ids exactly, one launch a call."""
+    if n_tri == "robots":
+        coeffs, valid, sil, u, v = qs.robot_queries(cuda_device, 1, n_bodies)
+        assert u.shape[1] == n_query
+    elif n_tri == "trap":
+        coeffs, valid, sil, u, v = qs.trap_scene(n_bodies, cuda_device)
+        assert u.shape[1] == n_query
+    else:
+        coeffs, valid, sil, u, v = _query_inputs(cuda_device, n_tri, n_bodies, n_query)
     u, v = u.to(pixels), v.to(pixels)
     launches = oc.query_eval.launches
     inv, ids = oc.query_eval(coeffs, valid, sil, u, v)
@@ -614,48 +629,66 @@ def test_query_eval_kernel_adversarial(cuda_device):
     assert set(ids.unique().tolist()) == {0, 11, 15}
 
 
-def _robot_scenes(device, seed, n_structures=4):
-    """(geom, scene_poses, intr, width, height): the kinematic cell's per-link scenes
-    (its configuration's seven icospheres, scene l focused on link l) of n_structures
-    robots, each joint turned by up to 8 degrees and the root moved by up to 2 cm from
-    the configured pose (seeded), on the cell's camera."""
-    import sys
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["robots", "whole"])
+def test_query_eval_counts_its_block_cull(cuda_device, scene):
+    """With the tracer on, two eager calls count occlusion.query_rows_scanned and
+    occlusion.query_rows_kept twice as the CPU emulation of the kernel counts them
+    (tests/torch_query_scenes.py, the blocks' loop bounds and the rows of their lists),
+    on the robot scenes at S = 2 (the block cull keeps some of the rows) and on the
+    occluded scene of at most 512 rows (staged whole: every row under the bound); no call
+    waits for the card (the report reads the tally); the same call with the tracer off,
+    or captured into a CUDA graph and replayed with it on, counts nothing, and every
+    call gives the same results."""
+    from m3t_tpu_torch.utils import timing
 
-    repo = str(Path(__file__).resolve().parents[1])
-    if repo not in sys.path:
-        sys.path.insert(0, repo)
-    from benchmark.harness import spec
-    from benchmark.traffic import generator
+    if scene == "robots":
+        args = qs.robot_queries(cuda_device, 2, 2)
+    else:
+        args = _query_inputs(cuda_device, None, 16, 9600)
+        assert args[0].shape[1] <= qs.LIST_ROWS
+    want = oc.query_eval(*args)
+    timing.reset()
+    try:
+        with timing.tracing():
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eager = [oc.query_eval(*args) for _ in range(2)]
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            counters = dict(timing.report().counters)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = oc.query_eval(*args)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert timing.report().counters == counters
+    finally:
+        timing.reset()
+    _, _, tally = qs.culled_query_eval(*(x.cpu() for x in args))
+    kept = int(tally.kept.sum())
+    assert counters == {"occlusion.query_rows_scanned": 2 * tally.scanned,
+                        "occlusion.query_rows_kept": 2 * kept}
+    if scene == "robots":
+        assert 0 < kept < tally.scanned
+    else:
+        assert 0 < kept == tally.scanned
+    for got in eager + [captured]:
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
 
-    module = spec.load_module("drivers", "fused_kinematic")
-    config = spec.config("rtb_kinematic_rgbd")
-    vertices, triangles = module.scene_meshes(config)
-    nl = len(config["structure"]["parent"])
-    bodies = [oc.SceneBody(vertices, triangles, body_id=link + 1, region_id=link + 1)
-              for link in range(nl)]
-    one = oc.build_kinematic_scene_geometry([bodies], referenced=[[k] for k in range(nl)],
-                                            device=device)
-    geom = type(one)(*(a.repeat((n_structures,) + (1,) * (a.dim() - 1)) for a in one))
-    body2joint, joint2parent = module.joint_poses(config)
-    rng = np.random.default_rng(seed)
-    joints = np.tile(joint2parent.astype(np.float64), (n_structures, 1, 1, 1))
-    for s in range(n_structures):
-        for link in range(nl):
-            axis = rng.normal(size=3)
-            axis *= np.deg2rad(rng.uniform(-8, 8)) / np.linalg.norm(axis)
-            k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
-                          [-axis[1], axis[0], 0]])
-            angle = np.linalg.norm(axis)
-            turn = np.eye(3) + np.sin(angle) / angle * k + (
-                1 - np.cos(angle)) / angle ** 2 * k @ k
-            joints[s, link, :3, :3] = joints[s, link, :3, :3] @ turn
-        joints[s, 0, :3, 3] += rng.uniform(-0.02, 0.02, 3)
-    links = generator.forward_kinematics(config["structure"]["parent"], joints,
-                                         body2joint.astype(np.float64))
-    scene_poses = torch.as_tensor(np.repeat(links, nl, axis=0), dtype=torch.float32,
-                                  device=device)
-    intr = tuple(float(config[k]) for k in ("fu", "fv", "ppu", "ppv"))
-    return geom, scene_poses, intr, int(config["width"]), int(config["height"])
+
+@pytest.mark.cuda
+def test_query_eval_refuses_misaligned_coeffs(cuda_device):
+    """The kernel reads coefficient rows as 16-byte words: a contiguous coeffs view that
+    starts 4 bytes into its storage is refused, not launched."""
+    coeffs, valid, sil, u, v = _query_inputs(cuda_device, 600, 2, 64)
+    shifted = torch.empty(coeffs.numel() + 1, device=cuda_device)[1:].view(coeffs.shape)
+    shifted.copy_(coeffs)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    launches = oc.query_eval.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        oc.query_eval(shifted, valid, sil, u, v)
+    assert oc.query_eval.launches == launches
 
 
 def _assert_same_scene(got, want):
@@ -670,7 +703,7 @@ def test_scene_coeffs_kernel_matches_plain_on_robot_scenes(cuda_device, seed):
     SceneCoeffs field of the kernel's focused scenes equals the plain twin's on the same
     card inputs, one launch a call, and the query kernel on both gives the same inverse
     depths and ids at every pixel of a grid over the crop."""
-    geom, scene_poses, intr, width, height = _robot_scenes(cuda_device, seed)
+    geom, scene_poses, intr, width, height = qs.robot_scenes(cuda_device, seed)
     launches = oc.scene_coeffs.launches
     got = oc.focused_scene_coeffs(geom, scene_poses, intr, width, height, 200)
     torch.cuda.synchronize()

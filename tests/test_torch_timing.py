@@ -275,6 +275,28 @@ def test_reset_forgets_what_was_kept():
     assert not report.spans and not report.intervals and not report.counters
 
 
+def test_a_device_tally_counts_when_the_report_reads_it():
+    """A device tally exists only with the tracer on and no capture running; the calls
+    until the report share one tally, the report adds it to the counters and forgets
+    it, and a reset drops an unread tally."""
+    names = ("a.rows", "a.kept")
+    assert timing.device_tally(names, "cpu") is None
+    with timing.tracing():
+        first = timing.device_tally(names, "cpu")
+        assert timing.device_tally(names, "cpu") is first
+        first += torch.tensor([5, 2])
+        with timing.capturing([], []):
+            assert timing.device_tally(names, "cpu") is None
+        assert timing.report().counters == {"a.rows": 5, "a.kept": 2}
+        second = timing.device_tally(names, "cpu")
+        assert second is not first and second.tolist() == [0, 0]
+        second += torch.tensor([1, 1])
+        assert timing.report().counters == {"a.rows": 6, "a.kept": 3}
+        timing.device_tally(names, "cpu").add_(7)
+    timing.reset()
+    assert timing.report().counters == {}
+
+
 @pytest.mark.parametrize("name", CYCLES)
 def test_stages_tile_the_cycle(cpu_calls, name):
     """The marks give the expected stages, in order and back to back, from the graph's
@@ -399,17 +421,26 @@ def test_the_tracer_leaves_graph_outputs_as_they_are(cuda_calls, name):
 def test_kinematic_counters_count_every_replay(cuda_calls):
     """The articulated cycle's counters (taken into its graph at the capture) count the
     first call and each replay: S structures, S * NL links, S * (NL + NC) * 6 KKT rows,
-    and B * T scene triangles per correspondence iteration."""
+    and B * T scene triangles per correspondence iteration.  K4's block-cull counters
+    come from a tally on the card that eager launches add to and the report reads: the
+    first call's eager run counts them as the same cycle run eagerly does, and the
+    capture and the replays add nothing."""
     from m3t_tpu_torch.ops import kinematics as kin_ops
 
     fn, args, kwargs = cuda_calls["kinematic"]
     pcfg, kin = args[0], args[4]
     s, nl = kin.parent.shape
     b, t = kwargs["scene_geom"].tri_valid.shape
+    with graphs.disable_graphs(), timing.tracing():
+        fn(*args, **kwargs)
+    rows = {name: timing.report().counters[name]
+            for name in ("occlusion.query_rows_scanned", "occlusion.query_rows_kept")}
+    assert 0 < rows["occlusion.query_rows_kept"] <= rows["occlusion.query_rows_scanned"]
+    timing.reset()
     with timing.tracing():
         _replays(fn, args, kwargs, 2)
     assert timing.report().counters == {
         "graphs.copy_bytes": timing.report().counters["graphs.copy_bytes"],
         "kinematics.structures": 3 * s, "kinematics.links": 3 * s * nl,
         "kinematics.kkt_rows": 3 * s * kin_ops.kkt_rows(kin),
-        "occlusion.scene_triangles": 3 * pcfg.n_corr_iterations * b * t}
+        "occlusion.scene_triangles": 3 * pcfg.n_corr_iterations * b * t, **rows}
