@@ -25,6 +25,7 @@ from m3t_tpu_torch.ops import _cuda
 from m3t_tpu_torch.ops import depth_fn
 from m3t_tpu_torch.ops.depth_fn import KMAX_N_OCCLUSION_STRIDES, DepthConfig
 from m3t_tpu_torch.ops.region_fast import _require, crop_corners
+from m3t_tpu_torch.utils import timing
 
 # ----------------------------------------------------------------------------------------
 # Kernel 3: strided windows
@@ -193,8 +194,10 @@ def presample_occlusion_windows(radius: float, use_depth_scaling: bool, centers_
 
     centers_b: (B, P, 3) model points (body frame); poses: (B, 4, 4) body to depth
     camera; image: (B, H, W) uint16 depth frames.  Returns (d (B, P, K, K) raw depth, ok
-    (B, P, K, K) bool: the image-bounds sample mask and the crop-coverage mask)."""
+    (B, P, K, K) bool: the image-bounds sample mask and the crop-coverage mask).  Counts
+    its B * P windows (utils/timing counter ``depth.occlusion_windows``)."""
     k = KMAX_N_OCCLUSION_STRIDES + 1
+    timing.count("depth.occlusion_windows", centers_b.shape[0] * centers_b.shape[1])
     u_min, v_min, u_max, v_max, stride = occlusion_windows(
         radius, use_depth_scaling, centers_b, poses, fu, fv, ppu, ppv, width, height)
     d, in_crop = _fetch_strided_windows(image, u_min, v_min, stride, corner_u, corner_v,

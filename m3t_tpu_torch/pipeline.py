@@ -528,7 +528,7 @@ def _region_measured_occlusion(pcfg: PipelineConfig, depth: _DepthInputs | None,
     height, width = depth.images.shape[1], depth.images.shape[2]
     presampled = None
     if depth.corner_u is not None:
-        timing.stage("depth_correspondences")
+        timing.stage("measured_occlusion")
         presampled = depth_fast.presample_occlusion_windows(
             pcfg.cfg.measured_occlusion_radius, False, points.center_f_body.transpose(1, 2),
             pose, depth.images, depth.corner_u, depth.corner_v, pcfg.crop_size,
@@ -617,10 +617,12 @@ def _depth_terms(pcfg: PipelineConfig, depth: _DepthInputs, corr_iteration: int,
         depth.corner_v, pcfg.crop_size, dfu, dfv, dppu, dppv)
     measured = None
     if pcfg.depth_measure_occlusions:
+        timing.stage("measured_occlusion")
         measured = depth_fast.presample_occlusion_windows(
             pcfg.depth_cfg.measured_occlusion_radius, pcfg.depth_cfg.use_depth_scaling,
             view.center_f_body, pose, depth.images, depth.corner_u, depth.corner_v,
             pcfg.crop_size, dfu, dfv, dppu, dppv, width, height)
+        timing.stage("depth_correspondences")
     return depth_fn.calculate_correspondences(
         pcfg.depth_cfg, cd, view,
         pcfg.depth_cfg.n_points_max if n_points is None else n_points, pose, depth.images,
@@ -651,6 +653,9 @@ STAGE_PHASES = {
     "sample_lines": "calculate_correspondences",  # K1, ratio mode
     "lines": "calculate_correspondences",  # lines_from_samples
     "depth_correspondences": "calculate_correspondences",  # corners, K3, depth terms
+    # K3 on the measured-occlusion windows of the region lines and the depth points
+    # (marked only where measured occlusions are on).
+    "measured_occlusion": "calculate_correspondences",
     "gradient_hessian": "calculate_gradient_and_hessian",  # gradient_hessian_cl
     "depth_gradient_hessian": "calculate_gradient_and_hessian",
     "texture_gradient_hessian": "calculate_gradient_and_hessian",

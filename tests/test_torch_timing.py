@@ -78,18 +78,21 @@ def _calls(inp) -> dict:
 def _expected_stages(name: str, pcfg) -> list:
     """The stages a cycle's marks give, in order: the graph's own start, the cycle's
     prologue (the RGB-D cycles' depth crop corners), per correspondence iteration the
-    scene, the view, the region lines (measured occlusions from the depth frames
-    first) and the depth terms, per update iteration the gradient terms and the Newton
-    step (the articulated cycle's KKT step in its two stages), then the histograms."""
+    scene, the view, the region lines (their measured-occlusion windows from the depth
+    frames first) and the depth terms (the points' measured-occlusion windows inside),
+    per update iteration the gradient terms and the Newton step (the articulated
+    cycle's KKT step in its two stages), then the histograms."""
     rgbd, kinematic = name == "rgbd", name == "kinematic"
     depth = pcfg.use_depth and (rgbd or kinematic)
     stages = ["graphs.run"] + ["depth_correspondences"] * depth + ["crops"]
     for _ in range(pcfg.n_corr_iterations):
         stages += ["scene_render", "view"]
         if rgbd and pcfg.region_measure_occlusions and depth:
-            stages.append("depth_correspondences")
+            stages.append("measured_occlusion")
         stages += ["line_geometry", "sample_lines", "lines"]
         stages += ["depth_correspondences"] * depth
+        if depth and pcfg.depth_measure_occlusions:
+            stages += ["measured_occlusion", "depth_correspondences"]
         for _ in range(pcfg.n_update_iterations):
             stages.append("gradient_hessian")
             stages += ["depth_gradient_hessian"] * depth
@@ -421,16 +424,19 @@ def test_the_tracer_leaves_graph_outputs_as_they_are(cuda_calls, name):
 def test_kinematic_counters_count_every_replay(cuda_calls):
     """The articulated cycle's counters (taken into its graph at the capture) count the
     first call and each replay: S structures, S * NL links, S * (NL + NC) * 6 KKT rows,
-    and B * T scene triangles per correspondence iteration.  K4's block-cull counters
-    come from a tally on the card that eager launches add to and the report reads: the
-    first call's eager run counts them as the same cycle run eagerly does, and the
-    capture and the replays add nothing."""
+    and per correspondence iteration B * T scene triangles and the B * P depth points'
+    measured-occlusion windows (the dry run's problem checks them).  K4's block-cull
+    counters come from a tally on the card that eager launches add to and the report
+    reads: the first call's eager run counts them as the same cycle run eagerly does,
+    and the capture and the replays add nothing."""
     from m3t_tpu_torch.ops import kinematics as kin_ops
 
     fn, args, kwargs = cuda_calls["kinematic"]
     pcfg, kin = args[0], args[4]
     s, nl = kin.parent.shape
     b, t = kwargs["scene_geom"].tri_valid.shape
+    assert pcfg.depth_measure_occlusions
+    points = kwargs["depth_model"].centers.shape[2]
     with graphs.disable_graphs(), timing.tracing():
         fn(*args, **kwargs)
     rows = {name: timing.report().counters[name]
@@ -443,4 +449,5 @@ def test_kinematic_counters_count_every_replay(cuda_calls):
         "graphs.copy_bytes": timing.report().counters["graphs.copy_bytes"],
         "kinematics.structures": 3 * s, "kinematics.links": 3 * s * nl,
         "kinematics.kkt_rows": 3 * s * kin_ops.kkt_rows(kin),
-        "occlusion.scene_triangles": 3 * pcfg.n_corr_iterations * b * t, **rows}
+        "occlusion.scene_triangles": 3 * pcfg.n_corr_iterations * b * t,
+        "depth.occlusion_windows": 3 * pcfg.n_corr_iterations * b * points, **rows}
